@@ -1,0 +1,232 @@
+"""The port's GCG slice (phased path) against gcge_tpu on the same inputs.
+
+Both packages get the same full-width starting block from numpy, so no
+random numbers are drawn on either side.  Eigenvalues must agree to 1e-10
+relative and the converged counts must be equal.  The iteration counts may
+differ by up to 2: the spectra have degenerate and near-degenerate clusters,
+where the two ``eigh``s return different eigenbases, and the f32 stages of
+the mixed inner CG sum in another order, so the iterates drift apart at
+rounding level and the convergence test can fire one iteration earlier or
+later.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sps
+import torch
+
+import gcge_tpu
+from gcge_tpu.ops.operators import DenseOperator as JDense
+from gcge_tpu.ops.operators import DiagOperator as JDiag
+from gcge_tpu.ops.operators import SparseOperator as JSparse
+from gcge_tpu.ops.operators import make_operator as j_make_operator
+from gcge_tpu.solvers.gcg import GCGParams as JParams
+from gcge_tpu.solvers.gcg import gcg_solve as j_gcg_solve
+import gcge_tpu_torch
+from gcge_tpu_torch import (DenseOperator, DiagOperator, GCGParams,
+                            SparseOperator, gcg_solve, make_operator)
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the headline solve's parameters, at a small size
+HEADLINE = dict(nev=10, block_size=10, max_iter=120, cg_max_iter=30,
+                cg_mixed=True, cg_refine=2, cg_auto_shift=True, fuse=0,
+                verbose=0)
+
+
+def stencil_27(nx: int):
+    """3-D 27-point Laplacian on an nx^3 grid (COO)."""
+    n = nx ** 3
+    idx = np.arange(n)
+    i, j, k = idx // (nx * nx), (idx // nx) % nx, idx % nx
+    rows, cols, vals = [], [], []
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for dk in (-1, 0, 1):
+                ii, jj, kk = i + di, j + dj, k + dk
+                ok = ((ii >= 0) & (ii < nx) & (jj >= 0) & (jj < nx)
+                      & (kk >= 0) & (kk < nx))
+                rows.append(idx[ok])
+                cols.append((ii * nx * nx + jj * nx + kk)[ok])
+                vals.append(np.full(ok.sum(), 26.0 if di == dj == dk == 0
+                                    else -1.0))
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
+
+
+def _assert_parity(ev_t, conv_t, it_t, ev_j, conv_j, it_j, nev,
+                   equal_conv=True):
+    assert conv_t >= nev and conv_j >= nev
+    if equal_conv:
+        assert conv_t == conv_j
+    ev_t, ev_j = np.asarray(ev_t)[:nev], np.asarray(ev_j)[:nev]
+    assert np.max(np.abs(ev_t - ev_j) / np.abs(ev_j)) <= 1e-10
+    if it_t is not None:
+        assert abs(it_t - it_j) <= 2
+
+
+@pytest.fixture(scope="module")
+def stencil10():
+    rows, cols, vals, n = stencil_27(10)
+    x0 = np.random.default_rng(0).uniform(-1, 1, (n, 20))
+    return rows, cols, vals, n, x0
+
+
+def test_slice_gcg_solve_matches_jax(stencil10):
+    """gcg_solve with the headline parameters (mixed inner CG, refine 2,
+    auto shift, phased) on an nx=10 27-point stencil, nev=10."""
+    rows, cols, vals, n, x0 = stencil10
+    jr = j_gcg_solve(j_make_operator(rows, cols, vals, (n, n)), None,
+                     JParams(**HEADLINE), x0=jnp.asarray(x0))
+    tr = gcg_solve(make_operator(rows, cols, vals, (n, n), device="cpu"),
+                   None, GCGParams(**HEADLINE), x0=x0)
+    _assert_parity(tr.eval, tr.nev_conv, tr.num_iter,
+                   jr.eval, jr.nev_conv, jr.num_iter, 10)
+    # the Ritz vectors are eigenvectors to the solver's tolerance
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    x = tr.evec[:, :10].numpy()
+    res = np.linalg.norm(a @ x - x * tr.eval[None, :10], axis=0)
+    assert res.max() <= 1e-8 * np.abs(tr.eval[:10]).max() * 2
+
+
+def test_slice_solve_matches_jax(stencil10):
+    """The same through the one-call frontends, scipy matrix in."""
+    rows, cols, vals, n, x0 = stencil10
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    kw = {k: v for k, v in HEADLINE.items() if k != "nev"}
+    ev_j, _, conv_j = gcge_tpu.solve(a, None, nev=10, x0=jnp.asarray(x0),
+                                     **kw)
+    ev_t, evec_t, conv_t = gcge_tpu_torch.solve(a, None, nev=10,
+                                                device="cpu", x0=x0, **kw)
+    assert evec_t.device.type == "cpu" and evec_t.shape == (n, 20)
+    _assert_parity(ev_t, conv_t, None, ev_j, conv_j, None, 10)
+
+
+def test_generalized_cg_order2_restart_matches_jax():
+    """A x = lambda B x with diagonal B, the plain f64 inner CG with
+    cg_order=2, and restart growth (nev_init < nev_max)."""
+    n = 400
+    h = 1.0 / (n + 1)
+    a = (np.diag(np.full(n, 2.0 / h)) - np.diag(np.full(n - 1, 1.0 / h), 1)
+         - np.diag(np.full(n - 1, 1.0 / h), -1))
+    rows, cols = np.nonzero(a)
+    vals = a[rows, cols]
+    d = np.random.default_rng(5).uniform(0.5, 1.5, n) * h
+    # nev > 2*block_size: the first target is 8 pairs at size_x 12, then
+    # the basis grows by the P and W widths
+    kw = dict(nev=12, block_size=4, nev_max=24, nev_init=12, max_iter=200,
+              cg_order=2, cg_max_iter=20, verbose=0)
+    x0 = np.random.default_rng(6).uniform(-1, 1, (n, 12))
+    jr = j_gcg_solve(j_make_operator(rows, cols, vals, (n, n)),
+                     JDiag(jnp.asarray(d)), JParams(**kw), x0=jnp.asarray(x0))
+    tr = gcg_solve(make_operator(rows, cols, vals, (n, n), device="cpu"),
+                   DiagOperator(torch.as_tensor(d)), GCGParams(**kw), x0=x0)
+    assert len(tr.eval) == len(jr.eval) > 12       # the basis grew
+    _assert_parity(tr.eval, tr.nev_conv, tr.num_iter,
+                   jr.eval, jr.nev_conv, jr.num_iter, 12)
+
+
+@pytest.mark.parametrize("kind", ["ell", "dense"])
+def test_mixed_inner_cg_on_other_operators_matches_jax(kind):
+    """cg_mixed on an ELL operator (f32 CG stages in the (n, m) layout) and
+    on a dense one (no f32 form: the plain f64 CG), generalized with a
+    diagonal B.  Both must converge the wanted pairs; the converged counts
+    may differ past ``nev``: the last convergence check can take in one more
+    pair on one side, because the f32 stages sum in another order."""
+    rows, cols, vals, n = stencil_27(7)
+    # a random diagonal splits the stencil's degenerate clusters, so that
+    # the converged count does not hinge on where a cluster is cut
+    vals = vals + np.where(rows == cols, np.random.default_rng(6).uniform(
+        0.0, 3.0, len(vals)), 0.0)
+    d = np.random.default_rng(7).uniform(0.5, 1.5, n)
+    kw = dict(nev=6, block_size=6, max_iter=100, cg_mixed=True,
+              cg_auto_shift=True, verbose=0)
+    x0 = np.random.default_rng(8).uniform(-1, 1, (n, 12))
+    if kind == "ell":
+        jop = JSparse.from_coo(rows, cols, vals, (n, n))
+        top = SparseOperator.from_coo(rows, cols, vals, (n, n), device="cpu")
+    else:
+        a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).toarray()
+        jop, top = JDense(jnp.asarray(a)), DenseOperator(torch.as_tensor(a))
+    jr = j_gcg_solve(jop, JDiag(jnp.asarray(d)), JParams(**kw),
+                     x0=jnp.asarray(x0))
+    tr = gcg_solve(top, DiagOperator(torch.as_tensor(d)), GCGParams(**kw),
+                   x0=x0)
+    _assert_parity(tr.eval, tr.nev_conv, tr.num_iter,
+                   jr.eval, jr.nev_conv, jr.num_iter, 6, equal_conv=False)
+
+
+@pytest.mark.parametrize("nev,block_size,nev_max", [
+    (30, 0, 0), (10, 3, 0), (10, 0, 25), (1, 0, 0)])
+def test_resolved_matches_jax(nev, block_size, nev_max):
+    kw = dict(nev=nev, block_size=block_size, nev_max=nev_max)
+    t, j = GCGParams(**kw).resolved(1000), JParams(**kw).resolved(1000)
+    for f in ("nev", "block_size", "nev_max", "nev_init", "multi_max"):
+        assert getattr(t, f) == getattr(j, f)
+
+
+def test_options_not_ported_raise(stencil10):
+    rows, cols, vals, n, _ = stencil10
+    op = make_operator(rows, cols, vals, (n, n), device="cpu")
+    for kw, item in ((dict(fuse=5), "item 8"),
+                     (dict(checkpoint_path="x"), "item 11"),
+                     (dict(profile_dir="x"), "item 11")):
+        with pytest.raises(NotImplementedError, match=item):
+            gcg_solve(op, None, GCGParams(nev=4, **kw))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        gcg_solve(op, None, GCGParams(nev=4), mesh=object())
+    a = sps.identity(50, format="csr")
+    for kw in (dict(rcm=True), dict(distribute=True), dict(multigrid=2),
+               dict(method="pas")):
+        with pytest.raises(NotImplementedError):
+            gcge_tpu_torch.solve(a, nev=2, device="cpu", **kw)
+    with pytest.raises(ValueError, match="exceeds"):
+        GCGParams(nev=30).resolved(50)
+
+
+def test_eigsh_cpu():
+    """scipy-style frontend on a 1-D Laplacian with a known spectrum."""
+    n = 200
+    a = sps.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                  [-1, 0, 1], format="csr")
+    w, v = gcge_tpu_torch.eigsh(a, k=4, device="cpu", block_size=4,
+                                verbose=0)
+    exact = 2 - 2 * np.cos(np.arange(1, 5) * np.pi / (n + 1))
+    assert np.max(np.abs(w - exact) / exact) <= 1e-10
+    assert v.shape == (n, 4)
+    with pytest.raises(ValueError):
+        gcge_tpu_torch.eigsh(a, k=4, which="LM", device="cpu")
+
+
+def test_port_never_imports_jax():
+    """With ``jax`` unimportable, the port imports and runs a tiny CPU
+    solve; no module of gcge_tpu or jax is loaded."""
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        "import numpy as np, scipy.sparse as sps",
+        "import gcge_tpu_torch",
+        "from gcge_tpu_torch.utils.convert import operator_from_numpy",
+        "n = 60",
+        "a = sps.diags([-np.ones(n-1), 2*np.ones(n), -np.ones(n-1)],"
+        " [-1, 0, 1], format='csr')",
+        "ev, _, conv = gcge_tpu_torch.solve(a, nev=3, device='cpu',"
+        " block_size=3, verbose=0)",
+        "assert conv >= 3, conv",
+        "bad = [m for m, mod in sys.modules.items() if mod is not None"
+        " and m.split('.')[0] in ('jax', 'jaxlib', 'gcge_tpu')]",
+        "assert not bad, bad",
+        "print('ok')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

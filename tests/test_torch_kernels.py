@@ -1,0 +1,212 @@
+"""Plain versions of the port's kernels against gcge_tpu's Pallas kernels.
+
+The same numpy inputs go to both packages.  The Pallas kernels run in
+interpret mode, as gcge_tpu's own tests run them on the CPU; the port's
+wrappers run their plain PyTorch versions because the tensors lie on the CPU.
+The CUDA kernels themselves are checked on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gcge_tpu.ops.osgemm_pallas import os_expand_pallas, os_gram_pallas
+from gcge_tpu.ops.spmm_pallas import (dia_spmm_pallas_t,
+                                      dia_spmm_pallas_t_df64, split_df32)
+from gcge_tpu_torch.ops import osgemm, spmm
+from gcge_tpu_torch.ops.operators import DiaOperator
+
+torch.set_num_threads(2)
+
+
+def stencil_27(nx: int):
+    """3-D 27-point Laplacian on an nx^3 grid (COO)."""
+    n = nx ** 3
+    idx = np.arange(n)
+    i, j, k = idx // (nx * nx), (idx // nx) % nx, idx % nx
+    rows, cols, vals = [], [], []
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for dk in (-1, 0, 1):
+                ii, jj, kk = i + di, j + dj, k + dk
+                ok = ((ii >= 0) & (ii < nx) & (jj >= 0) & (jj < nx)
+                      & (kk >= 0) & (kk < nx))
+                rows.append(idx[ok])
+                cols.append((ii * nx * nx + jj * nx + kk)[ok])
+                vals.append(np.full(ok.sum(), 26.0 if di == dj == dk == 0
+                                    else -1.0))
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
+
+
+@pytest.fixture(scope="module")
+def dia12():
+    rows, cols, vals, n = stencil_27(12)
+    # non-constant values so that every diagonal entry matters
+    vals = vals * np.random.default_rng(3).uniform(0.5, 1.5, len(vals))
+    return DiaOperator.from_coo(rows, cols, vals, (n, n), device="cpu")
+
+
+def _dia_scale(op, x_nm):
+    """max of |A| |x| — the size each output's rounding is measured against."""
+    absop = DiaOperator(op.values.abs(), op.offsets, op.n_cols)
+    return float(absop.matvec(torch.as_tensor(np.abs(x_nm))).max())
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m", [3, 10])
+def test_dia_f64_plain_matches_df64_pallas(dia12, m, transposed):
+    """Port's f64 DIA (plain) vs the df64 Pallas kernel: within 1e-13 of
+    max |A||x| (df64 planes carry ~2^-48 relative error)."""
+    n = dia12.shape[0]
+    x = np.random.default_rng(m).standard_normal((n, m))
+    hi, lo = split_df32(jnp.asarray(dia12.values.numpy()))
+    ref = np.asarray(dia_spmm_pallas_t_df64(hi, lo, dia12.offsets,
+                                            jnp.asarray(x.T),
+                                            interpret=True)).T
+    xt = torch.as_tensor(x.T.copy() if transposed else x)
+    got = (dia12.matvec_t(xt).T if transposed else dia12.matvec(xt)).numpy()
+    assert np.max(np.abs(got - ref)) <= 1e-13 * _dia_scale(dia12, x)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dia_f32_plain_matches_pallas(dia12, transposed):
+    """Port's f32 DIA (plain) vs the f32 Pallas kernel: within 1e-5 of
+    max |A||x| (f32 sums of 27 terms)."""
+    n = dia12.shape[0]
+    x = np.random.default_rng(7).standard_normal((n, 10)).astype(np.float32)
+    v32 = dia12.values.float()
+    ref = np.asarray(dia_spmm_pallas_t(jnp.asarray(v32.numpy()),
+                                       dia12.offsets, jnp.asarray(x.T),
+                                       interpret=True)).T
+    op32 = DiaOperator(v32, dia12.offsets, dia12.n_cols)
+    xt = torch.as_tensor(x.T.copy() if transposed else x)
+    got = (op32.matvec_t(xt).T if transposed else op32.matvec(xt)).numpy()
+    assert np.max(np.abs(got - ref)) <= 1e-5 * _dia_scale(dia12, x)
+
+
+def test_dia_strided_views_match_contiguous(dia12):
+    """A column slice of a wider basis and a transposed view give the same
+    product as contiguous copies (the kernels take 2-D strides)."""
+    n = dia12.shape[0]
+    basis = torch.as_tensor(np.random.default_rng(1).standard_normal((n, 9)))
+    view = basis[:, 2:7]
+    assert torch.equal(dia12.matvec(view), dia12.matvec(view.contiguous()))
+    assert torch.equal(dia12.matvec_t(view.T), dia12.matvec(view).T)
+
+
+def test_dia_wrapper_rejects_what_the_kernel_does_not_take(dia12):
+    n = dia12.shape[0]
+    x = torch.zeros((n, 2), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="halo"):
+        spmm.dia_spmm(dia12.values, dia12.offsets_t, x, halo=(1, 0))
+    with pytest.raises(ValueError, match="does not match"):
+        spmm.dia_spmm(dia12.values, dia12.offsets_t, x, transposed=True)
+    with pytest.raises(ValueError, match="does not match"):
+        spmm.dia_spmm(dia12.values, dia12.offsets_t, x[:-1])
+
+
+def _gram_scale(a, b):
+    return (np.linalg.norm(a, axis=0)[:, None]
+            * np.linalg.norm(b, axis=0)[None, :]) + 1e-300
+
+
+def _expand_scale(a, c):
+    return np.abs(a).max(1)[:, None] * np.abs(c).max(0)[None, :] \
+        * a.shape[1] + 1e-300
+
+
+@pytest.mark.parametrize("shape", [(1500, 120, 10), (1030, 100, 100),
+                                   (999, 9, 3)])
+def test_tall_gram_plain_matches_os_gram_pallas(shape):
+    """Plain tall Gram vs the sliced Pallas Gram: within 1e-13 of
+    ||a_i|| ||b_j|| per entry."""
+    n, p, q = shape
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((n, p)) * np.exp(rng.uniform(-6, 6, (1, p)))
+    b = rng.standard_normal((n, q))
+    ref = np.asarray(os_gram_pallas(jnp.asarray(a), jnp.asarray(b),
+                                    interpret=True))
+    got = osgemm.tall_gram(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    assert np.max(np.abs(got - ref) / _gram_scale(a, b)) < 1e-13
+
+
+@pytest.mark.parametrize("shape", [(1500, 120, 100), (1030, 120, 10),
+                                   (999, 9, 3)])
+def test_tall_expand_plain_matches_os_expand_pallas(shape):
+    """Plain tall expand vs the sliced Pallas expand: within 1e-13 of
+    k max|a_i.| max|c_.j| per entry."""
+    n, k, q = shape
+    rng = np.random.default_rng(n + k)
+    a = rng.standard_normal((n, k)) * np.exp(rng.uniform(-6, 6, (n, 1)))
+    c = rng.standard_normal((k, q)) * np.exp(rng.uniform(-6, 6, (1, q)))
+    ref = np.asarray(os_expand_pallas(jnp.asarray(a), jnp.asarray(c),
+                                      interpret=True))
+    got = osgemm.tall_expand(torch.as_tensor(a), torch.as_tensor(c)).numpy()
+    assert np.max(np.abs(got - ref) / _expand_scale(a, c)) < 1e-13
+
+
+def test_tall_gemm_zero_and_tiny_columns():
+    """Zero columns and 1e-30-scaled columns (test_osgemm.py's case):
+    within 1e-13 of the largest entry."""
+    rng = np.random.default_rng(42)
+    n = 700
+    a = rng.standard_normal((n, 6))
+    a[:, 2] = 0.0
+    a[:, 4] *= 1e-30
+    b = rng.standard_normal((n, 4))
+    b[:, 1] = 0.0
+    ref = np.asarray(os_gram_pallas(jnp.asarray(a), jnp.asarray(b),
+                                    interpret=True))
+    got = osgemm.tall_gram(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    assert np.max(np.abs(got - ref)) < 1e-13 * np.abs(ref).max()
+    assert np.all(got[2] == 0.0) and np.all(got[:, 1] == 0.0)
+    c = rng.standard_normal((6, 5))
+    c[:, 3] = 0.0
+    ref2 = np.asarray(os_expand_pallas(jnp.asarray(a), jnp.asarray(c),
+                                       interpret=True))
+    got2 = osgemm.tall_expand(torch.as_tensor(a), torch.as_tensor(c)).numpy()
+    assert np.max(np.abs(got2 - ref2)) < 1e-13 * np.abs(ref2).max()
+    assert np.all(got2[:, 3] == 0.0)
+
+
+def test_tall_gemm_wide_blocks():
+    """Wide shapes (test_osgemm.py's case): the square p = q = 400 Gram and
+    the (480 x 400) recombination, within 1e-13 (scaled as above)."""
+    rng = np.random.default_rng(43)
+    n = 900
+    a = rng.standard_normal((n, 400))
+    b = rng.standard_normal((n, 400))
+    ref = np.asarray(os_gram_pallas(jnp.asarray(a), jnp.asarray(b),
+                                    interpret=True))
+    got = osgemm.tall_gram(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    assert np.max(np.abs(got - ref) / _gram_scale(a, b)) < 1e-13
+    a2 = rng.standard_normal((n, 480))
+    c2 = rng.standard_normal((480, 400))
+    ref2 = np.asarray(os_expand_pallas(jnp.asarray(a2), jnp.asarray(c2),
+                                       interpret=True))
+    got2 = osgemm.tall_expand(torch.as_tensor(a2),
+                              torch.as_tensor(c2)).numpy()
+    assert np.max(np.abs(got2 - ref2) / _expand_scale(a2, c2)) < 1e-13
+
+
+def test_tall_gemm_wrappers_check_shapes():
+    a = torch.zeros((5, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="do not contract"):
+        osgemm.tall_gram(a, torch.zeros((4, 2), dtype=torch.float64))
+    with pytest.raises(ValueError, match="do not contract"):
+        osgemm.tall_expand(a, torch.zeros((2, 2), dtype=torch.float64))
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(dia12):
+    """On CPU tensors the wrappers run the plain versions; the launch
+    counters move only where a CUDA kernel launches."""
+    before = {**spmm.LAUNCHES, **osgemm.LAUNCHES}
+    n = dia12.shape[0]
+    x = torch.ones((n, 2), dtype=torch.float64)
+    dia12.matvec(x)
+    dia12.matvec_t(x.T)
+    osgemm.tall_gram(x, x)
+    osgemm.tall_expand(x, torch.eye(2, dtype=torch.float64))
+    assert {**spmm.LAUNCHES, **osgemm.LAUNCHES} == before

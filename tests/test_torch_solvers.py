@@ -1,0 +1,179 @@
+"""The port's orthonormalization and block CG against gcge_tpu on the same
+numpy inputs (f64 on the CPU)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gcge_tpu.solvers.bpcg import BlockPCGParams as JParams
+from gcge_tpu.solvers.bpcg import block_pcg as j_block_pcg
+from gcge_tpu.solvers.bpcg import block_pcg_t as j_block_pcg_t
+from gcge_tpu.solvers.orth import orth_block_against as j_orth_against
+from gcge_tpu.solvers.orth import orth_within as j_orth_within
+from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg, block_pcg_t
+from gcge_tpu_torch.solvers.orth import (orth_against, orth_block_against,
+                                         orth_within)
+
+torch.set_num_threads(2)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _projector(x, rank):
+    x = np.asarray(x)[:, :rank]
+    return x @ x.T
+
+
+def _b_orth_err(x, rank, d=None):
+    x = np.asarray(x)[:, :rank]
+    bx = x if d is None else d[:, None] * x
+    return np.abs(x.T @ bx - np.eye(rank)).max()
+
+
+def _basis_with_rank_drop(n, k, seed, d=None):
+    """q: k B-orthonormal columns (B = diag(d), or I); x: 6 columns of which
+    the last two are combinations of the others and of q (rank 4 after
+    projection)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, k)))
+    if d is not None:
+        q = q / np.sqrt(d)[:, None]
+    x = rng.standard_normal((n, 6))
+    x[:, 4] = x[:, 0] - 2.0 * x[:, 1] + 3.0 * q[:, 0]
+    x[:, 5] = q @ rng.standard_normal(k)
+    return q, x
+
+
+@pytest.mark.parametrize("generalized", [False, True])
+def test_orth_block_against_matches_jax(generalized):
+    """Equal rank; orthonormal to 1e-13 within the block and against q;
+    the same span as gcge_tpu's result to 1e-12 (bases differ by a
+    rotation: the two eigh's order degenerate directions differently)."""
+    n, k = 400, 5
+    d = np.random.default_rng(2).uniform(0.5, 2.0, n) if generalized \
+        else None
+    q, x = _basis_with_rank_drop(n, k, 1, d)
+    jb = None if d is None else (lambda v: jnp.asarray(d)[:, None] * v)
+    tb = None if d is None else (lambda v: _t(d)[:, None] * v)
+    xj, rj = j_orth_against(jnp.asarray(x), jnp.asarray(q), jb)
+    xt, rt = orth_block_against(_t(x), _t(q), tb)
+    assert int(rt) == int(rj) == 4
+    assert _b_orth_err(xt, 4, d) <= 1e-13
+    bq = q if d is None else d[:, None] * q
+    assert np.abs(bq.T @ xt.numpy()[:, :4]).max() <= 1e-13
+    assert np.all(xt.numpy()[:, 4:] == 0.0)
+    assert np.abs(_projector(xt, 4) - _projector(xj, 4)).max() <= 1e-12
+
+
+@pytest.mark.parametrize("dup", [0, 2])
+def test_orth_within_matches_jax(dup):
+    """EVP orthonormalization with ``dup`` dependent columns: equal rank,
+    orthonormal to 1e-13, the same span as gcge_tpu to 1e-12."""
+    rng = np.random.default_rng(dup + 10)
+    x = rng.standard_normal((300, 7))
+    for i in range(dup):
+        x[:, 6 - i] = x[:, i] + 0.5 * x[:, i + 1]
+    xj, rj = j_orth_within(jnp.asarray(x))
+    xt, rt = orth_within(_t(x))
+    rank = 7 - dup
+    assert int(rt) == int(rj) == rank
+    assert _b_orth_err(xt, rank) <= 1e-13
+    assert np.abs(_projector(xt, rank) - _projector(xj, rank)).max() <= 1e-12
+
+
+def test_orth_against_removes_the_projection():
+    rng = np.random.default_rng(3)
+    q, _ = np.linalg.qr(rng.standard_normal((200, 4)))
+    x = rng.standard_normal((200, 3)) + 1e3 * q[:, :3]
+    y = orth_against(_t(x), _t(q)).numpy()
+    assert np.abs(q.T @ y).max() <= 1e-13 * np.abs(x).max()
+
+
+def test_orth_rejects_what_is_not_ported():
+    x = _t(np.eye(4))
+    with pytest.raises(ValueError, match="precision"):
+        orth_within(x, precision="mixed")
+    with pytest.raises(ValueError, match="precision"):
+        orth_block_against(x, x, precision="osgemm")
+    for method in ("bgs", "mgs"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            orth_within(x, method=method)
+    with pytest.raises(ValueError, match="unknown"):
+        orth_within(x, method="qr")
+
+
+def _spd(n, seed):
+    """1-D Laplacian plus a random diagonal: SPD, moderately conditioned."""
+    d = 2.0 + np.random.default_rng(seed).uniform(0.0, 0.5, n)
+    return np.diag(d) - np.eye(n, k=1) - np.eye(n, k=-1)
+
+
+@pytest.mark.parametrize("tol_type,precond,masked", [
+    ("abs", False, False), ("rel", False, True), ("user", True, False),
+    ("abs", True, True)])
+def test_block_pcg_matches_jax(tol_type, precond, masked):
+    """Equal iteration counts; x within 1e-10 of max |x|."""
+    n, m = 120, 4
+    a = _spd(n, 0)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((n, m))
+    x0 = rng.standard_normal((n, m)) * 0.1
+    act = np.array([True, True, False, True]) if masked else None
+    norm_b = np.linalg.norm(b, axis=0) if tol_type == "user" else None
+    kw = dict(max_iter=40, rate=1e-6, tol=1e-12, tol_type=tol_type)
+    dinv = 1.0 / np.diag(a)
+    xj, ij = j_block_pcg(
+        lambda v: jnp.asarray(a) @ v, jnp.asarray(b), jnp.asarray(x0),
+        JParams(**kw), active0=None if act is None else jnp.asarray(act),
+        norm_b=None if norm_b is None else jnp.asarray(norm_b),
+        precond=(lambda r: jnp.asarray(dinv)[:, None] * r) if precond
+        else None)
+    xt, it = block_pcg(
+        lambda v: _t(a) @ v, _t(b), _t(x0), BlockPCGParams(**kw),
+        active0=None if act is None else _t(act),
+        norm_b=None if norm_b is None else _t(norm_b),
+        precond=(lambda r: _t(dinv)[:, None] * r) if precond else None)
+    assert it.niters == int(ij.niters) > 0
+    ref = np.asarray(xj)
+    assert np.abs(xt.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
+    np.testing.assert_allclose(it.init_res.numpy(), np.asarray(ij.init_res),
+                               rtol=1e-12)
+    if masked:
+        np.testing.assert_array_equal(xt.numpy()[:, 2], x0[:, 2])
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_block_pcg_t_matches_jax(precond):
+    """Transposed layout, shifted (indefinite) operator as in GCG's inner
+    solve: equal iteration counts, x within 1e-10 of max |x|."""
+    n, m = 150, 5
+    a = _spd(n, 2) - 0.3 * np.eye(n)
+    rng = np.random.default_rng(4)
+    bt = rng.standard_normal((m, n))
+    act = np.array([True, False, True, True, True])
+    kw = dict(max_iter=25, rate=1e-2, tol=1e-14)
+    dinv = 1.0 / np.diag(a)
+    xj, ij = j_block_pcg_t(
+        lambda v: v @ jnp.asarray(a), jnp.asarray(bt), jnp.zeros((m, n)),
+        JParams(**kw), active0=jnp.asarray(act),
+        precond=(lambda r: r * jnp.asarray(dinv)[None, :]) if precond
+        else None)
+    xt, it = block_pcg_t(
+        lambda v: v @ _t(a), _t(bt), torch.zeros((m, n), dtype=torch.float64),
+        BlockPCGParams(**kw), active0=_t(act),
+        precond=(lambda r: r * _t(dinv)[None, :]) if precond else None)
+    assert it.niters == int(ij.niters) > 0
+    ref = np.asarray(xj)
+    assert np.abs(xt.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
+    np.testing.assert_allclose(it.final_res.numpy(),
+                               np.asarray(ij.final_res), rtol=1e-8)
+    assert np.all(xt.numpy()[1] == 0.0)
+
+
+def test_block_pcg_user_tol_needs_norm_b():
+    with pytest.raises(ValueError, match="norm_b"):
+        block_pcg(lambda v: v, _t(np.ones((3, 1))), _t(np.zeros((3, 1))),
+                  BlockPCGParams(tol_type="user"))
