@@ -20,12 +20,14 @@ from gcge_tpu_torch.ops.operators import (  # noqa: E402
     DiagOperator,
     DiaOperator,
     FunctionOperator,
+    HybridOperator,
     IdentityOperator,
     LinearOperator,
     ShiftedOperator,
     SparseOperator,
     make_operator,
 )
+from gcge_tpu_torch.ops.onehot import CsrOperator, bf16_mask_supported  # noqa: E402
 from gcge_tpu_torch.api import eigsh, solve  # noqa: E402
 from gcge_tpu_torch.solvers.gcg import GCGParams, GCGResult, gcg_solve  # noqa: E402
 from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg  # noqa: E402
@@ -39,6 +41,8 @@ __all__ = [
     "DiagOperator",
     "FunctionOperator",
     "DiaOperator",
+    "HybridOperator",
+    "CsrOperator",
     "IdentityOperator",
     "ShiftedOperator",
     "SparseOperator",
@@ -52,4 +56,5 @@ __all__ = [
     "block_pcg",
     "orth_block",
     "orth_against",
+    "bf16_mask_supported",
 ]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``gcge_tpu_torch/ops/csrc/*.cu`` expose a plain C interface.
-They are compiled once, at first use, by ``nvcc`` into one shared library,
+They are compiled once, at first use, by ``nvcc`` (one process per source,
+all started together, then one link) into one shared library,
 ``gcge_tpu_torch/_build/libgcge_kernels_<sha>.so``, whose name carries a hash
 of the sources and flags, and loaded with :mod:`ctypes`.  A plain C library
 builds in seconds, where an extension that includes PyTorch's headers takes
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # argument types of each C entry point, in order
@@ -35,6 +36,9 @@ SIGNATURES = {
     "gcge_tall_gram_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P),
     "gcge_tall_expand_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P),
+    "gcge_csr_spmm_f64": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P),
+    "gcge_csr_spmm_f32": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P),
+    "gcge_onehot_mask_probe": (_P, _P, _P),
 }
 
 _lib = None
@@ -67,21 +71,43 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libgcge_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _finish(cmd: list[str], proc: subprocess.Popen) -> None:
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{stdout}{stderr}")
+
+
 def build() -> str:
-    """Compile the sources into the shared library unless it exists."""
+    """Compile the sources into the shared library unless it exists: every
+    source to an object file, all at once, then one link."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, running = [], []
+        for src in sources():
+            obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objects.append(obj)
+            running.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failure = None
+        for cmd, proc in running:         # wait for all, report the first
+            try:
+                _finish(cmd, proc)
+            except RuntimeError as exc:
+                failure = failure or exc
+        if failure is not None:
+            raise failure
+        lib_tmp = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objects]
+        _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+        os.replace(lib_tmp, out)
     return out
 
 

@@ -8,10 +8,15 @@ generic over it.
 * :class:`SparseOperator`   — ELL (padded-row) sparse matrix, gather SpMM.
 * :class:`DiaOperator`      — DIA (diagonal) storage; ``matvec``/``matvec_t``
   run the DIA kernels of :mod:`gcge_tpu_torch.ops.spmm` on CUDA.
+* :class:`HybridOperator`   — DIA core plus a CSR remainder.
 * :class:`DiagOperator`     — diagonal (mass) matrix.
 * :class:`IdentityOperator` — B = I.
 * :class:`ShiftedOperator`  — ``A + sigma*B``, applied without forming it.
 * :class:`FunctionOperator` — matrix-free, from a multivector function.
+
+The irregular layout, :class:`~gcge_tpu_torch.ops.onehot.CsrOperator`, lives
+with its kernels in :mod:`gcge_tpu_torch.ops.onehot`; :func:`make_operator`
+picks among DIA, Hybrid and CSR.
 
 ``gcge_tpu``'s ``DiaDF64Operator`` stores f64 values as f32 hi/lo planes
 because the TPU has no f64; the port's f64 :class:`DiaOperator` runs the
@@ -290,17 +295,88 @@ class DiaOperator(LinearOperator):
         return len(np.unique(np.asarray(cols) - np.asarray(rows)))
 
 
+class HybridOperator(LinearOperator):
+    """DIA core plus an irregular remainder — the counterpart of
+    ``gcge_tpu``'s ``HybridOperator``.
+
+    After RCM reordering most irregular symmetric matrices are almost banded:
+    the bulk of the nonzeros lands on a few hundred diagonals, with a thin
+    scatter of outliers.  The dominant diagonals go to the DIA layout
+    (kernels 1 and 2 on the card); the leftovers, which ``gcge_tpu`` keeps in
+    a narrow gather-ELL, go to a
+    :class:`~gcge_tpu_torch.ops.onehot.CsrOperator` (kernels 5 and 6).
+    ``rest`` is None when the diagonals hold everything."""
+
+    def __init__(self, dia: DiaOperator, rest):
+        self.dia = dia
+        self.rest = rest
+
+    @property
+    def shape(self):
+        return self.dia.shape
+
+    @property
+    def dtype(self):
+        return self.dia.dtype
+
+    @property
+    def device(self):
+        return self.dia.device
+
+    @property
+    def nnz(self):
+        return self.dia.nnz + (0 if self.rest is None else self.rest.nnz)
+
+    def matvec(self, x):
+        y = self.dia.matvec(x)
+        if self.rest is not None:
+            y = y + self.rest.matvec(x)
+        return y
+
+    def to_dense(self):
+        d = self.dia.to_dense()
+        return d if self.rest is None else d + self.rest.to_dense()
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, shape, dtype=torch.float64, *,
+                 device, max_diags: int = 128):
+        """The ``max_diags`` most populated diagonals to DIA, the rest to
+        CSR."""
+        from gcge_tpu_torch.ops.onehot import CsrOperator
+
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals)
+        offs = cols - rows
+        uniq, counts = np.unique(offs, return_counts=True)
+        keep = uniq[np.argsort(-counts)[:max_diags]]
+        in_dia = np.isin(offs, keep)
+        dia = DiaOperator.from_coo(rows[in_dia], cols[in_dia], vals[in_dia],
+                                   shape, dtype=dtype, device=device)
+        rest = None
+        if (~in_dia).any():
+            rest = CsrOperator.from_coo(rows[~in_dia], cols[~in_dia],
+                                        vals[~in_dia], shape, dtype=dtype,
+                                        device=device)
+        return cls(dia, rest)
+
+
 def make_operator(rows, cols, vals, shape, dtype=torch.float64, *, device,
                   max_diags: int = 128, hybrid_cover: float = 0.85,
                   hybrid_max_ell_width: int = 8):
-    """Pick the sparse layout for the pattern, as ``gcge_tpu`` does:
+    """Pick the sparse layout for the pattern, under ``gcge_tpu``'s rule:
 
     * **DIA** when at most ``max_diags`` diagonals are stored;
-    * **Hybrid** (DIA core + ELL outliers) when the top ``max_diags``
+    * **Hybrid** (DIA core + CSR outliers) when the top ``max_diags``
       diagonals cover ``hybrid_cover`` of the nonzeros and the remainder is
-      at most ``hybrid_max_ell_width`` wide — not ported yet;
-    * **ELL** otherwise, and for rectangular matrices.
+      at most ``hybrid_max_ell_width`` entries a row;
+    * **CSR** for any other square pattern, on every device (``gcge_tpu``'s
+      one-hot fill and byte guards are the TPU's cost model and have no
+      counterpart);
+    * **ELL** for rectangular matrices.
     """
+    from gcge_tpu_torch.ops.onehot import CsrOperator
+
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     if shape[0] != shape[1]:
@@ -318,8 +394,8 @@ def make_operator(rows, cols, vals, shape, dtype=torch.float64, *, device,
         width = np.bincount(rows[out], minlength=shape[0]).max() \
             if out.any() else 0
         if width <= hybrid_max_ell_width:
-            raise NotImplementedError(
-                "make_operator: this pattern takes the Hybrid (DIA + ELL) "
-                "layout, which is not ported yet (ROADMAP Queue 1 item 9)")
-    return SparseOperator.from_coo(rows, cols, vals, shape, dtype=dtype,
-                                   device=device)
+            return HybridOperator.from_coo(rows, cols, vals, shape,
+                                           dtype=dtype, device=device,
+                                           max_diags=max_diags)
+    return CsrOperator.from_coo(rows, cols, vals, shape, dtype=dtype,
+                                device=device)

@@ -16,9 +16,10 @@ back to the host each iteration.  Where ``gcge_tpu`` donates ``v`` to a
 jitted phase, the port updates ``v`` in place.
 
 The tall products of the phases run through the CUDA kernels on the card:
-every f64 application of a DIA operator (kernel 1), the f32 inner CG of the
-mixed branch (kernel 2), the tall Grams (kernel 3) and the tall
-recombinations (kernel 4).
+every f64 application of a DIA operator (kernel 1) or a CSR operator
+(kernel 6), the f32 inner CG of the mixed branch (kernels 2 and 5), the tall
+Grams (kernel 3) and the tall recombinations (kernel 4).  A Hybrid operator
+runs both SpMM pairs.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ import torch
 
 from gcge_tpu_torch.ops.eighs import eigh
 from gcge_tpu_torch.ops.multivec import col_dots, set_random
+from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import (DiagOperator, DiaOperator,
-                                          SparseOperator)
+                                          HybridOperator, SparseOperator)
 from gcge_tpu_torch.ops.osgemm import tall_expand, tall_gram
 from gcge_tpu_torch.solvers.bpcg import (BlockPCGParams, block_pcg,
                                          block_pcg_t)
@@ -66,8 +68,8 @@ class GCGParams:
     cg_auto_shift: bool = False
     cg_shift: float = 0.0
     cg_order: int = 1          # 2 -> two Krylov stages per solved column
-    # mixed-precision inner solve: f32 transposed CG stages (the f32 DIA
-    # kernel on the card) with f64 residual refreshes between them; needs
+    # mixed-precision inner solve: f32 CG stages (the f32 DIA and CSR
+    # kernels on the card) with f64 residual refreshes between them; needs
     # B = None or diagonal.  cg_max_iter stays the TOTAL matvec budget and is
     # split evenly over the cg_refine stages.
     cg_mixed: bool = False
@@ -167,47 +169,55 @@ def _compute_p(v, ss_evec, h, act_idx, act_cnt: int, size_x: int, bs: int,
     return v, p_cnt, h_pp
 
 
+def _f32_apply(a_op):
+    """The f32 form of ``a_op`` for the mixed inner CG, as ``(apply,
+    transposed)``: DIA and CSR run the transposed ``(m, n)`` layout (kernels
+    2 and 5 on the card), Hybrid and ELL the ``(n, m)`` layout.  ``(None,
+    False)`` for an operator without an f32 form."""
+    if isinstance(a_op, CsrOperator):     # dispatches on the dtype of x
+        return a_op.matvec_t, True
+    if isinstance(a_op, DiaOperator):
+        return DiaOperator(a_op.values.float(), a_op.offsets,
+                           a_op.n_cols).matvec_t, True
+    if isinstance(a_op, HybridOperator):
+        dia = a_op.dia
+        return HybridOperator(
+            DiaOperator(dia.values.float(), dia.offsets, dia.n_cols),
+            a_op.rest).matvec, False
+    if isinstance(a_op, SparseOperator):
+        return SparseOperator(a_op.values.float(), a_op.indices,
+                              a_op.n_cols).matvec, False
+    return None, False
+
+
 def _mixed_inner_solve(a_op, b_op, rhs, xact, fmask, colmask, sigma: float,
                        stage_cg, refine: int, shifted):
     """Mixed-precision refinement: f32 CG stages on the correction, f64
-    residual recomputed between stages.  DIA runs the transposed layout
-    (kernel 2 on the card); ELL runs the (n, m) layout.  Returns
-    ``(None, 0)`` for an operator without an f32 form."""
+    residual recomputed between stages (``shifted``, in the operator's f64
+    kernel).  Returns ``(None, 0)`` for an operator without an f32 form."""
+    apply32, transposed = _f32_apply(a_op)
+    if apply32 is None:
+        return None, 0
     dtype = rhs.dtype
-    b32 = None if b_op is None else b_op.d.float()
+    b32 = None
+    if b_op is not None:
+        b32 = b_op.d.float()
+        b32 = b32[None, :] if transposed else b32[:, None]
+    pcg = block_pcg_t if transposed else block_pcg
+
+    def mv32(y):
+        return apply32(y) + sigma * (y if b32 is None else b32 * y)
+
     w = xact
     niters = 0
-    if isinstance(a_op, DiaOperator):
-        a32 = DiaOperator(a_op.values.float(), a_op.offsets, a_op.n_cols)
-
-        def mv32_t(yt):
-            byt = yt if b32 is None else b32[None, :] * yt
-            return a32.matvec_t(yt) + sigma * byt
-
-        for _ in range(refine):
-            r = (rhs - shifted(w)) * fmask[None, :]
-            rt = r.T.float()
-            d, info = block_pcg_t(mv32_t, rt, torch.zeros_like(rt), stage_cg,
-                                  active0=colmask)
-            w = w + d.T.to(dtype)
-            niters += info.niters
-        return w, niters
-    if isinstance(a_op, SparseOperator):
-        a32 = SparseOperator(a_op.values.float(), a_op.indices, a_op.n_cols)
-
-        def mv32(y):
-            by = y if b32 is None else b32[:, None] * y
-            return a32.matvec(y) + sigma * by
-
-        for _ in range(refine):
-            r = (rhs - shifted(w)) * fmask[None, :]
-            r32 = r.float()
-            d, info = block_pcg(mv32, r32, torch.zeros_like(r32), stage_cg,
-                                active0=colmask)
-            w = w + d.to(dtype)
-            niters += info.niters
-        return w, niters
-    return None, 0
+    for _ in range(refine):
+        r = (rhs - shifted(w)) * fmask[None, :]
+        r32 = r.T.float() if transposed else r.float()
+        d, info = pcg(mv32, r32, torch.zeros_like(r32), stage_cg,
+                      active0=colmask)
+        w = w + (d.T if transposed else d).to(dtype)
+        niters += info.niters
+    return w, niters
 
 
 def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt: int,

@@ -11,8 +11,11 @@ import pytest
 import scipy.sparse as sps
 import torch
 
-from gcge_tpu_torch import make_operator, solve
-from gcge_tpu_torch.ops import osgemm, spmm
+from gcge_tpu_torch import HybridOperator, make_operator, solve
+from gcge_tpu_torch.io.fem import assemble_p1, random_delaunay_mesh
+from gcge_tpu_torch.ops import onehot, osgemm, spmm
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -112,3 +115,151 @@ def test_small_solve_on_card_matches_cpu(cuda):
     ev_cpu, _, conv_cpu = solve(a, device="cpu", **kw)
     assert conv_gpu >= 10 and conv_cpu >= 10
     assert np.max(np.abs(ev_gpu - ev_cpu) / np.abs(ev_cpu)) <= 1e-10
+
+
+def _irregular_csr(n: int, seed: int):
+    """Random rows of 0 to 30 entries; rows 0 and n-1 empty, row 5 with one
+    entry.  Returns scipy CSR and the device-independent CSR arrays."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 31, n)
+    deg[[0, n - 1]] = 0
+    deg[5] = 1
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, len(rows))
+    vals = rng.standard_normal(len(rows))
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    return a, onehot.pack_csr(rows, cols, vals, (n, n))
+
+
+@pytest.mark.parametrize("dtype,tol,key", [
+    (torch.float64, 1e-14, "csr_f64"), (torch.float32, 1e-5, "csr_f32")])
+@pytest.mark.parametrize("m", [1, 10, 40])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_csr_kernel_matches_plain(cuda, dtype, tol, key, m, transposed):
+    """Kernels 5 and 6 against the plain version on strided views, n = 1031
+    (no multiple of the 256-thread block), with empty rows and a one-entry
+    row: within tol of max |A||x|; two launches give the same bits."""
+    n = 1031
+    a, (rowptr, colidx, values) = _irregular_csr(n, m)
+    rowptr, colidx = (torch.as_tensor(t, device=cuda)
+                      for t in (rowptr, colidx))
+    values = torch.as_tensor(values, device=cuda).to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    basis = torch.randn((n, m + 3), generator=g, dtype=dtype, device=cuda)
+    x = basis[:, 2:2 + m].T if transposed else basis[:, 2:2 + m]
+    before = onehot.LAUNCHES[key]
+    got = onehot.csr_spmm(rowptr, colidx, values, x, transposed)
+    again = onehot.csr_spmm(rowptr, colidx, values, x, transposed)
+    assert onehot.LAUNCHES[key] == before + 2
+    assert got.shape == x.shape and torch.equal(got, again)
+    ref = onehot.csr_spmm_reference(rowptr, colidx, values, x, transposed)
+    scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(), x.abs(),
+                                      transposed).max()
+    assert float((got - ref).abs().max()) <= tol * float(scale)
+    y = got.T if transposed else got
+    assert not y[0].any() and not y[n - 1].any()             # empty rows
+    host = a @ basis[:, 2:2 + m].double().cpu().numpy()
+    assert np.abs(y.double().cpu().numpy() - host).max() <= \
+        (tol if dtype == torch.float64 else 1e-4) * float(scale)
+
+
+def test_csr_kernel_raises_on_what_it_does_not_take(cuda):
+    _, (rowptr, colidx, values) = _irregular_csr(64, 0)
+    rowptr, colidx, values = (torch.as_tensor(t, device=cuda)
+                              for t in (rowptr, colidx, values))
+    x = torch.zeros((64, 2), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        onehot.csr_spmm(rowptr, colidx, values.float(), x)
+    with pytest.raises(TypeError):
+        onehot.csr_spmm(rowptr.long(), colidx, values, x)
+    with pytest.raises(ValueError):
+        onehot.csr_spmm(rowptr, colidx, values, x.cpu())
+    with pytest.raises(ValueError):
+        onehot.csr_spmm(rowptr, colidx[::2], values[::2], x)
+
+
+def test_mask_probe_kernel_matches_plain(cuda):
+    """Kernel 7 against the plain version, bit for bit, for ids inside and
+    outside the iota range; the probe's answer on the card is True."""
+    rng = np.random.default_rng(0)
+    for ids0 in (np.arange(128) % 8, rng.integers(0, 300, 128)):
+        ids = np.zeros((8, 128), np.int32)
+        ids[0] = ids0
+        ids_t = torch.as_tensor(ids, device=cuda)
+        before = onehot.LAUNCHES["mask_probe"]
+        got = onehot.onehot_mask_probe(ids_t)
+        assert onehot.LAUNCHES["mask_probe"] == before + 1
+        assert torch.equal(got, onehot.onehot_mask_reference(ids_t))
+    assert onehot.bf16_mask_supported(cuda) is True
+
+
+def test_csr_operator_probes_the_card_when_built(cuda):
+    """``CsrOperator.from_coo`` launches the mask probe once per operator
+    built on the card, and never for an operator on the CPU."""
+    a, _ = _irregular_csr(64, 0)
+    before = onehot.LAUNCHES["mask_probe"]
+    onehot.CsrOperator.from_scipy(a, device="cpu")
+    assert onehot.LAUNCHES["mask_probe"] == before
+    onehot.CsrOperator.from_scipy(a, device=cuda)
+    assert onehot.LAUNCHES["mask_probe"] == before + 1
+
+
+def _delaunay(g: int):
+    rows, cols, av, _, n = assemble_p1(*random_delaunay_mesh(g ** 3, seed=1))
+    return sps.coo_matrix((av, (rows, cols)), shape=(n, n)).tocsr()
+
+
+def test_hybrid_operator_on_card_matches_scipy(cuda):
+    """DIA core on kernels 1/2 plus CSR remainder on kernels 5/6: f64 within
+    1e-14 and f32 within 1e-5 of max |A||x| of scipy's product."""
+    n = 5000
+    rng = np.random.default_rng(2)
+    a = sps.diags([rng.standard_normal(n - abs(k)) for k in range(-6, 7)],
+                  list(range(-6, 7)), format="coo")
+    r = rng.integers(0, n, 900)
+    c = rng.integers(0, n, 900)
+    a = (a + sps.coo_matrix((rng.standard_normal(900), (r, c)),
+                            shape=(n, n))).tocoo()
+    op = HybridOperator.from_coo(a.row, a.col, a.data, (n, n), device=cuda,
+                                 max_diags=13)
+    assert op.rest is not None and op.nnz == a.nnz
+    x = rng.standard_normal((n, 10))
+    scale = (abs(a) @ np.abs(x)).max()
+    ref = a @ x
+    for counters in (spmm.LAUNCHES, onehot.LAUNCHES):
+        for key in counters:
+            counters[key] = 0
+    y64 = op.matvec(torch.as_tensor(x, device=cuda))
+    f32 = HybridOperator(type(op.dia)(op.dia.values.float(), op.dia.offsets,
+                                      op.dia.n_cols), op.rest)
+    y32 = f32.matvec(torch.as_tensor(x, device=cuda).float())
+    assert np.abs(y64.cpu().numpy() - ref).max() <= 1e-14 * scale
+    assert y32.dtype == torch.float32
+    assert np.abs(y32.double().cpu().numpy() - ref).max() <= 1e-5 * scale
+    assert spmm.LAUNCHES == {"dia_f64": 1, "dia_f32": 1}
+    assert onehot.LAUNCHES["csr_f64"] == 1 and onehot.LAUNCHES["csr_f32"] == 1
+
+
+def test_small_irregular_solve_on_card_matches_cpu(cuda):
+    """The irregular slice at a 10^3 Delaunay mesh through solve(rcm=True)
+    on the card and on the CPU: eigenvalues within 1e-10 relative, host
+    residuals in the caller's ordering, kernels 3 to 6 launched."""
+    a = _delaunay(10)
+    n = a.shape[0]
+    x0 = np.random.default_rng(0).uniform(-1, 1, (n, 20))
+    kw = dict(nev=10, block_size=10, max_iter=200, cg_max_iter=60,
+              cg_mixed=True, cg_refine=3, cg_auto_shift=True, verbose=0,
+              x0=x0, rcm=True)
+    for counters in (onehot.LAUNCHES, osgemm.LAUNCHES):
+        for key in counters:
+            counters[key] = 0
+    ev_gpu, evec, conv_gpu = solve(a, device=cuda, **kw)
+    assert onehot.LAUNCHES["csr_f32"] > 0 and onehot.LAUNCHES["csr_f64"] > 0
+    assert all(c > 0 for c in osgemm.LAUNCHES.values())
+    ev_cpu, _, conv_cpu = solve(a, device="cpu", **kw)
+    assert conv_gpu >= 10 and conv_cpu >= 10
+    assert np.max(np.abs(ev_gpu - ev_cpu) / np.abs(ev_cpu)) <= 1e-10
+    x = evec[:, :10].cpu().numpy()
+    res = np.linalg.norm(a @ x - x * ev_gpu[None, :10], axis=0) / (
+        np.abs(ev_gpu[:10]) * np.linalg.norm(x, axis=0))
+    assert res.max() <= 2e-8

@@ -182,8 +182,7 @@ def test_options_not_ported_raise(stencil10):
     with pytest.raises(NotImplementedError, match="item 12"):
         gcg_solve(op, None, GCGParams(nev=4), mesh=object())
     a = sps.identity(50, format="csr")
-    for kw in (dict(rcm=True), dict(distribute=True), dict(multigrid=2),
-               dict(method="pas")):
+    for kw in (dict(distribute=True), dict(multigrid=2), dict(method="pas")):
         with pytest.raises(NotImplementedError):
             gcge_tpu_torch.solve(a, nev=2, device="cpu", **kw)
     with pytest.raises(ValueError, match="exceeds"):

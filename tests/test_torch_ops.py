@@ -15,10 +15,12 @@ from gcge_tpu.ops.operators import DiaOperator as JDia
 from gcge_tpu.ops.operators import SparseOperator as JSparse
 import gcge_tpu_torch.ops.multivec as tmv
 from gcge_tpu_torch.ops.eighs import eigh, safe_eigh
+from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import (DenseOperator, DiagOperator,
                                           DiaOperator, FunctionOperator,
-                                          IdentityOperator, ShiftedOperator,
-                                          SparseOperator, make_operator)
+                                          HybridOperator, IdentityOperator,
+                                          ShiftedOperator, SparseOperator,
+                                          make_operator)
 from gcge_tpu_torch.utils.convert import operator_from_numpy
 
 torch.set_num_threads(2)
@@ -81,15 +83,15 @@ def test_sparse_operator_matches_scipy():
 
 
 def test_make_operator_branches():
-    """DIA for few diagonals, ELL for scattered patterns and rectangular
-    matrices, NotImplementedError where gcge_tpu builds a Hybrid."""
+    """DIA for few diagonals, CSR for scattered square patterns, ELL for
+    rectangular matrices, Hybrid where gcge_tpu builds a Hybrid."""
     n = 300
     rows, cols, vals = _banded_coo(n, (-2, 0, 2), 0)
     assert isinstance(make_operator(rows, cols, vals, (n, n), device="cpu"),
                       DiaOperator)
     r, c, v, _ = _random_sym_coo(n, 0.05, 4)
     assert isinstance(make_operator(r, c, v, (n, n), device="cpu"),
-                      SparseOperator)
+                      CsrOperator)
     rect = make_operator(np.array([0, 1]), np.array([0, 5]),
                          np.array([1.0, 2.0]), (2, 6), device="cpu")
     assert isinstance(rect, SparseOperator) and rect.shape == (2, 6)
@@ -102,8 +104,10 @@ def test_make_operator_branches():
     rows = np.concatenate([rows, r])
     cols = np.concatenate([cols, r + 300 + r % 20])
     vals = np.concatenate([vals, np.ones(len(r))])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_operator(rows, cols, vals, (n, n), device="cpu")
+    hyb = make_operator(rows, cols, vals, (n, n), device="cpu")
+    assert isinstance(hyb, HybridOperator)
+    assert len(hyb.dia.offsets) == 128 and isinstance(hyb.rest, CsrOperator)
+    assert hyb.nnz == len(vals)
 
 
 def test_small_operators():
@@ -284,4 +288,4 @@ def test_operator_from_numpy_dense_and_unknown():
     assert isinstance(op, DenseOperator)
     np.testing.assert_array_equal(op.a.numpy(), a)
     with pytest.raises(ValueError):
-        operator_from_numpy({"kind": "hybrid"}, device="cpu")
+        operator_from_numpy({"kind": "nope"}, device="cpu")
