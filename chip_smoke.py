@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
+Nine kernels, four solves (the headline and the irregular problem, each by
+the phased and by the fused loop), the two kernel measurement scripts and a
+check that a fused chunk never waits for the device outside ``eigh``.
 Phases, each of which raises on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
@@ -34,10 +37,29 @@ Phases, each of which raises on failure:
    ``CsrOperator.from_coo``), and the eigenvalues against a
    second solve that goes through no hand-written SpMM (A as a prebuilt ELL
    operator, plain gather route).
+8. kernels 8 and 9 — the FMA probe (Dekker block bit for bit, block 0 equal
+   to the exact error or to zero) and the four modes of the sliced-Gram
+   isolation kernel (stated tolerance, equal bits across two launches)
+   against their plain versions, timed like the others; then the two
+   measurement scripts ``gcge_tpu_torch.benchmarks.df64_push`` and
+   ``.pallas_isolate`` through their ``main``, the path that launches these
+   kernels;
+9. fused solves — the headline with ``fuse=20`` and the irregular problem
+   with ``fuse=10`` under the same gates as the phased solves, eigenvalues
+   within 1e-9 of the phased solve of this run, kernels 1-6 launched (a
+   replay of the captured CG stage counts the kernels it launches); each
+   once more with no ``fuse`` given, the chunk length ``solve`` tunes on a
+   card;
+10. sync check — one fused chunk of the headline problem under
+    ``torch.cuda.set_sync_debug_mode("error")``: any wait of the host for the
+    device outside ``safe_eigh`` fails the run.
 
-``--profile`` adds 30 iterations of the irregular solve under
-``torch.profiler`` and prints the device's busy and idle share, the device
-time by kernel and the host synchronisations.
+``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
+solve and the whole headline solve, each phased and fused) and prints the
+device's busy and idle share, the device operations, host launches and host
+synchronisations per iteration and the device time by kernel; then the
+walls of the headline solve, of a short solve and of the irregular solve,
+phased and fused in chunks of 20 and 5, taken in turns.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -62,40 +84,18 @@ REPS = 20
 DEVICE = "cuda"
 T_START = time.perf_counter()
 
-# the card's published peaks (H100 SXM data sheet): device memory rate, and
-# the f64 tensor-core and f32 rates, both 67 TFLOP/s
+# the card's published peaks (H100 SXM data sheet): device memory rate, the
+# f64 tensor-core and f32 rates, both 67 TFLOP/s, and the bf16 tensor-core
+# rate, which bounds a product of bf16 values accumulated in f32 (kernel 9's
+# slab) whatever unit a kernel runs it on
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
+HEADLINE_KWARGS = dict(nev=NEV, block_size=BS, max_iter=120, cg_max_iter=30)
+HEADLINE_FUSE, IRREGULAR_FUSE = 20, 10
 
 IRREGULAR_KWARGS = dict(nev=NEV, block_size=BS, max_iter=300, cg_max_iter=60,
                         cg_refine=3)
-
-
-def build_3d27(nx: int):
-    """3-D 27-point Laplacian stencil on an nx^3 grid (COO, symmetric)."""
-    n = nx ** 3
-    idx = np.arange(n)
-    i, j, k = idx // (nx * nx), (idx // nx) % nx, idx % nx
-    rows, cols, vals = [], [], []
-    for di in (-1, 0, 1):
-        for dj in (-1, 0, 1):
-            for dk in (-1, 0, 1):
-                ii, jj, kk = i + di, j + dj, k + dk
-                ok = (ii >= 0) & (ii < nx) & (jj >= 0) & (jj < nx) & \
-                    (kk >= 0) & (kk < nx)
-                w = 26.0 if (di == 0 and dj == 0 and dk == 0) else -1.0
-                rows.append(idx[ok])
-                cols.append((ii * nx * nx + jj * nx + kk)[ok])
-                vals.append(np.full(ok.sum(), w))
-    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
-
-
-def smallest_eigs(nx: int, k: int) -> np.ndarray:
-    """The k smallest eigenvalues of the stencil in closed form:
-    A = 27 I - J(x)J(x)J with J = tridiag(1, 1, 1), eig(J) = 1 + 2 cos(t pi/(nx+1))."""
-    mu = 1.0 + 2.0 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
-    lam = 27.0 - np.einsum("i,j,k->ijk", mu, mu, mu).ravel()
-    return np.sort(lam)[:k]
 
 
 def median_ms(torch, fn, reps: int = REPS, flush=None) -> float:
@@ -121,11 +121,16 @@ def median_ms(torch, fn, reps: int = REPS, flush=None) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops):
     """The least time the card could take, in ms, and what sets it: the
     bytes the function must move (each input read once, each output written
-    once) over the memory rate, or its operations over the peak rate."""
-    t_bytes, t_flops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+    once) over the memory rate, or its operations over the peak rate of
+    their type.  ``flops``: a count at the f64/f32 rate, or ``(count, rate)``
+    pairs whose times add."""
+    if not isinstance(flops, (list, tuple)):
+        flops = [(flops, PEAK_FLOP_S)]
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_flops = sum(count / rate for count, rate in flops)
     return 1e3 * max(t_bytes, t_flops), \
         "bytes" if t_bytes >= t_flops else "operations"
 
@@ -146,6 +151,7 @@ class KernelLog:
     def __init__(self, torch):
         self.torch = torch
         self.entries = {}
+        self.last = {}          # time and bound of the latest run
 
     def run(self, key, label, kernel, plain, scale, tol, nbytes, flops,
             library=None, primary=False):
@@ -169,6 +175,7 @@ class KernelLog:
             median_ms(torch, library, flush=flush)
         back_to_back_ms = median_ms(torch, kernel)
         bound_ms, bound_by = bound(nbytes, flops)
+        self.last = {"ms": ms, "bound_ms": bound_ms}
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {label}: max rel err {rel:.3e} (tol {tol:.0e}), "
               f"{ms:.4f} ms ({back_to_back_ms:.4f} ms back to back, host "
@@ -207,18 +214,21 @@ def csr_tensor(torch, a_csr, dtype):
         size=a_csr.shape, check_invariants=False)
 
 
-def reset_counters():
-    from gcge_tpu_torch.ops import onehot, osgemm, spmm
+def launch_counters():
+    from gcge_tpu_torch.ops import onehot, osgemm, probes, spmm
 
-    for counters in (spmm.LAUNCHES, osgemm.LAUNCHES, onehot.LAUNCHES):
+    return (spmm.LAUNCHES, osgemm.LAUNCHES, onehot.LAUNCHES, probes.LAUNCHES)
+
+
+def reset_counters():
+    for counters in launch_counters():
         for key in counters:
             counters[key] = 0
 
 
 def read_counters() -> dict:
-    from gcge_tpu_torch.ops import onehot, osgemm, spmm
-
-    return {**spmm.LAUNCHES, **osgemm.LAUNCHES, **onehot.LAUNCHES}
+    return {k: v for counters in launch_counters()
+            for k, v in counters.items()}
 
 
 def phase_build():
@@ -323,24 +333,27 @@ def phase_kernels_headline(torch, log, rows, cols, vals, n):
     kernels_tall(torch, log, n, gen, primary=True)
 
 
-def phase_headline(torch, rows, cols, vals, n):
-    """The headline solve through the public entry point."""
-    import scipy.sparse as sps
-
+def phase_headline(torch, a_csr, fuse: int, ev_phased=None):
+    """The headline solve through the public entry point, by the phased loop
+    (``fuse=0``) or the fused one; the fused solve is also held against the
+    phased solve's eigenvalues.  Returns ``(launches, eigenvalues)``."""
     import gcge_tpu_torch
+    from gcge_tpu_torch.io.stencil import smallest_eigs_3d27
+    from gcge_tpu_torch.solvers import gcg
 
-    a_csr = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    kwargs = dict(nev=NEV, device=DEVICE, block_size=BS, max_iter=120,
-                  cg_max_iter=30)
-    # the first solve in the process also pays the one-time set-up of the
-    # CUDA libraries (cuBLAS, cuSOLVER handles); the second is the one
-    # checked and counted
-    t0 = time.perf_counter()
-    gcge_tpu_torch.solve(a_csr, None, verbose=0, **kwargs)
-    torch.cuda.synchronize()
-    print(f"headline: first solve in the process "
-          f"{time.perf_counter() - t0:.3f} s")
+    tag = "headline" if fuse == 0 else f"fused headline (fuse={fuse})"
+    kwargs = dict(HEADLINE_KWARGS, device=DEVICE, fuse=fuse)
+    if fuse == 0:
+        # the first solve in the process also pays the one-time set-up of
+        # the CUDA libraries (cuBLAS, cuSOLVER handles); the second is the
+        # one checked and counted
+        t0 = time.perf_counter()
+        gcge_tpu_torch.solve(a_csr, None, verbose=0, **kwargs)
+        torch.cuda.synchronize()
+        print(f"headline: first solve in the process "
+              f"{time.perf_counter() - t0:.3f} s")
     reset_counters()
+    gcg.GRAPH_REPLAYS["cg_stage"] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev, evec, nev_conv = gcge_tpu_torch.solve(a_csr, None, verbose=1,
@@ -348,15 +361,16 @@ def phase_headline(torch, rows, cols, vals, n):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    print(f"headline: wall {wall:.3f} s, nev_conv {nev_conv}, peak device "
+    print(f"{tag}: wall {wall:.3f} s, nev_conv {nev_conv}, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches}")
+          f"launches {launches} (a replay of the captured CG stage counts "
+          f"the kernels it launches), replays {gcg.GRAPH_REPLAYS['cg_stage']}")
     if nev_conv < NEV:
         raise AssertionError(f"nev_conv {nev_conv} < {NEV}")
-    exact = smallest_eigs(NX, NEV)
+    exact = smallest_eigs_3d27(NX, NEV)
     ev_err = float(np.max(np.abs(ev[:NEV] - exact) / np.abs(exact)))
     res = residuals(a_csr, ev[:NEV], evec[:, :NEV].cpu().numpy())
-    print(f"headline: eigenvalues vs closed form max rel err {ev_err:.3e} "
+    print(f"{tag}: eigenvalues vs closed form max rel err {ev_err:.3e} "
           f"(tol 1e-9); host residuals max {res.max():.3e} (tol 2e-8)")
     if not ev_err <= 1e-9:
         raise AssertionError(f"eigenvalue error {ev_err:.3e} > 1e-9")
@@ -366,7 +380,58 @@ def phase_headline(torch, rows, cols, vals, n):
             if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched by the solve: {idle}")
-    return launches
+    if fuse > 0:
+        rel = float(np.max(np.abs(ev[:NEV] - ev_phased[:NEV])
+                           / np.abs(ev_phased[:NEV])))
+        print(f"{tag}: eigenvalues vs the phased solve max rel diff "
+              f"{rel:.3e} (tol 1e-9)")
+        if not rel <= 1e-9:
+            raise AssertionError("the fused solve disagrees with the phased")
+        if gcg.GRAPH_REPLAYS["cg_stage"] <= 0:
+            raise AssertionError("the CG stage was not replayed from a graph")
+        # the same with no ``fuse`` given: the chunk length ``solve`` tunes
+        t0 = time.perf_counter()
+        ev_tuned, _, conv_tuned = gcge_tpu_torch.solve(
+            a_csr, None, verbose=0, device=DEVICE, **HEADLINE_KWARGS)
+        torch.cuda.synchronize()
+        print(f"fused headline (the default of solve on a card): wall "
+              f"{time.perf_counter() - t0:.3f} s, nev_conv {conv_tuned}")
+        if conv_tuned != nev_conv or not np.array_equal(ev_tuned, ev):
+            raise AssertionError("the chunk length changes the result")
+    return launches, ev
+
+
+def phase_walls(torch, a_csr, a):
+    """Walls in turns in one process on one card, phased and fused in chunks
+    of 20 and 5: what the default ``fuse`` of ``solve`` on a card rests on.
+    The headline solve, a short solve of the same matrix (nev=10: a chunk's
+    discarded iterations weigh most there), and the irregular solve at the
+    chunk length that the checked solves do not run."""
+    import gcge_tpu_torch
+
+    turns = (0, HEADLINE_FUSE, 5, 5, HEADLINE_FUSE, 0) * 2
+    for tag, kwargs in (("headline", HEADLINE_KWARGS),
+                        ("short (nev=10)", dict(HEADLINE_KWARGS, nev=10))):
+        walls = {}
+        for fuse in turns:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gcge_tpu_torch.solve(a_csr, None, verbose=0, device=DEVICE,
+                                 fuse=fuse, **kwargs)
+            torch.cuda.synchronize()
+            walls.setdefault(fuse, []).append(time.perf_counter() - t0)
+        print(f"{tag} walls in turns {turns}: " + "; ".join(
+            f"fuse={fuse}: " + ", ".join(f"{w:.4f}" for w in ws)
+            + f" s (median {np.median(ws):.4f})"
+            for fuse, ws in walls.items()))
+    for fuse in (5, 0, 5):
+        t0 = time.perf_counter()
+        _, _, conv = gcge_tpu_torch.solve(
+            a, None, device=DEVICE, rcm=True, verbose=0, fuse=fuse,
+            **IRREGULAR_KWARGS)
+        torch.cuda.synchronize()
+        print(f"irregular wall, fuse={fuse}: {time.perf_counter() - t0:.3f} "
+              f"s, nev_conv {conv}")
 
 
 def build_delaunay(g: int):
@@ -520,7 +585,8 @@ def phase_irregular(torch, a, a_rcm):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev, evec, nev_conv = gcge_tpu_torch.solve(
-        a, None, device=DEVICE, rcm=True, verbose=1, **IRREGULAR_KWARGS)
+        a, None, device=DEVICE, rcm=True, verbose=1, fuse=0,
+        **IRREGULAR_KWARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
@@ -551,7 +617,7 @@ def phase_irregular(torch, a, a_rcm):
     reset_counters()
     t0 = time.perf_counter()
     ev_plain, _, conv_plain = gcge_tpu_torch.solve(
-        ell, None, device=DEVICE, verbose=0, **IRREGULAR_KWARGS)
+        ell, None, device=DEVICE, verbose=0, fuse=0, **IRREGULAR_KWARGS)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     spmm_launches = {k: v for k, v in read_counters().items()
@@ -566,43 +632,258 @@ def phase_irregular(torch, a, a_rcm):
         raise AssertionError("the plain-route solve disagrees")
     if any(spmm_launches.values()):
         raise AssertionError(f"the plain route launched {spmm_launches}")
+    return launches, ev
+
+
+def phase_irregular_fused(torch, a, ev_phased):
+    """The irregular solve by the fused loop, under the phased solve's gates
+    and against its eigenvalues."""
+    import gcge_tpu_torch
+    from gcge_tpu_torch.solvers import gcg
+
+    tag = f"fused irregular (fuse={IRREGULAR_FUSE})"
+    reset_counters()
+    gcg.GRAPH_REPLAYS["cg_stage"] = 0
+    t0 = time.perf_counter()
+    ev, evec, nev_conv = gcge_tpu_torch.solve(
+        a, None, device=DEVICE, rcm=True, verbose=1, fuse=IRREGULAR_FUSE,
+        **IRREGULAR_KWARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    res = residuals(a, ev[:NEV], evec[:, :NEV].cpu().numpy())
+    rel = float(np.max(np.abs(ev[:NEV] - ev_phased[:NEV])
+                       / np.abs(ev_phased[:NEV])))
+    print(f"{tag}: wall {wall:.3f} s (host RCM and packing included), "
+          f"nev_conv {nev_conv}, host residuals max {res.max():.3e} (tol "
+          f"2e-8), eigenvalues vs the phased solve max rel diff {rel:.3e} "
+          f"(tol 1e-9), launches {launches} (a replay of the captured CG "
+          f"stage counts the kernels it launches), replays "
+          f"{gcg.GRAPH_REPLAYS['cg_stage']}")
+    if nev_conv < NEV:
+        raise AssertionError(f"nev_conv {nev_conv} < {NEV}")
+    if not res.max() <= 2e-8:
+        raise AssertionError(f"residual {res.max():.3e} > 2e-8")
+    if not rel <= 1e-9:
+        raise AssertionError("the fused solve disagrees with the phased")
+    idle = [k for k in ("gram", "expand", "csr_f32", "csr_f64")
+            if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the solve: {idle}")
+    if gcg.GRAPH_REPLAYS["cg_stage"] <= 0:
+        raise AssertionError("the CG stage was not replayed from a graph")
+    # the same with no ``fuse`` given: the chunk length ``solve`` tunes
+    t0 = time.perf_counter()
+    _, _, conv_tuned = gcge_tpu_torch.solve(
+        a, None, device=DEVICE, rcm=True, verbose=0, **IRREGULAR_KWARGS)
+    torch.cuda.synchronize()
+    print(f"fused irregular (the default of solve on a card): wall "
+          f"{time.perf_counter() - t0:.3f} s, nev_conv {conv_tuned}")
+    if conv_tuned != nev_conv:
+        raise AssertionError("fuse changes the converged count")
     return launches
 
 
-def phase_profile(torch, op):
-    """30 iterations of the irregular solve under torch.profiler, on the
-    operator already packed on the card (no host RCM or packing in the
-    window)."""
+def phase_kernels_probes(torch, log):
+    """Kernels 8 and 9 against their plain versions at the shapes of their
+    measurement scripts."""
+    from gcge_tpu_torch.benchmarks.pallas_isolate import make_planes
+    from gcge_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(0)
+    rows, cols = probes.PROBE_SHAPE
+    a = torch.as_tensor((rng.standard_normal((rows, cols)) * 1.7)
+                        .astype(np.float32), device=DEVICE)
+    b = torch.as_tensor((rng.standard_normal((rows, cols)) * 0.3)
+                        .astype(np.float32), device=DEVICE)
+    # kernel 8: the Dekker block bit for bit; block 0 is the exact error
+    # (the compiler fused a*b - p into one FMA) or zero (it did not)
+    got, ref = probes.fma_probe_blocks(a, b), probes.fma_probe_plain(a, b)
+    fused = torch.equal(got[:rows], ref[:rows])
+    if not fused and bool((got[:rows] != 0).any()):
+        raise AssertionError("fma_probe: a*b - p is neither the exact error "
+                             "nor zero")
+    print(f"kernel fma_probe: a*b - p is "
+          f"{'the exact error: fused into one FMA' if fused else 'zero: not fused'}"
+          f"; nonzero Dekker errors "
+          f"{int(torch.count_nonzero(got[rows:]))}/{rows * cols}")
+    held = slice(None) if fused else slice(rows, None)
+    log.run("fma_probe", "fma_probe (8, 128)",
+            lambda: probes.fma_probe_blocks(a, b)[held],
+            lambda: probes.fma_probe_plain(a, b)[held], 1.0, 0,
+            4 * 4 * rows * cols, 19 * rows * cols, primary=True)
+
+    # kernel 9 at P = 128, Q = 16, n = 157,464 in chunks of 1024.  The bound
+    # takes the peel's f32 operations at the f32 rate and the slab product
+    # (bf16 values, f32 sums) at the bf16 tensor-core rate, the card's peak
+    # for that type; the kernel multiplies with f32 FMAs on the CUDA cores,
+    # and the time those alone need at their peak is printed beside it.
+    # Tolerance 1e-5 of the largest entry of the plain slab: both sum exact products of
+    # bf16 values in f32, the kernel a chunk's 1024 in another order than the
+    # plain matrix product (`dot`, `none`); with 7-bit slices (`full`) the
+    # chunk sums are exact and equal bits are expected, which the line says.
+    p_rows, q_rows, nr = 128, 16, 1024
+    planes = make_planes(p_rows, q_rows, NX ** 3, nr, DEVICE)
+    n_pad = planes[0].shape[1]
+    nbytes = 8 * (p_rows + q_rows) * n_pad + 4 * 49 * p_rows * q_rows
+    peel_flops = 27.0 * (p_rows + q_rows) * n_pad
+    dot_flops = 2.0 * 49 * p_rows * q_rows * n_pad
+    for mode in probes.MODES:
+        first = probes.slice_gram(*planes, mode=mode, nr=nr)
+        again = probes.slice_gram(*planes, mode=mode, nr=nr)
+        ref = probes.slice_gram_plain(*planes, mode=mode, nr=nr)
+        if not torch.equal(first, again):
+            raise AssertionError(f"slice_gram {mode}: two launches differ")
+        print(f"kernel slice_gram {mode}: two launches equal bits; bits "
+              f"equal to the plain version: {torch.equal(first, ref)}")
+        flops = [(peel_flops if mode in ("peel", "full") else 0.0,
+                  PEAK_FLOP_S),
+                 (dot_flops if mode in ("dot", "full") else 0.0,
+                  PEAK_BF16_FLOP_S)]
+        log.run("slice_gram", f"slice_gram {mode} P={p_rows} Q={q_rows} "
+                f"n_pad={n_pad}",
+                lambda: probes.slice_gram(*planes, mode=mode, nr=nr),
+                lambda: probes.slice_gram_plain(*planes, mode=mode, nr=nr),
+                ref.abs().max().clamp(min=1.0), 1e-5, nbytes, flops,
+                primary=(mode == "full"))
+        entry = log.last
+        if mode in ("dot", "full"):
+            print(f"kernel slice_gram {mode}: the slab's {dot_flops:.4g} "
+                  f"operations take {1e3 * dot_flops / PEAK_BF16_FLOP_S:.4f} "
+                  f"ms at the bf16 tensor-core rate (in the bound) and "
+                  f"{1e3 * dot_flops / PEAK_FLOP_S:.4f} ms at the f32 rate of "
+                  f"the CUDA cores, which this kernel's FMAs run at: "
+                  f"{entry['ms']:.4f} ms is {entry['ms'] / entry['bound_ms']:.1f}"
+                  f" times the bound")
+        if mode in ("none", "peel") and entry["ms"] < entry["bound_ms"]:
+            raise AssertionError(
+                f"slice_gram {mode}: {entry['ms']:.4f} ms is below the "
+                f"{entry['bound_ms']:.4f} ms its loads need: the compiler "
+                "removed the work")
+
+
+def phase_scripts():
+    """This slice's own path: the two kernel measurement scripts through
+    their entry points, at their defaults (the TPU scripts' shapes)."""
+    from gcge_tpu_torch.benchmarks import df64_push, pallas_isolate
+
+    reset_counters()
+    for mod in (df64_push, pallas_isolate):
+        print(f"--- python3 -m {mod.__name__} --device {DEVICE}")
+        if mod.main(["--device", DEVICE]) != 0:
+            raise AssertionError(f"{mod.__name__} failed")
+    launches = read_counters()
+    print(f"measurement scripts: launches {launches}")
+    idle = [k for k in ("fma_probe", "slice_gram", "dia_f64")
+            if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the scripts: {idle}")
+    return launches
+
+
+def phase_sync_check(torch, a_csr):
+    """One fused chunk of the headline problem with every wait of the host
+    for the device turned into an error.  ``safe_eigh`` lifts the mode for
+    its own waits (cuSOLVER's info, the NaN flag) and counts its calls."""
+    import gcge_tpu_torch
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.solvers import gcg
+
+    chunk = gcg._gcg_chunk
+    chunks = []
+
+    def strict_chunk(*args, **kwargs):
+        before = eighs.CALLS["safe_eigh"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = chunk(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chunks.append(eighs.CALLS["safe_eigh"] - before)
+        return out
+
+    steps = 5
+    gcg._gcg_chunk = strict_chunk
+    try:
+        gcge_tpu_torch.solve(a_csr, None, verbose=0, **dict(
+            HEADLINE_KWARGS, device=DEVICE, fuse=steps, max_iter=steps))
+    finally:
+        gcg._gcg_chunk = chunk
+    torch.cuda.synchronize()
+    print(f"sync check: {len(chunks)} fused chunk of {steps} iterations "
+          f"under set_sync_debug_mode('error'): no wait outside safe_eigh, "
+          f"which was called {chunks[-1]} times inside it")
+    if len(chunks) != 1 or chunks[-1] <= 0:
+        raise AssertionError("the sync check did not run one fused chunk")
+
+
+def profile_solve(torch, label: str, run):
+    """``run()`` (a solve that returns its iteration count) under
+    torch.profiler: wall, device busy and idle share, device operations and
+    host synchronisations, in all and per iteration, and the device time by
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import gcge_tpu_torch
-
-    kwargs = dict(IRREGULAR_KWARGS, max_iter=30)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gcge_tpu_torch.solve(op, None, device=DEVICE, verbose=1, **kwargs)
+        iters = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
-    syncs = 0
+    syncs = copies = launches = replays = 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:      # kernels, copies, memsets
             rows.append((e.self_device_time_total, e.count, e.key))
         elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                       "cudaMemcpyAsync", "cudaEventSynchronize"):
+                       "cudaEventSynchronize"):
             syncs += e.count
+        elif e.key == "cudaMemcpyAsync":    # to the host (a wait) or not
+            copies += e.count
+        elif e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += e.count
+        elif e.key == "cudaGraphLaunch":
+            replays += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) * 1e-6
     ops = sum(r[1] for r in rows)
-    print(f"profile (30 iterations of the irregular solve): wall {wall:.4f} "
-          f"s, device busy {busy:.4f} s, idle "
-          f"{100 * (1 - busy / wall):.2f} % of the wall, {ops} device "
-          f"operations, {syncs} host syncs/copies")
+    print(f"profile ({label}, {iters} iterations): wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s, idle {100 * (1 - busy / wall):.2f} % of the "
+          f"wall, {ops} device operations ({ops / iters:.0f} an iteration), "
+          f"{launches} kernel launches by the host ({launches / iters:.0f}) "
+          f"and {replays} graph replays, {syncs + copies} host syncs/copies "
+          f"({(syncs + copies) / iters:.1f}): {syncs} synchronize calls "
+          f"({syncs / iters:.1f}) and {copies} cudaMemcpyAsync "
+          f"({copies / iters:.1f}, copies on the device among them)")
     for dev_us, count, key in rows[:14]:
         print(f"profile: {dev_us * 1e-3:10.3f} ms {count:8d} x  {key[:90]}")
+
+
+def phase_profile(torch, op, a_csr):
+    """Profiles, each by the phased and by the fused loop: 30 iterations of
+    the irregular solve on the operator already packed on the card (no host
+    RCM or packing in the window), and the whole headline solve."""
+    import gcge_tpu_torch
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+
+    for fuse in (0, IRREGULAR_FUSE):
+        def irregular():
+            gcge_tpu_torch.solve(op, None, device=DEVICE, verbose=1,
+                                 fuse=fuse,
+                                 **dict(IRREGULAR_KWARGS, max_iter=30))
+            return 30
+
+        profile_solve(torch, f"irregular solve, fuse={fuse}", irregular)
+    coo = a_csr.tocoo()
+    dia = make_operator(coo.row, coo.col, coo.data, coo.shape, device=DEVICE)
+    for fuse in (0, HEADLINE_FUSE):
+        params = GCGParams(**HEADLINE_KWARGS, fuse=fuse, cg_auto_shift=True,
+                           cg_refine=2, cg_mixed=True, verbose=0)
+        profile_solve(torch, f"headline solve, fuse={fuse}",
+                      lambda: gcg_solve(dia, None, params).num_iter)
 
 
 KERNELS = (  # key, source, the TPU kernel it replaces
@@ -620,6 +901,10 @@ KERNELS = (  # key, source, the TPU kernel it replaces
      "gcge_tpu/ops/onehot_pallas.py:454"),
     ("mask_probe", "gcge_tpu_torch/ops/csrc/mask_probe.cu",
      "gcge_tpu/ops/onehot_pallas.py:200"),
+    ("fma_probe", "gcge_tpu_torch/ops/csrc/fma_probe.cu",
+     "benchmarks/df64_push.py:51"),
+    ("slice_gram", "gcge_tpu_torch/ops/csrc/slice_gram.cu",
+     "benchmarks/pallas_isolate.py:55"),
 )
 
 
@@ -632,24 +917,37 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     import gcge_tpu_torch  # noqa: F401  (fails here, before any output, without the package)
 
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.io.stencil import build_3d27
+
     card = phase_build()
     log = KernelLog(torch)
     rows, cols, vals, n = build_3d27(NX)
+    a_csr = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    paths = {}
     phase_kernels_headline(torch, log, rows, cols, vals, n)
-    headline = phase_headline(torch, rows, cols, vals, n)
+    phase_kernels_probes(torch, log)
+    paths["scripts"] = phase_scripts()
+    paths["headline"], ev_headline = phase_headline(torch, a_csr, 0)
+    paths["fused_headline"], _ = phase_headline(torch, a_csr, HEADLINE_FUSE,
+                                                ev_headline)
+    phase_sync_check(torch, a_csr)
     a, a_rcm = build_delaunay(MESH)
     op = phase_kernels_irregular(torch, log, a_rcm)
     phase_hybrid(torch)
-    irregular = phase_irregular(torch, a, a_rcm)
+    paths["irregular"], ev_irregular = phase_irregular(torch, a, a_rcm)
+    paths["fused_irregular"] = phase_irregular_fused(torch, a, ev_irregular)
     if "--profile" in argv:
-        phase_profile(torch, op)
+        phase_profile(torch, op, a_csr)
+        phase_walls(torch, a_csr, a)
     print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s")
     print(card)
     print(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep,
-         "launches": headline[key] + irregular[key],
-         "launches_by_path": {"headline": headline[key],
-                              "irregular": irregular[key]},
+         "launches": sum(counts[key] for counts in paths.values()),
+         "launches_by_path": {name: counts[key]
+                              for name, counts in paths.items()},
          **log.entries[key], "lib_ms": log.entries[key]["library_ms"]}
         for key, src, rep in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from gcge_tpu_torch.ops.operators import (  # noqa: E402
     make_operator,
 )
 from gcge_tpu_torch.ops.onehot import CsrOperator, bf16_mask_supported  # noqa: E402
+from gcge_tpu_torch.ops.probes import fma_probe, slice_gram  # noqa: E402
 from gcge_tpu_torch.api import eigsh, solve  # noqa: E402
 from gcge_tpu_torch.solvers.gcg import GCGParams, GCGResult, gcg_solve  # noqa: E402
 from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg  # noqa: E402
@@ -57,4 +58,6 @@ __all__ = [
     "orth_block",
     "orth_against",
     "bf16_mask_supported",
+    "fma_probe",
+    "slice_gram",
 ]

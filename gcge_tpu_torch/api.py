@@ -61,12 +61,22 @@ def _mixed_capable_a(a) -> bool:
 
 def _tuned_defaults(device: torch.device, method: str, a, b) -> dict:
     """Defaults that :func:`solve` applies on CUDA (explicit kwargs win):
-    the phased loop, auto shift, and the mixed-precision inner CG on the f32
-    SpMM kernels where A is sparse and B is None or diagonal.  Elsewhere, as
-    ``gcge_tpu`` does off the TPU, no tuning."""
+    the fused loop in chunks of 5 iterations, auto shift, and the
+    mixed-precision inner CG on the f32 SpMM kernels where A is sparse and B
+    is None or diagonal.  The chunk length is the measured one (one H100,
+    walls in PERF.md): chunks of 5 were no slower than the phased loop and
+    than chunks of 20 on the banded, the irregular and a short (nev=10)
+    solve, and a chunk's end discards at most 4 iterations of device work,
+    where 20 discards up to 19.  The fused loop costs memory: about 2.6
+    times the phased loop's peak on the banded problem (1.51 against 0.58
+    GiB at n=157,464, nev=50), since a step's new state and the one it may
+    keep are alive together; pass ``fuse=0`` where that does not fit.
+    ``gcge_tpu``'s rule ``fuse = 20 if nev < 250 else 0`` prices the TPU
+    compiler and is not carried over.  Elsewhere, as ``gcge_tpu`` does off
+    the TPU, no tuning."""
     if device.type != "cuda" or method != "gcg":
         return {}
-    tuned = {"fuse": 0, "cg_auto_shift": True, "cg_refine": 2}
+    tuned = {"fuse": 5, "cg_auto_shift": True, "cg_refine": 2}
     b_diag = b is None or (isinstance(b, np.ndarray) and b.ndim == 1) or \
         isinstance(b, (DiagOperator, IdentityOperator))
     if b_diag and _mixed_capable_a(a):

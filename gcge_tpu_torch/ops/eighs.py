@@ -8,7 +8,31 @@ operand's precision and keeps the NaN guard of :func:`safe_eigh`.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# calls of safe_eigh since the last reset: each is one wait of the host for
+# the device on a card (see host_read_allowed)
+CALLS = {"safe_eigh": 0}
+
+
+@contextlib.contextmanager
+def host_read_allowed(device: torch.device):
+    """The one region of the fused iteration in which the host waits for
+    the device: ``torch.linalg.eigh`` reads cuSOLVER's ``info`` back, and the
+    NaN guard reads one flag.  A caller that runs under
+    ``torch.cuda.set_sync_debug_mode`` to prove that nothing else waits
+    finds the mode lifted here, and restored after."""
+    mode = torch.cuda.get_sync_debug_mode() if device.type == "cuda" else 0
+    if mode == 0:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def safe_eigh(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -28,9 +52,11 @@ def safe_eigh(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         w, u = torch.linalg.eigh(h + reg * eye)
         return w - reg, u
 
-    w, u = attempt(1e-10)
-    if bool(torch.isnan(w).any() | torch.isnan(u).any()):
-        w, u = attempt(1e-7)
+    CALLS["safe_eigh"] += 1
+    with host_read_allowed(h.device):
+        w, u = attempt(1e-10)
+        if bool(torch.isnan(w).any() | torch.isnan(u).any()):
+            w, u = attempt(1e-7)
     return w, u
 
 

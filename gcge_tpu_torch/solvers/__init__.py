@@ -1,4 +1,4 @@
-"""Solvers of the port: GCG (phased path), block PCG, block orthonormalization."""
+"""Solvers of the port: GCG (phased and fused loops), block PCG, block orthonormalization."""
 
 from gcge_tpu_torch.solvers.bpcg import (BlockPCGInfo, BlockPCGParams,
                                          block_pcg, block_pcg_t)

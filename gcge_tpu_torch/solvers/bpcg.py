@@ -3,8 +3,14 @@
 
 Every column runs in every matvec; a converged column is frozen (its
 ``alpha``/``beta`` become zero) instead of being compacted out.  The loop is a
-Python loop: it stops when the iteration budget is spent or no column is
-active, which reads one flag back to the host per step.
+Python loop in two forms.  The early-exit form stops when the iteration
+budget is spent or no column is active, which reads one flag back to the host
+per step.  The fixed-count form (``fixed=True``) runs every budgeted step
+and reads nothing back: a step on which no column is active changes none of
+``x, r, z, p`` (its ``alpha`` and ``beta`` are zero), so ``x`` and the
+residuals equal the early-exit form's, and ``niters`` is a 0-d tensor that
+counts the steps on which a column was active.  The fused GCG iteration and
+a CUDA graph over a CG stage need this form.
 """
 
 from __future__ import annotations
@@ -26,12 +32,13 @@ class BlockPCGParams:
 
 @dataclass
 class BlockPCGInfo:
-    niters: int                 # iterations executed
+    niters: int | torch.Tensor  # iterations executed (0-d tensor: fixed form)
     final_res: torch.Tensor     # (m,) final residual 2-norms
     init_res: torch.Tensor      # (m,) initial residual 2-norms
 
 
-def _pcg(matvec, b, x0, params, active0, norm_b, precond, axis: int):
+def _pcg(matvec, b, x0, params, active0, norm_b, precond, axis: int,
+         fixed: bool = False):
     """Block PCG over columns (``axis=0`` sums: (n, m) layout) or rows
     (``axis=1`` sums: (m, n) layout)."""
     m = b.shape[1 - axis]
@@ -65,8 +72,15 @@ def _pcg(matvec, b, x0, params, active0, norm_b, precond, axis: int):
     active = active0 & (init_res > params.tol * nb)
     rho_prev = rho_cur
     x, p = x0, torch.zeros_like(r)
-    niter = 0
-    while niter < params.max_iter and bool(active.any()):
+    nsteps = torch.zeros((), dtype=torch.int64, device=device) if fixed \
+        else 0
+    for niter in range(params.max_iter):
+        if fixed:
+            nsteps = nsteps + active.any()
+        elif bool(active.any()):
+            nsteps += 1
+        else:
+            break
         beta = torch.where(
             (niter > 0) & active & (rho_prev > 0),
             rho_cur / torch.where(rho_prev > 0, rho_prev, 1.0), 0.0)
@@ -84,27 +98,31 @@ def _pcg(matvec, b, x0, params, active0, norm_b, precond, axis: int):
         res = torch.sqrt(rho_cur if precond is None else dots(r, r))
         active = active & (res > params.rate * init_res) & \
             (res > params.tol * nb)
-        niter += 1
-    return x, BlockPCGInfo(niters=niter, final_res=res, init_res=init_res)
+    return x, BlockPCGInfo(niters=nsteps, final_res=res, init_res=init_res)
 
 
 def block_pcg(matvec, b: torch.Tensor, x0: torch.Tensor,
               params: BlockPCGParams = BlockPCGParams(),
               active0: torch.Tensor | None = None,
-              norm_b: torch.Tensor | None = None, precond=None):
+              norm_b: torch.Tensor | None = None, precond=None,
+              fixed: bool = False):
     """Solve ``op @ x = b`` column by column; ``b, x0`` are ``(n, m)``.
 
     ``active0``: ``(m,)`` bool mask, columns False are never touched.
     ``norm_b``: per-column norms for ``tol_type='user'``.  ``precond``:
-    multivector preconditioner ``R -> M^{-1} R``.  Returns
+    multivector preconditioner ``R -> M^{-1} R``.  ``fixed``: run all
+    ``max_iter`` steps and read nothing back to the host.  Returns
     ``(x, BlockPCGInfo)``."""
-    return _pcg(matvec, b, x0, params, active0, norm_b, precond, axis=0)
+    return _pcg(matvec, b, x0, params, active0, norm_b, precond, axis=0,
+                fixed=fixed)
 
 
 def block_pcg_t(matvec_t, bt: torch.Tensor, x0t: torch.Tensor,
                 params: BlockPCGParams = BlockPCGParams(),
                 active0: torch.Tensor | None = None,
-                norm_b: torch.Tensor | None = None, precond=None):
+                norm_b: torch.Tensor | None = None, precond=None,
+                fixed: bool = False):
     """:func:`block_pcg` in the transposed ``(m, n)`` layout — the layout of
     :meth:`DiaOperator.matvec_t` and of the mixed-precision inner CG."""
-    return _pcg(matvec_t, bt, x0t, params, active0, norm_b, precond, axis=1)
+    return _pcg(matvec_t, bt, x0t, params, active0, norm_b, precond, axis=1,
+                fixed=fixed)

@@ -1,5 +1,5 @@
-"""GCG — block damping inverse-power eigensolver, phased path — the
-counterpart of ``gcge_tpu/solvers/gcg.py``.
+"""GCG — block damping inverse-power eigensolver, phased and fused paths —
+the counterpart of ``gcge_tpu/solvers/gcg.py``.
 
 Computes the ``nev`` smallest eigenpairs of ``A x = lambda B x`` (A, B
 symmetric, B SPD or None) on the subspace ``V = [X | P | W]``: X the current
@@ -10,10 +10,21 @@ The layout of state is ``gcge_tpu``'s: a fixed-width basis
 ``V : (n, size_x + 2*bs)`` whose P/W occupancy is tracked by counts (invalid
 columns are exact zeros), the full ``m x m`` projected matrix with invalid
 slots padded by a Gershgorin-large diagonal, the ``cP^T H cP`` recurrence for
-the P block, and the host-side convergence and window logic.  Each phase is a
-plain function of tensors that runs eagerly; the loop reads a few scalars
-back to the host each iteration.  Where ``gcge_tpu`` donates ``v`` to a
+the P block, and the convergence and window logic.  Each phase is a plain
+function of tensors that runs eagerly.  Where ``gcge_tpu`` donates ``v`` to a
 jitted phase, the port updates ``v`` in place.
+
+Two loops drive the phases.  The phased loop (``fuse=0``) reads a few scalars
+back to the host each iteration and stops its inner CG as soon as no column is
+active.  The fused loop (``fuse=k``) runs chunks of up to ``k`` iterations in
+which the port's own code reads nothing back: convergence test, active
+window, shift and counts stay tensors on the device, the inner CG runs its
+whole step budget, and an iteration that comes after the chunk's stopping
+condition is computed and then discarded by a select on the state.  The host
+reads four scalars and the residual window once per chunk.  On a card the
+f32 CG stage of the mixed inner solve is captured once per solve as a CUDA
+graph and replayed for every stage.  The one wait that remains inside a chunk
+is ``torch.linalg.eigh``'s own (see :func:`gcge_tpu_torch.ops.eighs.safe_eigh`).
 
 The tall products of the phases run through the CUDA kernels on the card:
 every f64 application of a DIA operator (kernel 1) or a CSR operator
@@ -25,12 +36,13 @@ runs both SpMM pairs.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from gcge_tpu_torch.ops import onehot, spmm
 from gcge_tpu_torch.ops.eighs import eigh
 from gcge_tpu_torch.ops.multivec import col_dots, set_random
 from gcge_tpu_torch.ops.onehot import CsrOperator
@@ -80,7 +92,8 @@ class GCGParams:
     orth_method: str = "evp"
     verbose: int = 1
     dtype: Any = torch.float64
-    # fused iterations are not ported yet; 0 is the phased path
+    # > 0: chunks of up to this many iterations without a host read of
+    # solver state (the fused loop); 0: the phased loop
     fuse: int = 0
     # not ported yet; setting them raises
     checkpoint_path: Any = None
@@ -143,30 +156,39 @@ def _initial_rr(a_op, v, size_x: int, bs: int):
     return ss_eval, ss_evec, h, ritz, v
 
 
-def _residual_norms(a_op, b_op, ritz, ss_eval, c0: int, cw: int):
-    """Residual 2-norms of the Ritz window ``[c0, c0+cw)``."""
-    cols = ritz[:, c0:c0 + cw]
-    lam = ss_eval[c0:c0 + cw]
+def _residual_norms(a_op, b_op, ritz, ss_eval, c0, cw: int):
+    """Residual 2-norms of the Ritz window ``[c0, c0+cw)``.  ``c0`` is an int
+    (the window is a view) or a 0-d tensor on the device (a gather)."""
+    if torch.is_tensor(c0):
+        idx = c0 + torch.arange(cw, device=ritz.device)
+        cols = ritz.index_select(1, idx)
+        lam = ss_eval.index_select(0, idx)
+    else:
+        cols = ritz[:, c0:c0 + cw]
+        lam = ss_eval[c0:c0 + cw]
     r = a_op.matvec(cols) - lam[None, :] * _matvec(b_op, cols)
     return torch.sqrt(col_dots(r, r))
 
 
-def _compute_p(v, ss_evec, h, act_idx, act_cnt: int, size_x: int, bs: int,
+def _compute_p(v, ss_evec, h, act_idx, act_cnt, size_x: int, bs: int,
                zero_tol: float, passes: int, orth_method: str = "evp"):
     """The P block: the active window's subspace eigenvectors with their
     X components zeroed, orthonormalized against the X coefficients and
     within (ref scale 1: converged columns' leftovers must deflate), then
-    ``P = V cP``.  Also returns ``P^T A P = cP^T H cP``."""
+    ``P = V cP``.  ``act_cnt`` is an int or a 0-d tensor.  Returns the block
+    ``(n, bs)``, its rank and ``P^T A P = cP^T H cP``; the caller writes the
+    block into the P slots."""
     colmask = (torch.arange(bs, device=v.device) < act_cnt).to(v.dtype)
     c_p = ss_evec[:, act_idx] * colmask[None, :]
-    c_p[act_idx, :] = 0.0
+    # not ``c_p[act_idx, :] = 0.0``: that makes a tensor of the 0.0 on the
+    # host and copies it over, which waits for the device
+    c_p.index_fill_(0, act_idx, 0.0)
     c_x = ss_evec[:, :size_x]
     c_p, p_cnt = orth_block_against(c_p, c_x, None, zero_tol=zero_tol,
                                     passes=passes, ref_scale2=1.0,
                                     method=orth_method, precision="f64")
-    v[:, size_x:size_x + bs] = tall_expand(v, c_p)
     h_pp = c_p.T @ (h @ c_p)
-    return v, p_cnt, h_pp
+    return tall_expand(v, c_p), p_cnt, h_pp
 
 
 def _f32_apply(a_op):
@@ -190,45 +212,129 @@ def _f32_apply(a_op):
     return None, False
 
 
-def _mixed_inner_solve(a_op, b_op, rhs, xact, fmask, colmask, sigma: float,
-                       stage_cg, refine: int, shifted):
+# replays of the captured CG stage since the last reset.  A replay launches
+# the stage's kernels without passing through their wrappers, so it adds the
+# calls each wrapper got during capture to that wrapper's launch count
+GRAPH_REPLAYS = {"cg_stage": 0}
+_STAGE_COUNTERS = (spmm.LAUNCHES, onehot.LAUNCHES)
+
+
+def _stage_counts():
+    return [dict(counters) for counters in _STAGE_COUNTERS]
+
+
+class _MixedStage:
+    """One f32 CG stage of the mixed inner solve: ``(A + sigma B) d = r`` in
+    f32 from ``d = 0``, for a residual ``r (n, bs)`` in f64.
+
+    Built once per solve: the f32 form of the operator, the stage's step
+    budget, and whether the CG runs its whole budget (``fixed``).  With
+    ``capture`` the stage is recorded once as a CUDA graph on static buffers
+    (residual, column mask and ``sigma`` in; correction and step count out)
+    and every call is three small copies and one replay: shapes ``(bs, n)``
+    do not change when the basis grows.  A capture that fails raises; there
+    is no eager retreat on a card."""
+
+    def __init__(self, a_op, b_op, cg: BlockPCGParams, bs: int, fixed: bool,
+                 capture: bool):
+        self.apply32, self.transposed = _f32_apply(a_op)
+        self.cg, self.fixed = cg, fixed
+        self.b32 = None
+        if b_op is not None:
+            b32 = b_op.d.float()
+            self.b32 = b32[None, :] if self.transposed else b32[:, None]
+        self.graph = None
+        if capture and self.apply32 is not None:
+            self._capture(a_op.shape[0], bs, a_op.device)
+
+    def _pcg(self, r32, colmask, sigma):
+        b32 = self.b32
+
+        def mv32(y):
+            return self.apply32(y) + sigma * (y if b32 is None else b32 * y)
+
+        pcg = block_pcg_t if self.transposed else block_pcg
+        d, info = pcg(mv32, r32, torch.zeros_like(r32), self.cg,
+                      active0=colmask, fixed=self.fixed)
+        return d, info.niters
+
+    def _capture(self, n: int, bs: int, device):
+        # the residual buffer has the strides the eager stage's operand has
+        # (``r.T.float()`` keeps the (n, bs) memory order), so that both run
+        # the same kernels on the same layout
+        r32 = torch.zeros((n, bs), dtype=torch.float32, device=device)
+        self._r32 = r32.T if self.transposed else r32
+        self._mask = torch.zeros(bs, dtype=torch.bool, device=device)
+        self._sigma = torch.zeros((), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):     # capture on the operator's card
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):   # loads every kernel before capture
+                self._pcg(self._r32, self._mask, self._sigma)
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            before = _stage_counts()
+            with torch.cuda.graph(self.graph):
+                self._d, self._niters = self._pcg(self._r32, self._mask,
+                                                  self._sigma)
+            # a wrapper called under capture records its kernel and launches
+            # nothing: its count moves from the capture to the replays
+            self._launches = []
+            for counters, was in zip(_STAGE_COUNTERS, before):
+                delta = {k: counters[k] - was[k] for k in counters}
+                counters.update(was)
+                self._launches.append(delta)
+
+    def __call__(self, r, colmask, sigma):
+        """Correction ``(n, bs)`` in the dtype of ``r``, and the CG steps."""
+        if self.graph is not None:
+            self._r32.copy_(r.T if self.transposed else r)
+            self._mask.copy_(colmask)
+            if torch.is_tensor(sigma):
+                self._sigma.copy_(sigma)
+            else:
+                self._sigma.fill_(sigma)
+            self.graph.replay()
+            GRAPH_REPLAYS["cg_stage"] += 1
+            for counters, delta in zip(_STAGE_COUNTERS, self._launches):
+                for k, count in delta.items():
+                    counters[k] += count
+            d, niters = self._d, self._niters.clone()
+        else:
+            r32 = r.T.float() if self.transposed else r.float()
+            if torch.is_tensor(sigma):
+                sigma = sigma.float()
+            d, niters = self._pcg(r32, colmask, sigma)
+        return (d.T if self.transposed else d).to(r.dtype), niters
+
+
+def _mixed_inner_solve(stage: _MixedStage, rhs, xact, fmask, colmask, sigma,
+                       refine: int, shifted):
     """Mixed-precision refinement: f32 CG stages on the correction, f64
     residual recomputed between stages (``shifted``, in the operator's f64
-    kernel).  Returns ``(None, 0)`` for an operator without an f32 form."""
-    apply32, transposed = _f32_apply(a_op)
-    if apply32 is None:
-        return None, 0
-    dtype = rhs.dtype
-    b32 = None
-    if b_op is not None:
-        b32 = b_op.d.float()
-        b32 = b32[None, :] if transposed else b32[:, None]
-    pcg = block_pcg_t if transposed else block_pcg
-
-    def mv32(y):
-        return apply32(y) + sigma * (y if b32 is None else b32 * y)
-
+    kernel)."""
     w = xact
     niters = 0
     for _ in range(refine):
         r = (rhs - shifted(w)) * fmask[None, :]
-        r32 = r.T.float() if transposed else r.float()
-        d, info = pcg(mv32, r32, torch.zeros_like(r32), stage_cg,
-                      active0=colmask)
-        w = w + (d.T if transposed else d).to(dtype)
-        niters += info.niters
+        d, k = stage(r, colmask, sigma)
+        w = w + d
+        niters = niters + k
     return w, niters
 
 
-def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt: int,
-               sigma: float, size_x: int, bs: int, cg: BlockPCGParams,
+def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
+               size_x: int, bs: int, cg: BlockPCGParams,
                zero_tol: float, passes: int, cg_order: int = 1,
                mixed: bool = False, refine: int = 2,
-               orth_method: str = "evp"):
+               orth_method: str = "evp", stage: Optional[_MixedStage] = None,
+               fixed: bool = False):
     """Inverse-power correction block W: for the active window solve
     ``(A + sigma B) w = (lambda + sigma) B x`` from ``x``, then
     B-orthonormalize W against [X | P] and within (rank-revealing) into the
-    W slots of ``v``."""
+    W slots of ``v``.  ``act_cnt`` and ``sigma`` are Python numbers or 0-d
+    tensors; ``stage`` is the f32 CG stage of the mixed branch (None: A has
+    no f32 form); ``fixed`` makes every CG run its whole step budget."""
     colmask = torch.arange(bs, device=v.device) < act_cnt
     fmask = colmask.to(v.dtype)
     xact = ritz[:, act_idx] * fmask[None, :]
@@ -239,15 +345,13 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt: int,
         return a_op.matvec(y) + sigma * _matvec(b_op, y)
 
     if mixed:
-        if b_op is not None and not isinstance(b_op, DiagOperator):
-            raise ValueError("cg_mixed requires B = None or diagonal")
-        stage_cg = cg if refine <= 1 else BlockPCGParams(
-            **{**cg.__dict__, "max_iter": -(-cg.max_iter // refine)})
-        w, niters = _mixed_inner_solve(a_op, b_op, rhs, xact, fmask, colmask,
-                                       sigma, stage_cg, refine, shifted)
-        if w is None:
+        if stage is not None:
+            w, niters = _mixed_inner_solve(stage, rhs, xact, fmask, colmask,
+                                           sigma, refine, shifted)
+        else:
             # no f32 operator for this A (dense, diagonal, user): plain f64
-            w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask)
+            w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
+                                fixed=fixed)
             w = w * fmask[None, :]
             niters = info.niters
         rfin = (rhs - shifted(w)) * fmask[None, :]
@@ -255,15 +359,18 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt: int,
     elif cg_order == 2:
         half = max(bs // 2, 1)
         hmask = colmask & (torch.arange(bs, device=v.device) < half)
-        w1, info1 = block_pcg(shifted, rhs, xact, cg, active0=hmask)
-        w2, info2 = block_pcg(shifted, rhs, w1, cg, active0=hmask)
+        w1, info1 = block_pcg(shifted, rhs, xact, cg, active0=hmask,
+                              fixed=fixed)
+        w2, info2 = block_pcg(shifted, rhs, w1, cg, active0=hmask,
+                              fixed=fixed)
         hf = hmask.to(v.dtype)[None, :]
         w = torch.cat([(w1 * hf)[:, :half], (w2 * hf)[:, :half]], dim=1)
         w = torch.nn.functional.pad(w, (0, bs - w.shape[1]))[:, :bs]
         niters = info1.niters + info2.niters
         final_res = info2.final_res
     else:
-        w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask)
+        w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
+                            fixed=fixed)
         w = w * fmask[None, :]
         niters, final_res = info.niters, info.final_res
     q = v[:, :size_x + bs]
@@ -303,8 +410,11 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     gersh = h.abs().sum(dim=1).max() + 1.0
     w, c = eigh(h + torch.diag((1.0 - fvalid) * gersh))
     act_tot = size_x + p_cnt + w_cnt
+    # a gather, not ``w[act_tot - 1]``: indexing by a 0-d tensor reads it
+    # back to the host
+    lam_pad = w.index_select(0, (act_tot - 1).reshape(1))
     ss_eval_new = torch.where(torch.arange(m, device=dev) < act_tot, w,
-                              w[act_tot - 1])
+                              lam_pad)
     ritz = tall_expand(v, c[:, :size_x])
     return ss_eval_new, c, h, ritz
 
@@ -319,6 +429,23 @@ def _expand_ritz(v, ss_evec, ritz, size_x_old: int, extra: int):
     """Restart growth: append P/W Ritz combinations as new X columns."""
     new_cols = tall_expand(v, ss_evec[:, size_x_old:size_x_old + extra])
     return torch.cat([ritz, new_cols], dim=1)
+
+
+def _grow_basis(v, ss_evec, ritz, ss_eval, size_x: int, extra: int, bs: int):
+    """Restart growth: ``extra`` P/W Ritz combinations join X; the basis, the
+    Ritz values and the projected problem are rebuilt at the new width.
+    Returns ``(v, ritz, ss_eval, ss_evec, h, size_x)``."""
+    ritz = _expand_ritz(v, ss_evec, ritz, size_x, extra)
+    size_x += extra
+    m = size_x + 2 * bs
+    v = torch.zeros((v.shape[0], m), dtype=v.dtype, device=v.device)
+    v[:, :size_x] = ritz
+    ss_eval = torch.cat([ss_eval[:size_x],
+                         ss_eval[size_x - 1].expand(2 * bs)])
+    ss_evec = torch.eye(m, dtype=v.dtype, device=v.device)
+    h = torch.diag(ss_eval)
+    h[size_x:, size_x:] = 0.0
+    return v, ritz, ss_eval, ss_evec, h, size_x
 
 
 # --------------------------------------------------------------------------
@@ -373,6 +500,247 @@ def _check_convergence_host(res, ss_eval_h, c0_eff, scan_from, nev_conv_prev,
 
 
 # --------------------------------------------------------------------------
+# fused iteration: the same logic in tensor operations on the device
+# --------------------------------------------------------------------------
+
+
+def _check_convergence_traced(res, ss_eval, c0, scan_from, nev_conv_prev,
+                              size_x: int, bs: int, tol_abs, tol_rel,
+                              gap_min, multi_max: int):
+    """:func:`_check_convergence_host` on the device, without a host read:
+    ``res`` (cw,) and ``ss_eval`` are tensors, ``c0``, ``scan_from`` and
+    ``nev_conv_prev`` 0-d integer tensors.  Returns 0-d ``nev_conv``,
+    ``act_idx`` (bs,) int64 and 0-d ``act_cnt``."""
+    dev = res.device
+    cw = res.shape[0]
+    ar = torch.arange(cw, device=dev)
+    lam_win = ss_eval.index_select(0, c0 + ar)
+    unconv = torch.where(lam_win.abs() > tol_rel,
+                         (res > tol_abs) | (res > lam_win.abs() * tol_rel),
+                         res > tol_abs)
+    # first unconverged index in [scan_from, cw), else cw
+    scan_unconv = unconv & (ar >= scan_from)
+    idx = torch.where(scan_unconv, ar, cw).min()
+    # multiplicity back-off: the largest j <= idx with a real gap at j, over
+    # positions 0..cw INCLUSIVE (idx == cw when the whole window converged:
+    # the gap test then looks one past the window, as the host loop does)
+    ar1 = torch.arange(cw + 1, device=dev)
+    last = ss_eval.shape[0] - 1
+    lam_m1 = ss_eval.index_select(0, torch.clamp(c0 + ar1 - 1, 0, last))
+    lam_cur = ss_eval.index_select(0, torch.clamp(c0 + ar1, 0, last))
+    denom = torch.where(lam_m1 != 0, lam_m1.abs(), 1.0)
+    gap_ok = ((lam_m1 - lam_cur) / denom).abs() > gap_min
+    gap_ok = gap_ok | (ar1 + c0 == 0)     # position 0 has nothing below it
+    j = torch.where((ar1 <= idx) & gap_ok, ar1, 0).max()
+    j = torch.minimum(j, idx)
+    # never back off more than multi_max positions
+    j = torch.maximum(j, torch.clamp(idx - multi_max, min=0))
+    nev_conv = torch.maximum(nev_conv_prev, c0 + j)
+    # active window: unconverged checked columns first, then the sequential
+    # tail beyond the window, capped at size_x (larger keys sort behind)
+    arb = torch.arange(bs, device=dev)
+    win_idx = torch.where(scan_unconv, c0 + ar, size_x + ar)
+    tail = c0 + cw + arb
+    tail_idx = torch.where(tail < size_x, tail, 2 * size_x + cw + arb)
+    cand = torch.sort(torch.cat([win_idx, tail_idx])).values[:bs]
+    act_cnt = (cand < size_x).sum()
+    # nothing active: the window at nev_conv, cut at size_x.  The count is
+    # the host form's (the columns that exist); gcge_tpu's traced form says
+    # bs here and repeats the last index, its host form does not
+    use_fb = act_cnt == 0
+    cand = torch.where(use_fb, torch.clamp(nev_conv + arb, max=size_x - 1),
+                       cand)
+    fb_cnt = torch.clamp(nev_conv + bs, max=size_x) - \
+        torch.clamp(nev_conv, max=size_x - 1)
+    act_cnt = torch.where(use_fb, fb_cnt, act_cnt)
+    # invalid slots repeat the last valid index
+    last_valid = cand.index_select(0, (act_cnt - 1).reshape(1))
+    act_idx = torch.clamp(torch.where(arb < act_cnt, cand, last_valid),
+                          max=size_x - 1)
+    return nev_conv, act_idx, act_cnt
+
+
+@dataclass
+class _FusedState:
+    """What one fused iteration hands to the next; every field a tensor on
+    the device."""
+
+    v: torch.Tensor          # (n, m) basis [X | P | W]
+    ritz: torch.Tensor       # (n, size_x)
+    ss_eval: torch.Tensor    # (m,)
+    ss_evec: torch.Tensor    # (m, m)
+    h: torch.Tensor          # (m, m)
+    act_idx: torch.Tensor    # (bs,) int64: the last active window
+    act_cnt: torch.Tensor    # 0-d int64
+    nev_conv: torch.Tensor   # 0-d int64
+    num_iter: torch.Tensor   # 0-d int64
+    stall: torch.Tensor      # 0-d int64
+    res: torch.Tensor        # (cw,) the last residual window
+    done: torch.Tensor       # 0-d bool: the chunk's stopping condition holds
+
+
+def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
+                size_x: int, bs: int, cg: BlockPCGParams, p: GCGParams,
+                stage: Optional[_MixedStage]) -> _FusedState:
+    """One whole GCG iteration on device tensors: convergence check, P from
+    the previous active set, X, W with the new one, Rayleigh-Ritz.  Once
+    ``nev_conv >= nev_target`` or two stalls hold, at entry or after this
+    step's own check, the iteration is still computed (there is no loop on
+    the device to leave) and a select keeps the old state, so the state, the
+    counts and ``nev_conv`` equal those of a loop that had stopped there.
+    ``first``: the iteration after the start or a restart, which checks
+    nothing and has no P; the host knows it."""
+    dev, dt = st.v.device, st.v.dtype
+    cw = st.res.shape[0]
+    arb = torch.arange(bs, device=dev)
+    live = ~st.done
+    if first:
+        nev_conv, res = st.nev_conv, st.res
+        act_idx = torch.clamp(nev_conv + arb, max=size_x - 1)
+        act_cnt = torch.full_like(st.act_cnt, bs)
+        p_blk = torch.zeros((st.v.shape[0], bs), dtype=dt, device=dev)
+        p_cnt = torch.zeros_like(st.act_cnt)
+        h_pp = torch.zeros((bs, bs), dtype=dt, device=dev)
+    else:
+        c0 = torch.clamp(st.nev_conv, max=size_x - cw)
+        res_new = _residual_norms(a_op, b_op, st.ritz, st.ss_eval, c0, cw)
+        nev_new, act_idx, act_cnt = _check_convergence_traced(
+            res_new, st.ss_eval, c0, st.nev_conv - c0, st.nev_conv, size_x,
+            bs, p.tol_abs, p.tol_rel, p.gap_min, p.multi_max)
+        nev_conv = torch.where(live, nev_new, st.nev_conv)
+        res = torch.where(live, res_new, st.res)
+        p_blk, p_cnt, h_pp = _compute_p(
+            st.v, st.ss_evec, st.h, st.act_idx, st.act_cnt, size_x, bs,
+            p.orth_zero_tol, p.orth_passes, p.orth_method)
+    # this iteration counts (the first one runs whatever nev_conv is, as in
+    # the phased loop, where a restart is followed by an iteration)
+    go = live if first else live & (nev_conv < nev_target)
+
+    v = torch.empty_like(st.v)
+    v[:, :size_x] = st.ritz
+    v[:, size_x:size_x + bs] = p_blk
+
+    sigma = torch.full((), p.cg_shift, dtype=dt, device=dev)
+    if p.cg_auto_shift:
+        ic = torch.clamp(nev_conv, max=size_x - 2).reshape(1)
+        lam_c = st.ss_eval.index_select(0, ic)[0]
+        lam_c1 = st.ss_eval.index_select(0, ic + 1)[0]
+        sigma = sigma + (-lam_c + 0.01 * (lam_c1 - lam_c))
+    v, w_cnt, _, _ = _compute_w(
+        a_op, b_op, v, st.ritz, st.ss_eval, act_idx, act_cnt, sigma, size_x,
+        bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order, p.cg_mixed,
+        p.cg_refine, p.orth_method, stage=stage, fixed=True)
+    ss_eval, ss_evec, h, ritz = _rayleigh_ritz(a_op, v, h_pp, st.ss_eval,
+                                               p_cnt, w_cnt, size_x, bs)
+
+    def keep(new, old):
+        return torch.where(go, new, old)
+
+    stalled = (p_cnt == 0) & (w_cnt == 0)
+    stall = keep(torch.where(stalled, st.stall + 1, 0), st.stall)
+    return _FusedState(
+        v=keep(v, st.v), ritz=keep(ritz, st.ritz),
+        ss_eval=keep(ss_eval, st.ss_eval), ss_evec=keep(ss_evec, st.ss_evec),
+        h=keep(h, st.h), act_idx=keep(act_idx, st.act_idx),
+        act_cnt=keep(act_cnt, st.act_cnt), nev_conv=nev_conv,
+        num_iter=st.num_iter + go, stall=stall, res=res,
+        done=~go | (stall >= 2))
+
+
+def _gcg_chunk(a_op, b_op, st: _FusedState, first: bool, steps: int,
+               nev_target: int, size_x: int, bs: int, cg: BlockPCGParams,
+               p: GCGParams, stage: Optional[_MixedStage],
+               last: bool = False) -> _FusedState:
+    """``steps`` fused iterations, launched without reading solver state back:
+    the counterpart of ``gcge_tpu``'s one ``lax.while_loop``.  PyTorch has no
+    loop on the device, so every step is launched and those after the stopping
+    condition change nothing (:func:`_fused_step`).  ``last``: the chunk that
+    spends the iteration budget; it ends with the convergence check of its
+    last iterate, which the phased loop makes before it leaves on the budget
+    (a step checks only at its start)."""
+    for step in range(steps):
+        st = _fused_step(a_op, b_op, st, first and step == 0, nev_target,
+                         size_x, bs, cg, p, stage)
+    if last:
+        cw = st.res.shape[0]
+        c0 = torch.clamp(st.nev_conv, max=size_x - cw)
+        res = _residual_norms(a_op, b_op, st.ritz, st.ss_eval, c0, cw)
+        nev_conv, _, _ = _check_convergence_traced(
+            res, st.ss_eval, c0, st.nev_conv - c0, st.nev_conv, size_x, bs,
+            p.tol_abs, p.tol_rel, p.gap_min, p.multi_max)
+        # a solve that stopped (converged: checked already; stalled: the
+        # phased loop leaves without a check) keeps what it has
+        st = replace(st, nev_conv=torch.where(st.done, st.nev_conv, nev_conv),
+                     res=torch.where(st.done, st.res, res))
+    return st
+
+
+def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
+               ss_eval, ss_evec, h, size_x: int, nev_target: int):
+    """The host loop over fused chunks: one read per chunk, then restart
+    growth, the stall stop and the iteration budget, as the phased loop has
+    them.  Returns ``(ss_eval, ritz, size_x, nev_conv, total_iter, res_h,
+    history)``."""
+    bs, nev0 = p.block_size, p.nev
+    dev, dt = v.device, v.dtype
+
+    def scalar(value):
+        return torch.full((), value, dtype=torch.int64, device=dev)
+
+    def fresh_state(v, ritz, ss_eval, ss_evec, h, size_x, nev_conv):
+        cw = min(max(p.check_max or 2 * bs, bs), size_x)
+        return _FusedState(
+            v=v, ritz=ritz, ss_eval=ss_eval, ss_evec=ss_evec, h=h,
+            act_idx=torch.clamp(nev_conv + torch.arange(bs, device=dev),
+                                max=size_x - 1),
+            act_cnt=scalar(bs), nev_conv=scalar(nev_conv),
+            num_iter=scalar(0), stall=scalar(0),
+            res=torch.zeros(cw, dtype=dt, device=dev),
+            done=torch.zeros((), dtype=torch.bool, device=dev))
+
+    st = fresh_state(v, ritz, ss_eval, ss_evec, h, size_x, 0)
+    nev_conv = num_iter = 0
+    iter_budget = p.max_iter
+    res_h = np.zeros((bs,))
+    history = []
+    while num_iter < iter_budget:
+        steps = min(p.fuse, iter_budget - num_iter)
+        st = _gcg_chunk(a_op, b_op, st, num_iter == 0, steps, nev_target,
+                        size_x, bs, cg, p, stage,
+                        last=num_iter + steps >= iter_budget)
+        # the chunk's one read: three counts and the residual window
+        back = torch.cat([torch.stack([st.nev_conv, st.num_iter,
+                                       st.stall]).to(dt), st.res]).cpu()
+        nev_conv, num_iter, stall = (int(x) for x in back[:3])
+        res_h = back[3:].numpy()
+        history.append((num_iter, nev_conv))
+        if p.verbose:
+            print(f"{num_iter}\t{nev_conv}\t(res window max "
+                  f"{res_h.max():.4e})")
+        if nev_conv >= nev_target:
+            if nev_conv >= nev0 or size_x >= p.nev_max:
+                break
+            extra = min(2 * bs, p.nev_max - size_x)
+            grown = _grow_basis(st.v, st.ss_evec, st.ritz, st.ss_eval,
+                                size_x, extra, bs)
+            size_x = grown[-1]
+            nev_target = min(nev_target + extra, nev0)
+            st = fresh_state(*grown, nev_conv)
+            iter_budget -= num_iter
+            num_iter = 0
+            if p.verbose:
+                print(f"GCG restart: sizeX -> {size_x}, "
+                      f"target -> {nev_target}")
+            continue
+        if stall >= 2:
+            if p.verbose:
+                print("GCG: subspace stagnated (P and W deflated); stopping")
+            break
+    total_iter = num_iter + (p.max_iter - iter_budget)
+    return st.ss_eval, st.ritz, size_x, nev_conv, total_iter, res_h, history
+
+
+# --------------------------------------------------------------------------
 # solve loop
 # --------------------------------------------------------------------------
 
@@ -405,9 +773,6 @@ def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
 
 
 def _not_ported(params: GCGParams, mesh) -> None:
-    if params.fuse > 0:
-        raise NotImplementedError("fuse > 0 (fused iterations) is not "
-                                  "ported yet (ROADMAP Queue 1 item 8)")
     if mesh is not None:
         raise NotImplementedError("mesh (distribution) is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
@@ -424,7 +789,10 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
               generator: Optional[torch.Generator] = None,
               mesh=None) -> GCGResult:
     """Solve ``A x = lambda B x`` for the ``params.nev`` smallest eigenpairs
-    on the operators' device.
+    on the operators' device, by the phased loop or, with ``params.fuse >
+    0``, by the fused one (chunks of ``fuse`` iterations without a host read;
+    it reports the total time and one history entry per chunk, no phase
+    timers).
 
     ``x0``: optional ``(n, k)`` starting vectors (numpy or tensor); the rest
     of the block is drawn from ``generator`` (default: seed 0 on the
@@ -440,9 +808,25 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         generator = torch.Generator(device=device).manual_seed(0)
     cg = BlockPCGParams(max_iter=p.cg_max_iter, rate=p.cg_rate, tol=p.cg_tol,
                         tol_type=p.cg_tol_type)
+    fused = p.fuse > 0
+    stage = None
+    t_start = time.perf_counter()
+    if p.cg_mixed:
+        if b_op is not None and not isinstance(b_op, DiagOperator):
+            raise ValueError("cg_mixed requires B = None or diagonal")
+        stage_cg = cg if p.cg_refine <= 1 else replace(
+            cg, max_iter=-(-cg.max_iter // p.cg_refine))
+        # the fused loop's stages run their whole budget and, on a card,
+        # run as one captured graph
+        stage = _MixedStage(a_op, b_op, stage_cg, bs, fixed=fused,
+                            capture=fused and device.type == "cuda")
+        if stage.apply32 is None:
+            stage = None
     timers = {k: 0.0 for k in ("initX", "checkconv", "compP", "compX",
                                "compW", "linsol", "compRR", "compRV",
                                "total")}
+    # building the f32 operator and, on a card, capturing the stage's graph
+    timers["stage"] = time.perf_counter() - t_start
 
     def sync():
         if device.type == "cuda":
@@ -456,7 +840,6 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         return out
 
     # ---- InitializeX + first RR -----------------------------------------
-    t_start = time.perf_counter()
     if x0 is not None:
         x0 = torch.as_tensor(x0, dtype=dtype, device=device)
     x = timed("initX", _init_x, b_op, x0, size_x, n, dtype, generator,
@@ -468,6 +851,25 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
                                          size_x, bs)
 
     nev_target = nev0 if size_x >= p.nev_max else min(2 * bs, nev0)
+    if p.verbose:
+        print(f"GCG: n={n} nev={nev0} bs={bs} sizeX={size_x} "
+              f"nevMax={p.nev_max}")
+        print("numIter\tnevConv")
+    if fused:
+        ss_eval, ritz, size_x, nev_conv, total_iter, res_h, history = \
+            _run_fused(a_op, b_op, p, cg, stage, v, ritz, ss_eval, ss_evec,
+                       h, size_x, nev_target)
+        sync()
+        timers["total"] = time.perf_counter() - t_start
+        if p.verbose:
+            print(f"GCG: {total_iter} iterations in {len(history)} fused "
+                  f"chunks, nevConv={nev_conv}, {timers['total']:.3f} s "
+                  f"(CG stage set-up {timers['stage']:.3f} s, initX "
+                  f"{timers['initX']:.3f} s)")
+        return GCGResult(eval=ss_eval[:size_x].cpu().numpy(), evec=ritz,
+                         nev_conv=nev_conv, num_iter=total_iter,
+                         res_norms=res_h, timers=timers, history=history)
+
     nev_conv = 0
     act_idx_prev = None
     act_cnt_prev = 0
@@ -477,11 +879,6 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
     res_h = np.zeros((bs,))
     skip_p = True  # no P on the first iteration
     stall = 0
-
-    if p.verbose:
-        print(f"GCG: n={n} nev={nev0} bs={bs} sizeX={size_x} "
-              f"nevMax={p.nev_max}")
-        print("numIter\tnevConv")
 
     while True:
         # ---- CheckConvergence ------------------------------------------
@@ -514,19 +911,10 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             if nev_conv >= nev0 or size_x >= p.nev_max:
                 break
             extra = min(2 * bs, p.nev_max - size_x)
-            ritz = _expand_ritz(v, ss_evec, ritz, size_x, extra)
-            size_x += extra
+            v, ritz, ss_eval, ss_evec, h, size_x = _grow_basis(
+                v, ss_evec, ritz, ss_eval, size_x, extra, bs)
             nev_target = min(nev_target + extra, nev0)
-            m = size_x + 2 * bs
-            v = torch.zeros((n, m), dtype=dtype, device=device)
-            v[:, :size_x] = ritz
             ss_eval_h = ss_eval.cpu().numpy()
-            lam_new = np.concatenate([ss_eval_h[:size_x],
-                                      np.full(2 * bs, ss_eval_h[size_x - 1])])
-            ss_eval = torch.as_tensor(lam_new, dtype=dtype, device=device)
-            ss_evec = torch.eye(m, dtype=dtype, device=device)
-            h = torch.diag(ss_eval[:m])
-            h[size_x:, size_x:] = 0.0
             iter_budget -= num_iter
             num_iter = 0
             skip_p = True
@@ -547,10 +935,11 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             v[:, size_x:size_x + bs] = 0.0
             skip_p = False
         else:
-            v, p_cnt, h_pp = timed(
+            p_blk, p_cnt, h_pp = timed(
                 "compP", _compute_p, v, ss_evec, h,
                 torch.as_tensor(act_idx_prev, device=device), act_cnt_prev,
                 size_x, bs, p.orth_zero_tol, p.orth_passes, p.orth_method)
+            v[:, size_x:size_x + bs] = p_blk
 
         # ---- ComputeX ----------------------------------------------------
         v = timed("compX", _set_x, v, ritz, size_x)
@@ -566,7 +955,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             a_op, b_op, v, ritz, ss_eval,
             torch.as_tensor(act_idx, device=device), act_cnt, sigma,
             size_x, bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order,
-            p.cg_mixed, p.cg_refine, p.orth_method)
+            p.cg_mixed, p.cg_refine, p.orth_method, stage=stage)
         sync()
         timers["compW"] += time.perf_counter() - t0
         timers["linsol"] += time.perf_counter() - t0

@@ -70,9 +70,12 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
         if ref_scale2 is None and i == 0:
             ref_scale2 = w_max
         thresh = (zero_tol * zero_tol) * ref_scale2 if i == 0 else zero_tol
-        thresh = torch.maximum(torch.as_tensor(thresh, dtype=w.dtype,
-                                               device=w.device),
-                               floor * w_max)
+        # no tensor is made from a Python number: on a card that is a copy
+        # from the host, which the fused iteration must not wait for
+        if torch.is_tensor(thresh):
+            thresh = torch.maximum(thresh, floor * w_max)
+        else:
+            thresh = torch.clamp(floor * w_max, min=thresh)
         valid = w > thresh
         scale = torch.where(valid, torch.rsqrt(torch.where(valid, w, 1.0)),
                             0.0)
@@ -80,7 +83,7 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
         cnt = valid.sum()
         rank = cnt if rank is None else torch.minimum(rank, cnt)
     if rank is None:
-        rank = torch.tensor(x.shape[1], device=x.device)
+        rank = torch.full((), x.shape[1], dtype=torch.int64, device=x.device)
     return _ns_polish(x, b_matvec), rank
 
 
@@ -118,7 +121,7 @@ def orth_block_against(x, q, b_matvec=None, zero_tol: float = 1e-13,
     if ref_scale2 is None:
         bx = x if b_matvec is None else b_matvec(x)
         ref_scale2 = torch.clamp(col_dots(x, bx).max(), min=1e-300)
-    rank = torch.tensor(x.shape[1], device=x.device)
+    rank = torch.full((), x.shape[1], dtype=torch.int64, device=x.device)
     for i in range(passes):
         x = orth_against(x, q, b_matvec, passes=1, precision=precision)
         x, r = orth_within(x, b_matvec, zero_tol=zero_tol, passes=1,

@@ -13,7 +13,10 @@ import torch
 
 from gcge_tpu_torch import HybridOperator, make_operator, solve
 from gcge_tpu_torch.io.fem import assemble_p1, random_delaunay_mesh
-from gcge_tpu_torch.ops import onehot, osgemm, spmm
+from gcge_tpu_torch.benchmarks.pallas_isolate import make_planes
+from gcge_tpu_torch.ops import onehot, osgemm, probes, spmm
+from gcge_tpu_torch.solvers import gcg
+from gcge_tpu_torch.solvers.bpcg import BlockPCGParams
 
 pytestmark = pytest.mark.cuda
 
@@ -263,3 +266,130 @@ def test_small_irregular_solve_on_card_matches_cpu(cuda):
     res = np.linalg.norm(a @ x - x * ev_gpu[None, :10], axis=0) / (
         np.abs(ev_gpu[:10]) * np.linalg.norm(x, axis=0))
     assert res.max() <= 2e-8
+
+
+def test_fma_probe_kernel_matches_plain(cuda):
+    """Kernel 8: the Dekker block bit for bit; ``a*b - p`` the exact error
+    (nvcc fused it into one FMA) or zero (it did not)."""
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor((rng.standard_normal(probes.PROBE_SHAPE) * 1.7)
+                        .astype(np.float32), device=cuda)
+    b = torch.as_tensor((rng.standard_normal(probes.PROBE_SHAPE) * 0.3)
+                        .astype(np.float32), device=cuda)
+    before = probes.LAUNCHES["fma_probe"]
+    res = probes.fma_probe(a, b)
+    assert probes.LAUNCHES["fma_probe"] == before + 1
+    ref = probes.fma_probe_plain(a, b)
+    assert torch.equal(res.out[8:], ref[8:])
+    assert torch.equal(res.out[:8], ref[:8]) or not bool(res.out[:8].any())
+    assert res.fused == torch.equal(res.out[:8], res.out[8:])
+    assert res.nonzeros == int(torch.count_nonzero(ref[8:]))
+    with pytest.raises(ValueError):
+        probes.fma_probe(a.T.contiguous().T, b)
+
+
+@pytest.mark.parametrize("p,q,n,nr", [(16, 1, 64, 64), (32, 8, 300, 128),
+                                      (128, 16, 5000, 1024)])
+@pytest.mark.parametrize("mode", probes.MODES)
+def test_slice_gram_kernel_matches_plain(cuda, p, q, n, nr, mode):
+    """Kernel 9, every mode: zeros without the dot; ``full`` bit for bit
+    (7-bit slices: a chunk's sum is exact in f32 and the chunk slabs are
+    added in the plain version's order); ``dot`` within 1e-5 of the largest
+    entry (bf16 values of any exponent, a chunk summed in another order);
+    two launches give equal bits."""
+    planes = make_planes(p, q, n, nr, cuda, seed=p)
+    before = probes.LAUNCHES["slice_gram"]
+    got = probes.slice_gram(*planes, mode=mode, nr=nr)
+    again = probes.slice_gram(*planes, mode=mode, nr=nr)
+    assert probes.LAUNCHES["slice_gram"] == before + 2
+    ref = probes.slice_gram_plain(*planes, mode=mode, nr=nr)
+    assert got.shape == (7 * p, 7 * q) and torch.equal(got, again)
+    if mode in ("none", "peel"):
+        assert not bool(got.any())
+    elif mode == "full":
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        assert not bool(got[p:].any()) and not bool(got[:, q:].any())
+
+
+def test_slice_gram_kernel_raises_on_what_it_does_not_take(cuda):
+    ahi, alo, bhi, blo = make_planes(16, 4, 128, 64, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        probes.slice_gram(ahi[:8].contiguous(), alo[:8].contiguous(), bhi,
+                          blo, nr=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.slice_gram(ahi[:, ::2], alo[:, ::2], bhi[:, ::2], blo[:, ::2],
+                          nr=64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        probes.slice_gram(ahi, alo, bhi, blo, nr=32)
+    big = make_planes(16, 17, 128, 64, cuda)
+    with pytest.raises(ValueError, match="Q <= 16"):
+        probes.slice_gram(*big, nr=64)
+
+
+@pytest.mark.parametrize("layout", ["dia", "csr"])
+def test_captured_cg_stage_matches_eager(cuda, layout):
+    """The f32 CG stage replayed from its CUDA graph against the same stage
+    run eagerly, and against the early-exit CG: equal bits, over several
+    calls with other residuals, masks and shifts on the same buffers."""
+    if layout == "dia":
+        rows, cols, vals, n = _laplacian_27(12)
+        op = make_operator(rows, cols, vals, (n, n), device=cuda)
+    else:
+        a, (rowptr, colidx, values) = _irregular_csr(3000, seed=4)
+        sym = (a + a.T + sps.identity(3000) * 40.0).tocoo()
+        op = onehot.CsrOperator.from_coo(sym.row, sym.col, sym.data,
+                                         sym.shape, device=cuda)
+        n = 3000
+    bs = 10
+    cg = BlockPCGParams(max_iter=15, rate=1e-2, tol=1e-14)
+    key, counters = ("dia_f32", spmm.LAUNCHES) if layout == "dia" else \
+        ("csr_f32", onehot.LAUNCHES)
+    counters[key] = 0
+    captured = gcg._MixedStage(op, None, cg, bs, fixed=True, capture=True)
+    # the warm-up before the capture launched one stage's kernels; the
+    # capture itself launched none
+    per_stage = counters[key]
+    assert per_stage >= cg.max_iter
+    eager = gcg._MixedStage(op, None, cg, bs, fixed=True, capture=False)
+    early = gcg._MixedStage(op, None, cg, bs, fixed=False, capture=False)
+    assert captured.graph is not None and eager.graph is None
+    g = torch.Generator(device=cuda).manual_seed(1)
+    replays = gcg.GRAPH_REPLAYS["cg_stage"]
+    for trial, active in enumerate((10, 7, 0)):
+        r = torch.randn((n, bs), generator=g, dtype=torch.float64,
+                        device=cuda)
+        mask = torch.arange(bs, device=cuda) < active
+        sigma = torch.full((), 0.5 + trial, dtype=torch.float64, device=cuda)
+        was = counters[key]
+        d_cap, k_cap = captured(r, mask, sigma)
+        # a replay counts the kernels it launches, as the eager stage does
+        assert counters[key] - was == per_stage
+        d_eag, k_eag = eager(r, mask, sigma)
+        assert counters[key] - was == 2 * per_stage
+        d_ear, k_ear = early(r, mask, float(sigma))
+        assert torch.equal(d_cap, d_eag) and torch.equal(d_cap, d_ear)
+        assert int(k_cap) == int(k_eag) == int(k_ear)
+        assert d_cap.dtype == torch.float64 and d_cap.shape == (n, bs)
+    assert gcg.GRAPH_REPLAYS["cg_stage"] == replays + 3
+
+
+def test_fused_solve_on_card_matches_phased_and_cpu(cuda):
+    """A small headline-style solve by the fused loop on the card (captured
+    CG stage) against the phased loop on the card (equal counts, eigenvalues
+    within 1e-10) and against the fused loop on the CPU (within 1e-10)."""
+    rows, cols, vals, n = _laplacian_27(10)
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    x0 = np.random.default_rng(0).uniform(-1, 1, (n, 20))
+    kw = dict(nev=10, block_size=10, max_iter=120, cg_max_iter=30,
+              cg_mixed=True, cg_refine=2, cg_auto_shift=True, verbose=0,
+              x0=x0)
+    replays = gcg.GRAPH_REPLAYS["cg_stage"]
+    ev_f, _, conv_f = solve(a, device=cuda, fuse=5, **kw)
+    assert gcg.GRAPH_REPLAYS["cg_stage"] > replays
+    ev_p, _, conv_p = solve(a, device=cuda, fuse=0, **kw)
+    ev_c, _, conv_c = solve(a, device="cpu", fuse=5, **kw)
+    assert conv_f == conv_p >= 10 and conv_c >= 10
+    assert np.max(np.abs(ev_f - ev_p) / np.abs(ev_p)) <= 1e-10
+    assert np.max(np.abs(ev_f - ev_c) / np.abs(ev_c)) <= 1e-10

@@ -174,8 +174,7 @@ def test_resolved_matches_jax(nev, block_size, nev_max):
 def test_options_not_ported_raise(stencil10):
     rows, cols, vals, n, _ = stencil10
     op = make_operator(rows, cols, vals, (n, n), device="cpu")
-    for kw, item in ((dict(fuse=5), "item 8"),
-                     (dict(checkpoint_path="x"), "item 11"),
+    for kw, item in ((dict(checkpoint_path="x"), "item 11"),
                      (dict(profile_dir="x"), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             gcg_solve(op, None, GCGParams(nev=4, **kw))
