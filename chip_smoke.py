@@ -9,17 +9,25 @@ check that a fused chunk never waits for the device outside ``eigh``.
 Phases, each of which raises on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
-   ``gcge_tpu_torch/ops/csrc`` and print the build time;
+   ``gcge_tpu_torch/ops/csrc`` and print the build time; check one 16 x 8 x 8
+   tile of the f64 mma that kernels 3 and 4 use against ``a @ c`` (the
+   fragment layout);
 2. kernels 1-4 — run each wrapper on the card at the shapes of the headline
    solve, hold it against its plain PyTorch version on the same inputs
    (stated tolerance), and time it (CUDA events, median of 20, each after
-   a flush of the L2 cache) beside the plain version and beside the one PyTorch call that computes the same
-   function (``torch.sparse.mm`` on a CSR tensor, ``a.T @ b``, ``a @ c``);
+   a flush of the L2 cache) beside the plain version and beside the one
+   PyTorch call that computes the same function (``torch.sparse.mm`` on a
+   CSR tensor, ``a.T @ b``, ``a @ c``); kernels 3 and 4 at every shape class
+   a solve gives them (Gram (120 x 10), (110 x 10), (10 x 10), (100 x 100);
+   expand (n x 120)(120 x 100), (n x 120)(120 x 10), (n x 110)(110 x 10),
+   (n x 10)(10 x 10)), each also with equal bits across two launches;
 3. headline solve — ``gcge_tpu_torch.solve`` on the 3-D 27-point Laplacian at
    nx=54 (n=157,464), nev=50 at tol_rel 1e-8, block 10, inner CG budget 30;
    checks the converged count, the eigenvalues against the closed-form
    spectrum, the residuals with scipy on the host, and that kernels 1-4 were
-   launched during the solve;
+   launched during the solve; prints kernels 3 and 4's calls per iteration
+   by shape class, and their summed time (the kernel phase's, at this n)
+   against their summed bound (so for every checked solve);
 4. irregular matrix — the P1 FEM stiffness matrix on an unstructured Delaunay
    tet mesh of 64^3 jittered points (n=250,047), built on the host with the
    port's own ``io.fem``, and its RCM ordering; host times printed;
@@ -57,7 +65,8 @@ Phases, each of which raises on failure:
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused) and prints the
 device's busy and idle share, the device operations, host launches and host
-synchronisations per iteration and the device time by kernel; then the
+synchronisations per iteration, the device time by kernel and that of
+kernels 3 and 4 together; then the
 walls of the headline solve, of a short solve and of the irregular solve,
 phased and fused in chunks of 20 and 5, taken in turns.
 
@@ -69,6 +78,7 @@ result.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -92,6 +102,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
 HEADLINE_KWARGS = dict(nev=NEV, block_size=BS, max_iter=120, cg_max_iter=30)
+# the shape classes a nev=50, block-10 solve gives kernels 3 and 4 (projected
+# size 120, 100 Ritz vectors): Gram (p x q) and expand (n x k)(k x q)
+GRAM_CLASSES = ((120, 10), (110, 10), (10, 10), (100, 100))
+EXPAND_CLASSES = ((120, 100), (120, 10), (110, 10), (10, 10))
 HEADLINE_FUSE, IRREGULAR_FUSE = 20, 10
 
 IRREGULAR_KWARGS = dict(nev=NEV, block_size=BS, max_iter=300, cg_max_iter=60,
@@ -152,11 +166,13 @@ class KernelLog:
         self.torch = torch
         self.entries = {}
         self.last = {}          # time and bound of the latest run
+        self.by_class = {}      # (key, n, p, q) of kernels 3/4: time, bound
 
     def run(self, key, label, kernel, plain, scale, tol, nbytes, flops,
-            library=None, primary=False):
+            library=None, primary=False, cls=None):
         """scale: the error's reference size, a scalar or per entry;
-        tol 0 demands equal bits."""
+        tol 0 demands equal bits; cls: the key under which ``by_class``
+        keeps this run's time and bound."""
         torch = self.torch
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
@@ -176,6 +192,8 @@ class KernelLog:
         back_to_back_ms = median_ms(torch, kernel)
         bound_ms, bound_by = bound(nbytes, flops)
         self.last = {"ms": ms, "bound_ms": bound_ms}
+        if cls is not None:
+            self.by_class[cls] = dict(self.last, library_ms=lib_ms)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {label}: max rel err {rel:.3e} (tol {tol:.0e}), "
               f"{ms:.4f} ms ({back_to_back_ms:.4f} ms back to back, host "
@@ -247,34 +265,165 @@ def phase_build():
     return card
 
 
+def phase_fragment_check(torch):
+    """One 16 x 8 x 8 tile through the f64 mma of kernels 3 and 4, its
+    fragments read straight from device memory, against ``a @ c``: the
+    fragment layout both kernels rely on, checked before either runs."""
+    from gcge_tpu_torch.ops import osgemm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    a = torch.randn((16, 8), generator=gen, dtype=torch.float64,
+                    device=DEVICE)
+    c = torch.randn((8, 8), generator=gen, dtype=torch.float64,
+                    device=DEVICE)
+    err = float((osgemm.dmma_tile_check(a, c) - a @ c).abs().max()
+                / (a.abs() @ c.abs()).max())
+    print(f"f64 mma fragment check (16 x 8 x 8 tile): max error {err:.3e} of "
+          f"max |a| |c| (tol 1e-14)")
+    if not err <= 1e-14:
+        raise AssertionError("the f64 mma fragment layout is wrong")
+
+
+def tall_cost(n: int, p: int, q: int):
+    """Bytes and operations of one call of kernel 3 (``a^T b``, a (n, p),
+    b (n, q)) or kernel 4 (``a c``, a (n, p), c (p, q)): each input read
+    once, the output written once; the two move the same bytes."""
+    return 8 * (n * p + n * q + p * q), 2.0 * n * p * q
+
+
 def kernels_tall(torch, log, n, gen, primary):
-    """Kernels 3 and 4 against their plain versions at the shapes a nev=50,
-    block-10 solve of size n gives them."""
+    """Kernels 3 and 4 against their plain versions at every shape class a
+    nev=50, block-10 solve of size n gives them, with equal bits across two
+    launches.  The tall operands are column views of a basis of 120
+    columns, as the solver's are."""
     from gcge_tpu_torch.ops import osgemm
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, dtype=torch.float64,
                            device=DEVICE)
 
-    # kernel 3: tall Gram; error relative to ||a_i|| ||b_j|| per entry
+    def twice_equal(fn, label):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{label}: two launches differ")
+
     basis = randn(n, 120)
-    for p, q in ((120, 10), (100, 100)):
+    # kernel 3: tall Gram; error relative to ||a_i|| ||b_j|| per entry
+    for p, q in GRAM_CLASSES:
         a, b = basis[:, :p], randn(n, q)
+        label = f"tall_gram n={n} ({p}x{q})"
+        twice_equal(lambda: osgemm.tall_gram(a, b), label)
         norms = a.norm(dim=0)[:, None] * b.norm(dim=0)[None, :]
-        log.run("gram", f"tall_gram n={n} ({p}x{q})",
-                lambda a=a, b=b: osgemm.tall_gram(a, b),
-                lambda a=a, b=b: osgemm.tall_gram_reference(a, b), norms,
-                1e-13, 8 * (n * p + n * q + p * q), 2.0 * n * p * q,
-                library=lambda a=a, b=b: a.T @ b,
-                primary=(primary and q == 10))
+        log.run("gram", label, lambda: osgemm.tall_gram(a, b),
+                lambda: osgemm.tall_gram_reference(a, b), norms, 1e-13,
+                *tall_cost(n, p, q), library=lambda: a.T @ b,
+                primary=primary and (p, q) == (120, 10),
+                cls=("gram", n, p, q))
     # kernel 4: tall expand; error relative to max (|a| |c|)
-    a, c = basis, randn(120, 100)
-    scale = (a.abs() @ c.abs()).max()
-    log.run("expand", f"tall_expand n={n} (n x 120)(120 x 100)",
-            lambda: osgemm.tall_expand(a, c),
-            lambda: osgemm.tall_expand_reference(a, c), scale, 1e-13,
-            8 * (n * 120 + 120 * 100 + n * 100), 2.0 * n * 120 * 100,
-            library=lambda: a @ c, primary=primary)
+    for k, q in EXPAND_CLASSES:
+        a, c = basis[:, :k], randn(k, q)
+        label = f"tall_expand n={n} (n x {k})({k} x {q})"
+        twice_equal(lambda: osgemm.tall_expand(a, c), label)
+        log.run("expand", label, lambda: osgemm.tall_expand(a, c),
+                lambda: osgemm.tall_expand_reference(a, c),
+                (a.abs() @ c.abs()).max(), 1e-13,
+                *tall_cost(n, k, q), library=lambda: a @ c,
+                primary=primary and (k, q) == (120, 100),
+                cls=("expand", n, k, q))
+
+
+def tall_host_cost(torch):
+    """Host time of one call with the card idle (64 rows, 1,000 calls):
+    each tall-GEMM wrapper beside the one PyTorch call for the same
+    function.  The solves are bound by the host, so this is what a call
+    costs them."""
+    from gcge_tpu_torch.ops import osgemm
+
+    a = torch.randn((64, 120), dtype=torch.float64, device=DEVICE)
+    b = a[:, :10].contiguous()
+    c = a[:10].T.contiguous()
+    costs = []
+    for name, fn in (("tall_gram", lambda: osgemm.tall_gram(a, b)),
+                     ("a.T @ b", lambda: a.T @ b),
+                     ("tall_expand", lambda: osgemm.tall_expand(a, c)),
+                     ("a @ c", lambda: a @ c)):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        costs.append(f"{name} {1e3 * (time.perf_counter() - t0):.1f} us")
+        torch.cuda.synchronize()
+    print("host time a call (64 rows, the card idle): " + ", ".join(costs))
+
+
+class TallCalls:
+    """Counts the calls of kernels 3 and 4 by shape class, and the
+    iterations, of the solves run inside it: the wrappers (where
+    ``osgemm``, ``orth`` and ``gcg`` reach them) and ``gcg_solve`` (where
+    ``solve`` reaches it) are wrapped for its duration."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+        self.iterations = 0
+
+    def __enter__(self):
+        from gcge_tpu_torch import api
+        from gcge_tpu_torch.ops import osgemm
+        from gcge_tpu_torch.solvers import gcg
+
+        gram, expand = osgemm.tall_gram, osgemm.tall_expand
+        solve = api.gcg_solve
+
+        def counted_gram(a, b):
+            self.calls["gram", a.shape[1], b.shape[1]] += 1
+            return gram(a, b)
+
+        def counted_expand(a, c):
+            self.calls["expand", a.shape[1], c.shape[1]] += 1
+            return expand(a, c)
+
+        def counted_solve(*args, **kwargs):
+            res = solve(*args, **kwargs)
+            self.iterations += res.num_iter
+            return res
+
+        self.saved = [(m, name, getattr(m, name)) for m, name in (
+            (osgemm, "tall_gram"), (osgemm, "tall_expand"),
+            (gcg, "tall_gram"), (gcg, "tall_expand"), (api, "gcg_solve"))]
+        for m in (osgemm, gcg):
+            m.tall_gram, m.tall_expand = counted_gram, counted_expand
+        api.gcg_solve = counted_solve
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+    def report(self, tag: str, log, n: int) -> None:
+        """Calls an iteration by shape class, and the sums of time x calls
+        and of bound x calls an iteration over the classes the kernel phase
+        timed at this n."""
+        iters = max(self.iterations, 1)
+        total = sum(self.calls.values())
+        grams = sum(v for k, v in self.calls.items() if k[0] == "gram")
+        t_sum = b_sum = 0.0
+        timed = 0
+        for (kind, p, q), count in self.calls.items():
+            entry = log.by_class.get((kind, n, p, q))
+            if entry is not None:
+                t_sum += entry["ms"] * count
+                b_sum += entry["bound_ms"] * count
+                timed += count
+        shapes = ", ".join(f"{kind} ({p}x{q}) {count / iters:.2f}"
+                           for (kind, p, q), count in sorted(
+                               self.calls.items()))
+        print(f"{tag}: kernels 3/4 over {self.iterations} iterations: "
+              f"{grams / iters:.2f} Grams and {(total - grams) / iters:.2f} "
+              f"expands an iteration ({shapes}); the timed classes "
+              f"({timed} of {total} calls): time x calls {t_sum / iters:.4f}"
+              f" ms an iteration against bound x calls {b_sum / iters:.4f} "
+              f"ms")
 
 
 def phase_kernels_headline(torch, log, rows, cols, vals, n):
@@ -331,9 +480,10 @@ def phase_kernels_headline(torch, log, rows, cols, vals, n):
                 library=lambda: torch.sparse.mm(lib32, xt_nm),
                 primary=not xt.is_contiguous())
     kernels_tall(torch, log, n, gen, primary=True)
+    tall_host_cost(torch)
 
 
-def phase_headline(torch, a_csr, fuse: int, ev_phased=None):
+def phase_headline(torch, log, a_csr, fuse: int, ev_phased=None):
     """The headline solve through the public entry point, by the phased loop
     (``fuse=0``) or the fused one; the fused solve is also held against the
     phased solve's eigenvalues.  Returns ``(launches, eigenvalues)``."""
@@ -356,11 +506,13 @@ def phase_headline(torch, a_csr, fuse: int, ev_phased=None):
     gcg.GRAPH_REPLAYS["cg_stage"] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ev, evec, nev_conv = gcge_tpu_torch.solve(a_csr, None, verbose=1,
-                                              **kwargs)
+    with TallCalls() as tall:
+        ev, evec, nev_conv = gcge_tpu_torch.solve(a_csr, None, verbose=1,
+                                                  **kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    tall.report(tag, log, a_csr.shape[0])
     print(f"{tag}: wall {wall:.3f} s, nev_conv {nev_conv}, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches} (a replay of the captured CG stage counts "
@@ -575,7 +727,7 @@ def phase_hybrid(torch):
         raise AssertionError(f"hybrid matvec launches: {launches}")
 
 
-def phase_irregular(torch, a, a_rcm):
+def phase_irregular(torch, log, a, a_rcm):
     """The irregular solve through the public entry point, checked, and
     compared with a solve on the plain gather route."""
     import gcge_tpu_torch
@@ -584,12 +736,14 @@ def phase_irregular(torch, a, a_rcm):
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ev, evec, nev_conv = gcge_tpu_torch.solve(
-        a, None, device=DEVICE, rcm=True, verbose=1, fuse=0,
-        **IRREGULAR_KWARGS)
+    with TallCalls() as tall:
+        ev, evec, nev_conv = gcge_tpu_torch.solve(
+            a, None, device=DEVICE, rcm=True, verbose=1, fuse=0,
+            **IRREGULAR_KWARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    tall.report("irregular", log, a.shape[0])
     print(f"irregular: wall {wall:.3f} s (host RCM and packing included), "
           f"nev_conv {nev_conv}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -635,7 +789,7 @@ def phase_irregular(torch, a, a_rcm):
     return launches, ev
 
 
-def phase_irregular_fused(torch, a, ev_phased):
+def phase_irregular_fused(torch, log, a, ev_phased):
     """The irregular solve by the fused loop, under the phased solve's gates
     and against its eigenvalues."""
     import gcge_tpu_torch
@@ -645,12 +799,14 @@ def phase_irregular_fused(torch, a, ev_phased):
     reset_counters()
     gcg.GRAPH_REPLAYS["cg_stage"] = 0
     t0 = time.perf_counter()
-    ev, evec, nev_conv = gcge_tpu_torch.solve(
-        a, None, device=DEVICE, rcm=True, verbose=1, fuse=IRREGULAR_FUSE,
-        **IRREGULAR_KWARGS)
+    with TallCalls() as tall:
+        ev, evec, nev_conv = gcge_tpu_torch.solve(
+            a, None, device=DEVICE, rcm=True, verbose=1,
+            fuse=IRREGULAR_FUSE, **IRREGULAR_KWARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    tall.report(tag, log, a.shape[0])
     res = residuals(a, ev[:NEV], evec[:, :NEV].cpu().numpy())
     rel = float(np.max(np.abs(ev[:NEV] - ev_phased[:NEV])
                        / np.abs(ev_phased[:NEV])))
@@ -860,6 +1016,13 @@ def profile_solve(torch, label: str, run):
           f"({copies / iters:.1f}, copies on the device among them)")
     for dev_us, count, key in rows[:14]:
         print(f"profile: {dev_us * 1e-3:10.3f} ms {count:8d} x  {key[:90]}")
+    tall = [(us, count) for us, count, key in rows
+            if "tall_gram" in key or "tall_expand" in key]
+    print(f"profile ({label}): kernels 3+4 "
+          f"{sum(us for us, _ in tall) * 1e-3:.3f} ms device time in "
+          f"{sum(count for _, count in tall)} launches (the Gram's chunk sum "
+          f"among them), {sum(us for us, _ in tall) * 1e-3 / iters:.4f} ms "
+          f"an iteration")
 
 
 def phase_profile(torch, op, a_csr):
@@ -922,6 +1085,7 @@ def main(argv) -> int:
     from gcge_tpu_torch.io.stencil import build_3d27
 
     card = phase_build()
+    phase_fragment_check(torch)
     log = KernelLog(torch)
     rows, cols, vals, n = build_3d27(NX)
     a_csr = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
@@ -929,15 +1093,16 @@ def main(argv) -> int:
     phase_kernels_headline(torch, log, rows, cols, vals, n)
     phase_kernels_probes(torch, log)
     paths["scripts"] = phase_scripts()
-    paths["headline"], ev_headline = phase_headline(torch, a_csr, 0)
-    paths["fused_headline"], _ = phase_headline(torch, a_csr, HEADLINE_FUSE,
-                                                ev_headline)
+    paths["headline"], ev_headline = phase_headline(torch, log, a_csr, 0)
+    paths["fused_headline"], _ = phase_headline(torch, log, a_csr,
+                                                HEADLINE_FUSE, ev_headline)
     phase_sync_check(torch, a_csr)
     a, a_rcm = build_delaunay(MESH)
     op = phase_kernels_irregular(torch, log, a_rcm)
     phase_hybrid(torch)
-    paths["irregular"], ev_irregular = phase_irregular(torch, a, a_rcm)
-    paths["fused_irregular"] = phase_irregular_fused(torch, a, ev_irregular)
+    paths["irregular"], ev_irregular = phase_irregular(torch, log, a, a_rcm)
+    paths["fused_irregular"] = phase_irregular_fused(torch, log, a,
+                                                     ev_irregular)
     if "--profile" in argv:
         phase_profile(torch, op, a_csr)
         phase_walls(torch, a_csr, a)

@@ -94,7 +94,7 @@ class DiagOperator(LinearOperator):
 class IdentityOperator(LinearOperator):
     """B = I for standard eigenproblems ``A x = lambda x``."""
 
-    def __init__(self, n: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, n: int, dtype=torch.float64, device="cuda"):
         self.n = int(n)
         self.dtype = dtype
         self.device = torch.device(device)
@@ -137,7 +137,7 @@ class FunctionOperator(LinearOperator):
     """Matrix-free symmetric operator from a multivector function
     ``fn(x: (n, m)) -> (n, m)``."""
 
-    def __init__(self, fn, n: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, fn, n: int, dtype=torch.float64, device="cuda"):
         self.fn = fn
         self.n = int(n)
         self.dtype = dtype

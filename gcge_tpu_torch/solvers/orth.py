@@ -3,10 +3,14 @@
 
 Shapes stay fixed: the returned multivector has its ``rank`` valid columns
 compacted at the front and exact zeros behind; ``rank`` is a 0-d integer
-tensor on the operands' device.  The tall products (``q^T B x``, ``x u``)
-run through :func:`gcge_tpu_torch.ops.osgemm.tall_gram` and
-:func:`~gcge_tpu_torch.ops.osgemm.tall_expand`, the CUDA kernels 3 and 4 on
-the card; the small eigenproblems through
+tensor on the operands' device.  ``precision`` routes the tall products
+(``q^T B x``, ``x u``) as ``gcge_tpu`` routes them: ``'auto'`` through
+:func:`gcge_tpu_torch.ops.osgemm.tall_gram` and
+:func:`~gcge_tpu_torch.ops.osgemm.tall_expand` (the CUDA kernels 3 and 4 on
+the card, where ``gcge_tpu`` takes its sliced GEMMs on the TPU), ``'f64'``
+through the plain :func:`gcge_tpu_torch.ops.multivec.gram` and ``@`` (as
+``gcge_tpu`` does for the small P-coefficient block).  On the CPU both are
+the same functions.  The small eigenproblems go through
 :func:`gcge_tpu_torch.ops.eighs.safe_eigh`.
 """
 
@@ -14,12 +18,12 @@ from __future__ import annotations
 
 import torch
 
+from gcge_tpu_torch.ops import osgemm
 from gcge_tpu_torch.ops.eighs import safe_eigh
-from gcge_tpu_torch.ops.multivec import col_dots
-from gcge_tpu_torch.ops.osgemm import tall_expand, tall_gram
+from gcge_tpu_torch.ops.multivec import col_dots, gram
 
-# precisions the port accepts; both mean f64 products ('auto' resolves to
-# f64 everywhere off the TPU in gcge_tpu)
+# precisions the port accepts; both compute in f64: 'auto' on kernels 3/4,
+# 'f64' on plain products
 PRECISIONS = ("auto", "f64")
 
 
@@ -27,6 +31,16 @@ def _check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"orth precision {precision!r}: the port computes "
                          f"in f64 and accepts {PRECISIONS}")
+
+
+def _gram_p(a, b, precision: str):
+    """Tall Gram ``a^T b``: kernel 3 ('auto') or the plain chunked Gram."""
+    return osgemm.tall_gram(a, b) if precision == "auto" else gram(a, b)
+
+
+def _expand_p(a, c, precision: str):
+    """Recombination ``a @ c``: kernel 4 ('auto') or the plain product."""
+    return osgemm.tall_expand(a, c) if precision == "auto" else a @ c
 
 
 def _rel_floor(dtype: torch.dtype) -> float:
@@ -41,8 +55,8 @@ def orth_against(x, q, b_matvec=None, passes: int = 2,
     _check_precision(precision)
     for _ in range(passes):
         bx = x if b_matvec is None else b_matvec(x)
-        coef = tall_gram(q, bx)
-        x = x - tall_expand(q, coef)
+        coef = _gram_p(q, bx, precision)
+        x = x - _expand_p(q, coef, precision)
     return x
 
 
@@ -61,7 +75,7 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
     rank = None
     for i in range(passes):
         bx = x if b_matvec is None else b_matvec(x)
-        g = tall_gram(x, bx)
+        g = _gram_p(x, bx, precision)
         g = 0.5 * (g + g.T)
         w, u = safe_eigh(g)
         w = w.flip(0)
@@ -79,22 +93,22 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
         valid = w > thresh
         scale = torch.where(valid, torch.rsqrt(torch.where(valid, w, 1.0)),
                             0.0)
-        x = tall_expand(x, u * scale[None, :])
+        x = _expand_p(x, u * scale[None, :], precision)
         cnt = valid.sum()
         rank = cnt if rank is None else torch.minimum(rank, cnt)
     if rank is None:
         rank = torch.full((), x.shape[1], dtype=torch.int64, device=x.device)
-    return _ns_polish(x, b_matvec), rank
+    return _ns_polish(x, b_matvec, precision), rank
 
 
-def _ns_polish(x, b_matvec=None):
+def _ns_polish(x, b_matvec=None, precision: str = "f64"):
     """One Newton-Schulz step ``x <- x (3I - x^T B x)/2``; zero columns stay
     zero."""
     bx = x if b_matvec is None else b_matvec(x)
-    g = tall_gram(x, bx)
+    g = _gram_p(x, bx, precision)
     m = x.shape[1]
     eye = torch.eye(m, dtype=x.dtype, device=x.device)
-    return tall_expand(x, 1.5 * eye - 0.5 * g)
+    return _expand_p(x, 1.5 * eye - 0.5 * g, precision)
 
 
 def orth_within(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,

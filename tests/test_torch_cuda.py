@@ -86,6 +86,96 @@ def test_tall_gemm_kernels_match_plain(cuda, n, p, q):
     assert float(diff.abs().max()) <= 1e-13 * float((a.abs() @ c.abs()).max())
 
 
+def _tall_operands(cuda, n, p, q, seed, view="contiguous"):
+    """a (n, p) and b (n, q) as the solver hands them: column slices of a
+    wider basis (row stride 120), or the view named."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=cuda)
+
+    if view == "odd column offset":              # v[:, 1:], base + 8 bytes
+        a = randn(n, p + 1)[:, 1:]
+    elif view == "odd row stride":
+        a = randn(n, p + 3)[:, :p]
+    else:
+        a = randn(n, max(p, 120))[:, :p]
+    return a, randn(n, q)
+
+
+def _check_tall(a, b, c):
+    """Kernels 3/4 against the plain versions within 1e-13 (Gram: of
+    ||a_i|| ||b_j|| per entry; expand: of max |a| |c|), and equal bits
+    across two launches."""
+    got, again = osgemm.tall_gram(a, b), osgemm.tall_gram(a, b)
+    ref = osgemm.tall_gram_reference(a, b)
+    norms = a.norm(dim=0)[:, None] * b.norm(dim=0)[None, :] + 1e-300
+    assert got.shape == ref.shape and got.is_contiguous()
+    if got.numel():
+        assert float(((got - ref).abs() / norms).max()) <= 1e-13
+    assert torch.equal(got, again)
+    y, y2 = osgemm.tall_expand(a, c), osgemm.tall_expand(a, c)
+    yref = osgemm.tall_expand_reference(a, c)
+    assert y.shape == yref.shape and y.is_contiguous()
+    if y.numel():
+        scale = float((a.abs() @ c.abs()).max()) + 1e-300
+        assert float((y - yref).abs().max()) <= 1e-13 * scale
+    assert torch.equal(y, y2)
+
+
+# the main path's shape classes: Gram (p x q) and expand (n x p)(p x q)
+@pytest.mark.parametrize("p,q", [(120, 10), (110, 10), (10, 10), (100, 100),
+                                 (120, 100), (120, 120)])
+@pytest.mark.parametrize("n", [3001, 1000, 64, 5, 0])
+def test_tall_kernels_main_path_shapes(cuda, n, p, q):
+    """Every main-path shape class at small n, n not a multiple of a row
+    tile (64) or of a Gram stage, n below one tile, and n = 0."""
+    a, b = _tall_operands(cuda, n, p, q, seed=n + p + q)
+    c = torch.randn((p, q), dtype=torch.float64, device=cuda)
+    _check_tall(a, b, c)
+
+
+@pytest.mark.parametrize("view", ["odd column offset", "odd row stride"])
+def test_tall_kernels_on_unaligned_views(cuda, view):
+    """Views whose rows do not start on 16 bytes take the 8-byte variant of
+    the same kernels, with the same tolerance."""
+    a, b = _tall_operands(cuda, 2049, 110, 10, seed=7, view=view)
+    assert osgemm.copy_vec(a) == 1
+    c = torch.randn((110, 10), dtype=torch.float64, device=cuda)
+    _check_tall(a, b, c)
+
+
+def test_tall_expand_transposed_c_and_c_beyond_shared_memory(cuda):
+    """A transposed C (column stride != 1), and a (480 x 400) C whose
+    k q 8 bytes exceed the shared memory: the expand loops over q-tiles and
+    k-chunks, later k-chunks adding into Y."""
+    a, b = _tall_operands(cuda, 1500, 120, 100, seed=3)
+    ct = torch.randn((100, 120), dtype=torch.float64, device=cuda).T
+    _check_tall(a, b, ct)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a2 = torch.randn((900, 480), generator=g, dtype=torch.float64,
+                     device=cuda)
+    b2 = torch.randn((900, 400), generator=g, dtype=torch.float64,
+                     device=cuda)
+    c2 = torch.randn((480, 400), generator=g, dtype=torch.float64,
+                     device=cuda)
+    plan = osgemm.expand_plan(900, 480, 400, 132)
+    assert plan.q_tile < 400 and plan.k_chunk < 480     # several launches
+    _check_tall(a2, b2, c2)
+
+
+def test_dmma_fragment_layout(cuda):
+    """One 16 x 8 x 8 tile through the kernels' f64 mma, fragments read
+    straight from device memory, against a @ c."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn((16, 8), generator=g, dtype=torch.float64, device=cuda)
+    c = torch.randn((8, 8), generator=g, dtype=torch.float64, device=cuda)
+    got = osgemm.dmma_tile_check(a, c)
+    scale = float((a.abs() @ c.abs()).max())
+    assert float((got - a @ c).abs().max()) <= 1e-15 * scale
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     a = torch.zeros((64, 4), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):

@@ -210,3 +210,95 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(dia12):
     osgemm.tall_gram(x, x)
     osgemm.tall_expand(x, torch.eye(2, dtype=torch.float64))
     assert {**spmm.LAUNCHES, **osgemm.LAUNCHES} == before
+
+
+# ---- launch plans of kernels 3 and 4 (csrc/tall_gemm.cu) -------------------
+
+_PLAN_SHAPES = [(1, 1, 1), (5, 3, 2), (255, 10, 10), (256, 120, 10),
+                (1000, 10, 100), (157_464, 120, 10), (157_464, 110, 10),
+                (157_464, 10, 10), (157_464, 100, 100), (250_047, 120, 120),
+                (900, 400, 400), (900, 480, 400), (1000, 129, 7)]
+
+
+@pytest.mark.parametrize("n,p,q", _PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 1])
+def test_gram_plan_covers_each_row_once_and_fits(n, p, q, sms):
+    """The chunks cover rows 0..n-1 once, in at most GRAM_MAX_CHUNKS
+    blocks a tile; the ring (or the k-split sum) fits the shared memory;
+    the pitches keep a half warp's fragment loads on distinct banks."""
+    plan = osgemm.gram_plan(n, p, q, sms)
+    starts = [c * plan.rows for c in range(plan.chunks)]
+    assert starts[0] == 0 and starts[-1] < n <= plan.chunks * plan.rows
+    assert 1 <= plan.chunks <= min(osgemm.GRAM_MAX_CHUNKS, max(sms, 1) * 2)
+    assert plan.tiles == -(-p // 128) * -(-q // 128)
+    assert plan.smem <= osgemm.SMEM_BLOCK
+    assert plan.bk % 8 == 0 and plan.bk >= 8
+    wk = 8 // plan.wm
+    ring = osgemm.STAGES * plan.bk * 8 * (plan.pitch_a + plan.pitch_b)
+    assert plan.smem >= max(ring, (wk - 1) * plan.wm * plan.nt * 1024)
+    mt, nt = -(-min(p, 128) // 16), -(-min(q, 128) // 8)
+    assert plan.wm >= mt and plan.nt >= nt and plan.nt in (2, 4, 8, 16)
+    for pitch, width in ((plan.pitch_a, 16 * mt), (plan.pitch_b, 8 * nt)):
+        assert pitch >= width and pitch % 16 == 4
+
+
+@pytest.mark.parametrize("n,k,q", _PLAN_SHAPES)
+def test_expand_plan_covers_each_row_once_and_fits(n, k, q):
+    """The persistent blocks' row tiles cover rows 0..n-1 once; C's q-tiles
+    and k-chunks cover C; C (fragment order) and the ring fit the shared
+    memory; the instance holds every n-tile of a q-tile."""
+    plan = osgemm.expand_plan(n, k, q, 132)
+    tile = osgemm.EXPAND_ROWS       # block b walks tiles b, b + grid, ...
+    rows = sorted(r for b in range(plan.grid)
+                  for r in range(b * tile, n, plan.grid * tile))
+    assert rows == list(range(0, n, tile))
+    assert plan.grid <= 132
+    assert plan.q_tile % 8 == 0 and plan.q_tile <= osgemm.EXPAND_Q_TILE
+    assert plan.k_chunk % 8 == 0 and plan.k_chunk >= 8
+    assert plan.smem <= osgemm.SMEM_BLOCK
+    c_bytes = -(-min(k, plan.k_chunk) // 8) * (plan.q_tile // 8) * 512
+    assert plan.smem == c_bytes + osgemm.EXPAND_RING
+    assert plan.nt == plan.q_tile // 8 <= 16
+    # k q 8 bytes that fit keep C resident in one launch
+    if k * q * 8 <= 96 * 1024 and q <= osgemm.EXPAND_Q_TILE:
+        assert plan.q_tile >= q and plan.k_chunk >= k
+
+
+def _views():
+    base = torch.zeros((64, 121), dtype=torch.float64)
+    return {
+        "contiguous even width": (torch.zeros((64, 120),
+                                              dtype=torch.float64), 2),
+        "columns 0..109 of width 120": (torch.zeros(
+            (64, 120), dtype=torch.float64)[:, :110], 2),
+        "columns 2.. of width 120": (torch.zeros(
+            (64, 120), dtype=torch.float64)[:, 2:], 2),
+        "odd column offset": (torch.zeros((64, 120),
+                                          dtype=torch.float64)[:, 1:], 1),
+        "odd row stride": (base[:, :10], 1),
+        "transposed": (torch.zeros((10, 64), dtype=torch.float64).T, 1),
+        "one column of odd stride": (base[:, 4:5], 1),
+        "one row": (base[:1, :4], 2),
+    }
+
+
+@pytest.mark.parametrize("name", list(_views()))
+def test_copy_vec_takes_16_bytes_only_on_aligned_rows(name):
+    """16-byte copies only for operands whose rows start on 16 bytes (base
+    and row stride) with contiguous columns; every other view takes the
+    8-byte variant of the same kernel, never the plain version."""
+    t, vec = _views()[name]
+    assert osgemm.copy_vec(t) == vec
+    aligned = t.data_ptr() % 16 == 0
+    assert osgemm.copy_vec(t, _views()["odd row stride"][0]) == 1
+    if vec == 2:
+        assert aligned
+
+
+def test_dmma_tile_check_plain_on_cpu():
+    rng = np.random.default_rng(5)
+    a, c = rng.standard_normal((16, 8)), rng.standard_normal((8, 8))
+    got = osgemm.dmma_tile_check(torch.as_tensor(a), torch.as_tensor(c))
+    np.testing.assert_array_equal(got.numpy(), a @ c)
+    with pytest.raises(ValueError, match="16, 8"):
+        osgemm.dmma_tile_check(torch.as_tensor(c), torch.as_tensor(c))

@@ -120,14 +120,14 @@ def test_small_operators():
     np.testing.assert_allclose(dense(_t(x)).numpy(), a @ x, rtol=1e-14)
     np.testing.assert_allclose(diag.matvec(_t(x)).numpy(), d[:, None] * x,
                                rtol=1e-15)
-    ident = IdentityOperator(6)
+    ident = IdentityOperator(6, device="cpu")
     assert ident.shape == (6, 6) and ident.matvec(_t(x)) is not None
     np.testing.assert_array_equal(ident.matvec(_t(x)).numpy(), x)
     sh = ShiftedOperator(dense, diag, 0.5)
     np.testing.assert_allclose(sh.matvec(_t(x)).numpy(),
                                a @ x + 0.5 * d[:, None] * x, rtol=1e-14)
     assert ShiftedOperator(dense, None, 2.0).matvec(_t(x)).shape == (6, 2)
-    fop = FunctionOperator(lambda y: 3.0 * y, 6)
+    fop = FunctionOperator(lambda y: 3.0 * y, 6, device="cpu")
     np.testing.assert_array_equal(fop.matvec(_t(x)).numpy(), 3.0 * x)
 
 

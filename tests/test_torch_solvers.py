@@ -177,3 +177,65 @@ def test_block_pcg_user_tol_needs_norm_b():
     with pytest.raises(ValueError, match="norm_b"):
         block_pcg(lambda v: v, _t(np.ones((3, 1))), _t(np.zeros((3, 1))),
                   BlockPCGParams(tol_type="user"))
+
+
+def test_compute_p_orthogonalizes_on_plain_products(monkeypatch):
+    """The P-coefficient block (120 x 10 at the headline) is orthogonalized
+    on plain products (precision 'f64'), as gcge_tpu pins it, never through
+    kernels 3/4: with the tall-GEMM wrappers made to raise, _compute_p
+    still runs and gives gcge_tpu's P block (same rank, same span to 1e-10,
+    the same eigenvalues of P^T A P)."""
+    from gcge_tpu.solvers.gcg import _compute_p as j_compute_p
+    from gcge_tpu_torch.ops import osgemm
+    from gcge_tpu_torch.solvers.gcg import _compute_p
+
+    n, size_x, bs = 300, 8, 4
+    m = size_x + 2 * bs
+    rng = np.random.default_rng(11)
+    v, _ = np.linalg.qr(rng.standard_normal((n, m)))
+    h = rng.standard_normal((m, m))
+    h = h + h.T
+    _, ss_evec = np.linalg.eigh(h)
+    act_idx = np.arange(2, 2 + bs)
+    p_ref = j_compute_p(jnp.asarray(v), jnp.asarray(ss_evec), jnp.asarray(h),
+                        jnp.asarray(act_idx), bs, size_x, bs, 1e-13, 2)
+    vj, _, rank_j, h_pp_j = (np.asarray(t) for t in p_ref)
+
+    def no_kernel(*args):
+        raise AssertionError("the P coefficients went through a tall kernel")
+
+    monkeypatch.setattr(osgemm, "tall_gram", no_kernel)
+    monkeypatch.setattr(osgemm, "tall_expand", no_kernel)
+    p, rank, h_pp = _compute_p(_t(v), _t(ss_evec), _t(h),
+                               torch.as_tensor(act_idx), bs, size_x, bs,
+                               1e-13, 2)
+    r = int(rank)
+    assert r == int(rank_j)
+    pj = vj[:, size_x:size_x + bs]
+    np.testing.assert_allclose(_projector(p.numpy(), r), _projector(pj, r),
+                               atol=1e-10)
+    np.testing.assert_allclose(np.linalg.eigvalsh(h_pp.numpy()[:r, :r]),
+                               np.linalg.eigvalsh(h_pp_j[:r, :r]), atol=1e-10)
+
+
+@pytest.mark.parametrize("precision,through_kernels", [("auto", True),
+                                                       ("f64", False)])
+def test_orth_precision_routes_the_tall_products(monkeypatch, precision,
+                                                 through_kernels):
+    """'auto' sends the orthogonalization's Grams and recombinations through
+    the tall-GEMM wrappers (kernels 3/4 on a card), 'f64' through the plain
+    products; on the CPU both give the same bits."""
+    from gcge_tpu_torch.ops import osgemm
+
+    calls = []
+    for name in ("tall_gram", "tall_expand"):
+        fn = getattr(osgemm, name)
+        monkeypatch.setattr(osgemm, name, lambda *a, fn=fn, name=name:
+                            calls.append(name) or fn(*a))
+    q, x = _basis_with_rank_drop(200, 5, 4)
+    got, rank = orth_block_against(_t(x), _t(q), precision=precision)
+    assert bool(calls) == through_kernels
+    monkeypatch.undo()
+    other = "f64" if precision == "auto" else "auto"
+    ref, rank_ref = orth_block_against(_t(x), _t(q), precision=other)
+    assert int(rank) == int(rank_ref) and torch.equal(got, ref)
