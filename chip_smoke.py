@@ -15,7 +15,8 @@ Phases, each of which raises on failure:
 2. kernels 1-4 — run each wrapper on the card at the shapes of the headline
    solve, hold it against its plain PyTorch version on the same inputs
    (stated tolerance), and time it (CUDA events, median of 20, each after
-   a flush of the L2 cache) beside the plain version and beside the one
+   a read of a buffer five times the L2 cache, which leaves the cache cold
+   and clean) beside the plain version and beside the one
    PyTorch call that computes the same function (``torch.sparse.mm`` on a
    CSR tensor, ``a.T @ b``, ``a @ c``); kernels 3 and 4 at every shape class
    a solve gives them (Gram (120 x 10), (110 x 10), (10 x 10), (100 x 100);
@@ -32,8 +33,10 @@ Phases, each of which raises on failure:
    tet mesh of 64^3 jittered points (n=250,047), built on the host with the
    port's own ``io.fem``, and its RCM ordering; host times printed;
 5. kernels 5-7 — the CSR SpMM kernels on the RCM-ordered matrix (block 10 in
-   both layouts, block 40 transposed) against the plain version and beside
-   ``torch.sparse.mm``; the mask probe against its plain version bit for bit;
+   both layouts, block 40 transposed, and the f32 CG stage's own operand)
+   against the plain version and beside ``torch.sparse.mm``; kernel 5 also
+   on the Hybrid check's CSR remainder and on a matrix with rows longer than
+   its tile budget; the mask probe against its plain version bit for bit;
    kernels 3 and 4 again at this matrix's n;
 6. Hybrid check — a banded matrix plus a thin scatter of outliers (n=50,000)
    through ``make_operator``: DIA core and CSR remainder applied together in
@@ -65,8 +68,9 @@ Phases, each of which raises on failure:
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused) and prints the
 device's busy and idle share, the device operations, host launches and host
-synchronisations per iteration, the device time by kernel and that of
-kernels 3 and 4 together; then the
+synchronisations per iteration, the device time by kernel, that of kernels
+3 and 4 together, of kernel 2, of kernel 5 and of PyTorch's f32 elementwise
+and reduction kernels (the CG stage's); then the
 walls of the headline solve, of a short solve and of the irregular solve,
 phased and fused in chunks of 20 and 5, taken in turns.
 
@@ -114,9 +118,12 @@ IRREGULAR_KWARGS = dict(nev=NEV, block_size=BS, max_iter=300, cg_max_iter=60,
 
 def median_ms(torch, fn, reps: int = REPS, flush=None) -> float:
     """Median time of fn() on the card over reps runs, by CUDA events.
-    ``flush``: a buffer larger than the L2 cache, overwritten before each
-    timed run.  fn() then finds the cache cold, as a solve's next SpMM does,
-    and is queued while the card is still busy, so the time between the
+    ``flush``: a buffer larger than the L2 cache, read (summed) before each
+    timed run.  fn() then finds the cache cold, as a solve's next SpMM does;
+    the lines the read evicts are clean, so no write-back of earlier work
+    falls inside the timed window (overwriting the buffer instead leaves
+    ~50 MB of dirty lines to be written back during fn()).  fn() is queued
+    while the card is still busy with the read, so the time between the
     events holds none of the host's launch latency (about 25 microseconds
     when the card waits for the host, as it does without the flush)."""
     for _ in range(3):
@@ -126,7 +133,7 @@ def median_ms(torch, fn, reps: int = REPS, flush=None) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if flush is not None:
-            flush.zero_()
+            flush.sum()
         start.record()
         fn()
         end.record()
@@ -159,8 +166,8 @@ class KernelLog:
     """Runs each kernel against its plain version, times it, and keeps one
     entry per kernel for the ``kernels`` line: the largest absolute error
     over all shapes, and the times and the bound of its ``primary`` shape.
-    Every time is a median of 20 runs, each after a flush of the L2 cache
-    (see :func:`median_ms`)."""
+    Every time is a median of 20 runs, each after a clean flush of the L2
+    cache (see :func:`median_ms`)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -182,8 +189,8 @@ class KernelLog:
             diff = (got - ref).abs()
             abs_err = float(diff.max())
             rel = float((diff / scale).max())
-        # five times the 50 MB L2 cache; freed on return, so that it does
-        # not count towards a solve's peak memory
+        # five times the 50 MB L2 cache, only ever read; freed on return, so
+        # that it does not count towards a solve's peak memory
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
         ms = median_ms(torch, kernel, flush=flush)
         plain_ms = median_ms(torch, plain, flush=flush)
@@ -210,15 +217,21 @@ class KernelLog:
 
 def cg_operand(torch, apply_t, n, m, gen):
     """An ``(m, n)`` f32 operand with the strides the mixed inner CG hands
-    the transposed SpMM: built the way ``_mixed_inner_solve`` and
-    ``block_pcg_t`` build their first search direction from the f64
-    residual."""
+    the transposed SpMM, ``(1, m)``: ``(n, m)`` memory, built the way
+    ``_mixed_inner_solve`` and ``block_pcg_t`` build their first search
+    direction from the f64 residual.  The SpMM returns its product in the
+    same order, so every tensor of the stage keeps it; the function checks
+    that."""
     r = torch.randn((n, m), generator=gen, dtype=torch.float64,
                     device=DEVICE)
     rt = r.T.float()
     active = torch.ones(m, dtype=torch.bool, device=DEVICE)[:, None]
     res = torch.where(active, rt - apply_t(torch.zeros_like(rt)), 0.0)
-    return torch.where(active, res + 0.0 * torch.zeros_like(res), 0.0)
+    out = torch.where(active, res + 0.0 * torch.zeros_like(res), 0.0)
+    if out.stride() != (1, m) or apply_t(out).stride() != (1, m):
+        raise AssertionError(f"the CG operand's strides {out.stride()} are "
+                             f"not (1, {m})")
+    return out
 
 
 def csr_tensor(torch, a_csr, dtype):
@@ -291,6 +304,12 @@ def tall_cost(n: int, p: int, q: int):
     return 8 * (n * p + n * q + p * q), 2.0 * n * p * q
 
 
+def twice_equal(torch, fn, label):
+    """Two launches of ``fn`` give the same bits."""
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"{label}: two launches differ")
+
+
 def kernels_tall(torch, log, n, gen, primary):
     """Kernels 3 and 4 against their plain versions at every shape class a
     nev=50, block-10 solve of size n gives them, with equal bits across two
@@ -302,16 +321,12 @@ def kernels_tall(torch, log, n, gen, primary):
         return torch.randn(shape, generator=gen, dtype=torch.float64,
                            device=DEVICE)
 
-    def twice_equal(fn, label):
-        if not torch.equal(fn(), fn()):
-            raise AssertionError(f"{label}: two launches differ")
-
     basis = randn(n, 120)
     # kernel 3: tall Gram; error relative to ||a_i|| ||b_j|| per entry
     for p, q in GRAM_CLASSES:
         a, b = basis[:, :p], randn(n, q)
         label = f"tall_gram n={n} ({p}x{q})"
-        twice_equal(lambda: osgemm.tall_gram(a, b), label)
+        twice_equal(torch, lambda: osgemm.tall_gram(a, b), label)
         norms = a.norm(dim=0)[:, None] * b.norm(dim=0)[None, :]
         log.run("gram", label, lambda: osgemm.tall_gram(a, b),
                 lambda: osgemm.tall_gram_reference(a, b), norms, 1e-13,
@@ -322,7 +337,7 @@ def kernels_tall(torch, log, n, gen, primary):
     for k, q in EXPAND_CLASSES:
         a, c = basis[:, :k], randn(k, q)
         label = f"tall_expand n={n} (n x {k})({k} x {q})"
-        twice_equal(lambda: osgemm.tall_expand(a, c), label)
+        twice_equal(torch, lambda: osgemm.tall_expand(a, c), label)
         log.run("expand", label, lambda: osgemm.tall_expand(a, c),
                 lambda: osgemm.tall_expand_reference(a, c),
                 (a.abs() @ c.abs()).max(), 1e-13,
@@ -465,20 +480,26 @@ def phase_kernels_headline(torch, log, rows, cols, vals, n):
                     scale, 1e-14, *dia_cost(m, 8),
                     library=lambda: torch.sparse.mm(lib64, x_nm),
                     primary=(m == 10 and not transposed))
-    # kernel 2: f32 DIA, transposed (the mixed inner CG): a contiguous
-    # operand, and one with the strides the CG hands it
-    for xt in (randn(BS, n, dtype=torch.float32),
-               cg_operand(torch, lambda z: spmm.dia_spmm(v32, offs, z, True),
-                          n, BS, gen)):
-        xt_nm = xt.T.contiguous()
-        scale = spmm.dia_spmm_reference(v32.abs(), offs, xt.abs(), True).max()
-        log.run("dia_f32", f"dia_f32 m={BS} transposed=True strides "
+    # kernel 2: f32 DIA.  Primary: the operand the mixed inner CG hands it,
+    # (m, n) with strides (1, m); besides, a contiguous (m, n) operand and
+    # the (n, m) layout
+    for xt, transposed in (
+            (cg_operand(torch, lambda z: spmm.dia_spmm(v32, offs, z, True),
+                        n, BS, gen), True),
+            (randn(BS, n, dtype=torch.float32), True),
+            (randn(n, BS, dtype=torch.float32), False)):
+        xt_nm = xt.T.contiguous() if transposed else xt
+        scale = spmm.dia_spmm_reference(v32.abs(), offs, xt.abs(),
+                                        transposed).max()
+        twice_equal(torch, lambda: spmm.dia_spmm(v32, offs, xt, transposed),
+                    "dia_f32")
+        log.run("dia_f32", f"dia_f32 m={BS} transposed={transposed} strides "
                 f"{tuple(xt.stride())}",
-                lambda: spmm.dia_spmm(v32, offs, xt, True),
-                lambda: spmm.dia_spmm_reference(v32, offs, xt, True), scale,
-                1e-5, *dia_cost(BS, 4),
+                lambda: spmm.dia_spmm(v32, offs, xt, transposed),
+                lambda: spmm.dia_spmm_reference(v32, offs, xt, transposed),
+                scale, 1e-5, *dia_cost(BS, 4),
                 library=lambda: torch.sparse.mm(lib32, xt_nm),
-                primary=not xt.is_contiguous())
+                primary=transposed and not xt.is_contiguous())
     kernels_tall(torch, log, n, gen, primary=True)
     tall_host_cost(torch)
 
@@ -619,11 +640,57 @@ def build_delaunay(g: int):
     return a, a_rcm
 
 
+def csr_kernel_rows(torch, log, key, op, vals, lib, cases, tol, gen, tag):
+    """Kernel 5 or 6 on the CSR operator ``op`` against its plain version and
+    beside ``torch.sparse.mm`` (on ``lib``, in the (n, m) layout), for each
+    ``(m, layout)`` of ``cases``: ``nm`` an (n, m) operand, ``t`` a
+    contiguous (m, n) one, ``cg`` the f32 CG stage's (:func:`cg_operand`).
+    Each also gives equal bits twice and returns its product in the memory
+    order of its operand.  The first case is the primary one where ``tag``
+    is empty."""
+    from gcge_tpu_torch.ops import onehot
+
+    rowptr, colidx, plan = op.rowptr, op.colidx, op.plan
+    n, nnz = op.shape[0], int(vals.shape[0])
+    item = vals.element_size()
+    for m, layout in cases:
+        transposed = layout != "nm"
+        if layout == "cg":
+            x = cg_operand(torch, lambda z: onehot.csr_spmm(
+                rowptr, colidx, vals, z, True, plan), n, m, gen)
+        else:
+            x = torch.randn((m, n) if transposed else (n, m), generator=gen,
+                            dtype=vals.dtype, device=DEVICE)
+        x_nm = x.T.contiguous() if transposed else x
+
+        def kernel():
+            return onehot.csr_spmm(rowptr, colidx, vals, x, transposed, plan)
+
+        if kernel().stride() != x.stride():
+            raise AssertionError(f"{key}: the product's strides "
+                                 f"{kernel().stride()} are not x's "
+                                 f"{x.stride()}")
+        twice_equal(torch, kernel, key)
+        scale = onehot.csr_spmm_reference(rowptr, colidx, vals.abs(),
+                                          x.abs(), transposed).max()
+        log.run(key, f"{key}{tag} m={m} transposed={transposed} strides "
+                f"{tuple(x.stride())}", kernel,
+                lambda: onehot.csr_spmm_reference(rowptr, colidx, vals, x,
+                                                  transposed),
+                scale, tol,
+                nnz * (4 + item) + 4 * (n + 1) + 2 * n * m * item,
+                2.0 * nnz * m,
+                library=lambda: torch.sparse.mm(lib, x_nm),
+                primary=not tag and (m, layout) == cases[0])
+
+
 def phase_kernels_irregular(torch, log, a_rcm):
     """Kernels 5-7, and kernels 3 and 4 again, against their plain versions
     at the irregular solve's shapes (n = 250,047 is odd: the tall kernels'
     last chunk is a partial one).  Returns the operator ``make_operator``
     picked."""
+    import scipy.sparse as sps
+
     from gcge_tpu_torch import make_operator
     from gcge_tpu_torch.ops import onehot
 
@@ -635,40 +702,39 @@ def phase_kernels_irregular(torch, log, a_rcm):
     if not isinstance(op, onehot.CsrOperator):
         raise AssertionError(f"make_operator picked {type(op).__name__}, "
                              "not CsrOperator")
-    rowptr, colidx = op.rowptr, op.colidx
-    nnz = int(op.values.shape[0])
     values = {torch.float64: op.values, torch.float32: op.values.float()}
     lib = {dt: csr_tensor(torch, a_rcm, dt) for dt in values}
-    # kernel 6 (f64) and kernel 5 (f32); error relative to max (|A| |x|)
-    for dtype, key, tol, item, main in (
-            (torch.float64, "csr_f64", 1e-14, 8, (10, False, True)),
-            (torch.float32, "csr_f32", 1e-5, 4, (10, True, False))):
-        vals = values[dtype]
-        for m, transposed in ((10, False), (10, True), (40, True),
-                              (10, "cg")):
-            if transposed == "cg":          # the f32 stages' own operand
-                if dtype != torch.float32:
-                    continue
-                x = cg_operand(torch, lambda z: onehot.csr_spmm(
-                    rowptr, colidx, vals, z, True), n, m, gen)
-                transposed = True
-            else:
-                x = torch.randn((m, n) if transposed else (n, m),
-                                generator=gen, dtype=dtype, device=dev)
-            x_nm = x.T.contiguous() if transposed else x
-            scale = onehot.csr_spmm_reference(rowptr, colidx, vals.abs(),
-                                              x.abs(), transposed).max()
-            log.run(key, f"{key} m={m} transposed={transposed} strides "
-                    f"{tuple(x.stride())}",
-                    lambda: onehot.csr_spmm(rowptr, colidx, vals, x,
-                                            transposed),
-                    lambda: onehot.csr_spmm_reference(rowptr, colidx, vals, x,
-                                                      transposed),
-                    scale, tol,
-                    nnz * (4 + item) + 4 * (n + 1) + 2 * n * m * item,
-                    2.0 * nnz * m,
-                    library=lambda: torch.sparse.mm(lib[dtype], x_nm),
-                    primary=((m, transposed, x.is_contiguous()) == main))
+    # kernel 6 (f64) and kernel 5 (f32); error relative to max (|A| |x|).
+    # Primary: kernel 6 in the (n, m) layout of the f64 products, kernel 5
+    # at the f32 CG stage's own operand
+    for dtype, key, tol in ((torch.float64, "csr_f64", 1e-14),
+                            (torch.float32, "csr_f32", 1e-5)):
+        cases = [(10, "nm"), (10, "t"), (40, "t")]
+        cases = [(10, "cg")] + cases if dtype == torch.float32 else cases
+        csr_kernel_rows(torch, log, key, op, values[dtype], lib[dtype],
+                        cases, tol, gen, "")
+    # kernel 5 at rows longer than its tile budget: 50,000 rows of 0 to 11
+    # entries (every 997th empty) and three of 3,000, 5,000 and 20,000
+    rng = np.random.default_rng(3)
+    n2 = 50_000
+    deg = rng.integers(0, 12, n2)
+    deg[::997] = 0
+    deg[[5, 777, 40_000]] = [5_000, 20_000, 3_000]
+    rows = np.repeat(np.arange(n2), deg)
+    long_rows = sps.coo_matrix(
+        (rng.standard_normal(len(rows)), (rows, rng.integers(0, n2, len(rows)))),
+        shape=(n2, n2)).tocsr()
+    coo2 = long_rows.tocoo()
+    op2 = onehot.CsrOperator.from_coo(coo2.row, coo2.col, coo2.data,
+                                      (n2, n2), device=dev)
+    tiles = op2.plan.tiles.cpu().numpy()
+    if not (np.diff(tiles) == 1).sum() >= 3:
+        raise AssertionError("the long rows do not have tiles of their own")
+    csr_kernel_rows(torch, log, "csr_f32", op2, op2.values.float(),
+                    csr_tensor(torch, long_rows, torch.float32),
+                    [(10, "cg"), (16, "nm")], 1e-5, gen,
+                    f" long rows (max {deg.max()}, budget "
+                    f"{onehot.CSR_BUDGET})")
     # kernel 7: the mask probe, bit for bit
     rng = np.random.default_rng(0)
     for name, ids0 in (("ids=arange%8", np.arange(128) % 8),
@@ -685,9 +751,10 @@ def phase_kernels_irregular(torch, log, a_rcm):
     return op
 
 
-def phase_hybrid(torch):
+def phase_hybrid(torch, log):
     """A Hybrid operator on the card: 13 full diagonals plus 20,000 scattered
-    outliers at n=50,000, applied in f64 and f32 against scipy."""
+    outliers at n=50,000, applied in f64 and f32 against scipy; then kernel 5
+    on its CSR remainder alone (most rows empty, the rest short)."""
     import scipy.sparse as sps
 
     from gcge_tpu_torch import DiaOperator, HybridOperator, make_operator
@@ -725,6 +792,14 @@ def phase_hybrid(torch):
     if [launches[k] for k in ("dia_f64", "dia_f32", "csr_f64",
                               "csr_f32")] != [1, 1, 1, 1]:
         raise AssertionError(f"hybrid matvec launches: {launches}")
+    rest = op.rest
+    lib = torch.sparse_csr_tensor(
+        rest.rowptr, rest.colidx, rest.values.float(), size=rest.shape,
+        check_invariants=False)
+    csr_kernel_rows(torch, log, "csr_f32", rest, rest.values.float(), lib,
+                    [(10, "cg")], 1e-5,
+                    torch.Generator(device=DEVICE).manual_seed(2),
+                    f" hybrid remainder ({rest.nnz} entries)")
 
 
 def phase_irregular(torch, log, a, a_rcm):
@@ -1016,13 +1091,20 @@ def profile_solve(torch, label: str, run):
           f"({copies / iters:.1f}, copies on the device among them)")
     for dev_us, count, key in rows[:14]:
         print(f"profile: {dev_us * 1e-3:10.3f} ms {count:8d} x  {key[:90]}")
-    tall = [(us, count) for us, count, key in rows
-            if "tall_gram" in key or "tall_expand" in key]
-    print(f"profile ({label}): kernels 3+4 "
-          f"{sum(us for us, _ in tall) * 1e-3:.3f} ms device time in "
-          f"{sum(count for _, count in tall)} launches (the Gram's chunk sum "
-          f"among them), {sum(us for us, _ in tall) * 1e-3 / iters:.4f} ms "
-          f"an iteration")
+    for what, picks in (
+            ("kernels 3+4 (the Gram's chunk sum among them)",
+             lambda k: "tall_gram" in k or "tall_expand" in k),
+            ("kernel 2", lambda k: "dia_spmm_f32_staged" in k),
+            ("kernel 5", lambda k: "csr_spmm_f32_tiled" in k),
+            # the f32 CG stage is the only f32 work of a solve
+            ("PyTorch f32 elementwise and reductions (the CG stage's)",
+             lambda k: ("elementwise" in k or "reduce_kernel" in k)
+             and "float" in k and "double" not in k)):
+        picked = [(us, count) for us, count, key in rows if picks(key)]
+        dev_ms = sum(us for us, _ in picked) * 1e-3
+        print(f"profile ({label}): {what} {dev_ms:.3f} ms device time in "
+              f"{sum(count for _, count in picked)} launches, "
+              f"{dev_ms / iters:.4f} ms an iteration")
 
 
 def phase_profile(torch, op, a_csr):
@@ -1099,7 +1181,7 @@ def main(argv) -> int:
     phase_sync_check(torch, a_csr)
     a, a_rcm = build_delaunay(MESH)
     op = phase_kernels_irregular(torch, log, a_rcm)
-    phase_hybrid(torch)
+    phase_hybrid(torch, log)
     paths["irregular"], ev_irregular = phase_irregular(torch, log, a, a_rcm)
     paths["fused_irregular"] = phase_irregular_fused(torch, log, a,
                                                      ev_irregular)

@@ -8,9 +8,12 @@ matrix is plain CSR (``rowptr``, ``colidx`` int32, ``values``), packed once
 on the host and sorted by (row, column).
 
 * :func:`csr_spmm` computes ``y = A x`` in two layouts, ``x`` of shape
-  ``(n, m)`` or ``(m, n)`` (``transposed=True``).  On a CUDA tensor it
-  launches kernel 5 (f32) or kernel 6 (f64) of ``csrc/csr_spmm.cu``; on a CPU
-  tensor it runs :func:`csr_spmm_reference`, the plain PyTorch version.
+  ``(n, m)`` or ``(m, n)`` (``transposed=True``), and returns it in the
+  memory order of ``x``.  On a CUDA tensor it launches kernel 5 (f32) or
+  kernel 6 (f64) of ``csrc/csr_spmm.cu``; on a CPU tensor it runs
+  :func:`csr_spmm_reference`, the plain PyTorch version.  Kernel 5 works in
+  row tiles planned once per matrix on the host (:func:`csr_tiles`,
+  :func:`csr_plan`).
 * :class:`CsrOperator` is the operator on top of it.
 * :func:`onehot_mask_probe` / :func:`bf16_mask_supported` are the counterpart
   of the TPU's one-hot mask probe (kernel 7, ``csrc/mask_probe.cu``).
@@ -23,19 +26,25 @@ products and the integer slices.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from gcge_tpu_torch.ops import _build
 from gcge_tpu_torch.ops.operators import LinearOperator, _np_dtype
+from gcge_tpu_torch.ops.spmm import empty_in_order_of, in_order_of, vec_width
 
 # launches of the CUDA kernels since the last reset, by kernel
 LAUNCHES = {"csr_f32": 0, "csr_f64": 0, "mask_probe": 0}
 
-_ENTRY = {torch.float64: ("gcge_csr_spmm_f64", "csr_f64"),
-          torch.float32: ("gcge_csr_spmm_f32", "csr_f32")}
 _INT32_MAX = 2 ** 31 - 1
 MASK_SHAPE = (8, 128)
+# kernel 5's row tiles: entries of colidx and values a block stages (8 bytes
+# each in shared memory), and rows a tile holds at most
+CSR_BUDGET = 1024
+CSR_MAX_ROWS = 64
+_ALIGN = 4             # entries of a 16-byte copy
 
 
 def pack_csr(rows, cols, vals, shape):
@@ -66,30 +75,76 @@ def _row_ids(rowptr: torch.Tensor, nnz: int) -> torch.Tensor:
         output_size=nnz)
 
 
+def csr_tiles(rowptr: np.ndarray, budget: int = CSR_BUDGET,
+              max_rows: int = CSR_MAX_ROWS) -> np.ndarray:
+    """Kernel 5's row tiles for CSR ``rowptr`` (n+1,): the first row of each
+    tile, then n, as int32.  A tile is a range of at most ``max_rows`` whole
+    rows whose entries, widened to 16-byte boundaries (``[rowptr[r0] // 4 *
+    4, ceil4(rowptr[r1]))``), fit ``budget`` entries; a row whose entries do
+    not is a tile of its own, which the kernel streams in chunks.  Greedy
+    from the first row, so every row lies in exactly one tile."""
+    if budget <= 0 or budget % _ALIGN or max_rows <= 0:
+        raise ValueError(f"csr_tiles: budget {budget} (a positive multiple "
+                         f"of {_ALIGN}) and max_rows {max_rows} > 0 expected")
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    n = len(rowptr) - 1
+    starts = [0]
+    r0 = 0
+    while r0 < n:
+        limit = rowptr[r0] // _ALIGN * _ALIGN + budget
+        # the last row boundary within the budget (a multiple of 4, so that
+        # rowptr[r1] <= limit also bounds its 16-byte ceiling)
+        r1 = int(np.searchsorted(rowptr, limit, side="right")) - 1
+        r1 = max(r0 + 1, min(r1, r0 + max_rows, n))
+        starts.append(r1)
+        r0 = r1
+    return np.asarray(starts, dtype=np.int32)
+
+
+@dataclass(frozen=True)
+class CsrPlan:
+    tiles: torch.Tensor   # (ntiles + 1,) int32 on the card: csr_tiles
+    budget: int           # entries a block stages
+
+
+def csr_plan(rowptr: torch.Tensor) -> CsrPlan:
+    """Kernel 5's launch plan for ``rowptr``, on its device.  It reads
+    ``rowptr`` to the host and copies the tiles back: build it once per
+    matrix (:class:`CsrOperator` does, when it is built), never while a CUDA
+    graph is being captured."""
+    tiles = csr_tiles(rowptr.cpu().numpy())
+    return CsrPlan(torch.as_tensor(tiles, device=rowptr.device), CSR_BUDGET)
+
+
 def csr_spmm_reference(rowptr: torch.Tensor, colidx: torch.Tensor,
                        values: torch.Tensor, x: torch.Tensor,
                        transposed: bool = False) -> torch.Tensor:
     """Plain PyTorch CSR SpMM: gather ``x[colidx] * values``, then a sum over
     each row's entries (``index_add_``), on the logical ``(n_cols, m)`` view
-    of ``x``."""
+    of ``x``; the result in the memory order of ``x``, as :func:`csr_spmm`
+    returns it."""
     xn = x.T if transposed else x
     n = rowptr.shape[0] - 1
     contrib = values[:, None] * xn[colidx.long()]
     y = torch.zeros((n, xn.shape[1]), dtype=x.dtype, device=x.device)
     y.index_add_(0, _row_ids(rowptr, values.shape[0]), contrib)
-    return y.T if transposed else y
+    return in_order_of(y.T if transposed else y, x)
 
 
 def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
              values: torch.Tensor, x: torch.Tensor,
-             transposed: bool = False) -> torch.Tensor:
+             transposed: bool = False, plan: CsrPlan | None = None
+             ) -> torch.Tensor:
     """``A x`` for CSR ``rowptr`` (n+1,) and ``colidx`` (nnz,) int32 and
     ``values`` (nnz,) of the dtype of ``x``.
 
     ``x`` is ``(n_cols, m)``, or ``(m, n_cols)`` when ``transposed``, with any
     strides; every ``colidx`` must be below ``n_cols`` (the packers check
-    it).  The result is ``(n, m)`` or ``(m, n)``, laid out like ``x``, and
-    freshly allocated."""
+    it).  The result is ``(n, m)`` or ``(m, n)``, freshly allocated, in the
+    memory order of ``x``: like ``torch.empty_like(x)`` for a dense ``x``,
+    else contiguous in the logical layout (``spmm.empty_in_order_of``).
+    ``plan``: kernel 5's row tiles for this ``rowptr`` (:func:`csr_plan`),
+    which an f32 product on a card needs."""
     if x.dim() != 2:
         raise ValueError(f"csr_spmm: x must be 2-D, got {tuple(x.shape)}")
     if rowptr.dim() != 1 or rowptr.shape[0] < 1 or colidx.dim() != 1 or \
@@ -103,7 +158,8 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
         return csr_spmm_reference(rowptr, colidx, values, x, transposed)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm: unsupported device {x.device}")
-    if x.dtype not in _ENTRY or values.dtype != x.dtype:
+    if x.dtype not in (torch.float64, torch.float32) or \
+            values.dtype != x.dtype:
         raise TypeError(f"csr_spmm: values {values.dtype} and x {x.dtype} "
                         f"must both be float64 or both float32")
     if rowptr.dtype != torch.int32 or colidx.dtype != torch.int32:
@@ -113,11 +169,11 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
         raise ValueError("csr_spmm: rowptr, colidx and values must be "
                          "contiguous")
     n = rowptr.shape[0] - 1
+    nnz = values.shape[0]
     m = x.shape[0] if transposed else x.shape[1]
-    if max(n, values.shape[0], x.shape[1 if transposed else 0]) > _INT32_MAX:
+    if max(n, nnz, x.shape[1 if transposed else 0]) > _INT32_MAX:
         raise ValueError("csr_spmm: the matrix does not fit int32 indices")
-    y = torch.empty((m, n) if transposed else (n, m), dtype=x.dtype,
-                    device=x.device)
+    y = empty_in_order_of(x, (m, n) if transposed else (n, m))
     if n * m == 0:
         return y
     # strides of the logical (n_cols, m) and (n, m) views of x and y
@@ -127,13 +183,28 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     else:
         xs_i, xs_j = x.stride(0), x.stride(1)
         ys_i, ys_j = y.stride(0), y.stride(1)
-    entry, counter = _ENTRY[x.dtype]
-    fn = getattr(_build.lib(), entry)
+    if x.dtype == torch.float32 and plan is None:
+        raise ValueError("csr_spmm: kernel 5 needs the row tiles of rowptr "
+                         "(plan=csr_plan(rowptr))")
+    lib = _build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), n,
-                 m, x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j,
-                 stream)
+        if x.dtype == torch.float64:
+            entry, counter = "gcge_csr_spmm_f64", "csr_f64"
+            err = lib.gcge_csr_spmm_f64(
+                rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), n,
+                m, x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, stream)
+        else:
+            entry, counter = "gcge_csr_spmm_f32", "csr_f32"
+            vec = vec_width(m, (xs_i, xs_j, x.data_ptr()),
+                            (ys_i, ys_j, y.data_ptr()))
+            copy16 = colidx.data_ptr() % 16 == 0 and \
+                values.data_ptr() % 16 == 0
+            err = lib.gcge_csr_spmm_f32(
+                rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), nnz,
+                plan.tiles.data_ptr(), plan.tiles.shape[0] - 1, plan.budget,
+                m, x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, vec,
+                int(copy16), stream)
     _build.check(entry, err)
     LAUNCHES[counter] += 1
     return y
@@ -149,7 +220,9 @@ class CsrOperator(LinearOperator):
     ``matvec`` and ``matvec_t`` dispatch on the dtype of ``x``.  An ``x`` of
     the operator's dtype runs on ``values`` (f64: kernel 6 on the card); a
     float32 ``x`` on a float64 operator runs on a float32 copy of the values,
-    made once at first use (kernel 5: the mixed-precision inner CG)."""
+    made once at first use (kernel 5: the mixed-precision inner CG).  On a
+    card the operator plans kernel 5's row tiles when it is built, so that a
+    captured CG stage finds them on the card."""
 
     def __init__(self, rowptr: torch.Tensor, colidx: torch.Tensor,
                  values: torch.Tensor, n_cols: int):
@@ -158,6 +231,8 @@ class CsrOperator(LinearOperator):
         self.values = values      # (nnz,)
         self.n_cols = int(n_cols)
         self._values32 = None
+        self.plan = csr_plan(rowptr) if rowptr.device.type == "cuda" \
+            else None
 
     @property
     def shape(self):
@@ -191,7 +266,7 @@ class CsrOperator(LinearOperator):
                              f"CSR operator of {self.n_cols} columns "
                              f"(transposed={transposed})")
         return csr_spmm(self.rowptr, self.colidx, self._values_for(x.dtype),
-                        x, transposed)
+                        x, transposed, self.plan)
 
     def matvec(self, x):
         """``x (n, m) -> A @ x (n, m)``."""

@@ -194,8 +194,9 @@ def _compute_p(v, ss_evec, h, act_idx, act_cnt, size_x: int, bs: int,
 def _f32_apply(a_op):
     """The f32 form of ``a_op`` for the mixed inner CG, as ``(apply,
     transposed)``: DIA and CSR run the transposed ``(m, n)`` layout (kernels
-    2 and 5 on the card), Hybrid and ELL the ``(n, m)`` layout.  ``(None,
-    False)`` for an operator without an f32 form."""
+    2 and 5 on the card) on ``(n, m)`` memory, the order of ``r.T.float()``,
+    and return their products in it; Hybrid and ELL run the ``(n, m)``
+    layout.  ``(None, False)`` for an operator without an f32 form."""
     if isinstance(a_op, CsrOperator):     # dispatches on the dtype of x
         return a_op.matvec_t, True
     if isinstance(a_op, DiaOperator):
@@ -260,8 +261,12 @@ class _MixedStage:
 
     def _capture(self, n: int, bs: int, device):
         # the residual buffer has the strides the eager stage's operand has
-        # (``r.T.float()`` keeps the (n, bs) memory order), so that both run
-        # the same kernels on the same layout
+        # (``r.T.float()`` keeps the (n, bs) memory order), and the SpMM
+        # wrappers return their products in the order of their operand, so
+        # every tensor of the captured stage has the eager stage's strides:
+        # both run the same kernels on the same layout.  A CSR operator's
+        # row tiles were planned when it was built: nothing is copied to the
+        # card under capture
         r32 = torch.zeros((n, bs), dtype=torch.float32, device=device)
         self._r32 = r32.T if self.transposed else r32
         self._mask = torch.zeros(bs, dtype=torch.bool, device=device)

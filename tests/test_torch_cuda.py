@@ -46,25 +46,74 @@ def _laplacian_27(nx: int):
     return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
 
 
+def _operand(layout, n, m, dtype, device, seed):
+    """x for an SpMM of n rows, as ``(x, transposed)``: ``nm`` (n, m)
+    row-major, ``nm view`` a column slice of a wider basis, ``mn`` a
+    contiguous (m, n), ``mn view`` the transpose of a column slice, ``cg``
+    the mixed inner CG's operand, (m, n) in shape and (n, m) in memory."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((n, m + 3), generator=g, dtype=dtype, device=device)
+    x = {"nm": base[:, :m].contiguous(), "nm view": base[:, 2:2 + m],
+         "mn": base[:, :m].T.contiguous(), "mn view": base[:, 2:2 + m].T,
+         "cg": base[:, :m].contiguous().T}[layout]
+    return x, layout.startswith(("mn", "cg"))
+
+
+def _follows(y, x):
+    """y lies in the memory order of x: x's strides where x is dense, else
+    contiguous."""
+    dense = x.is_contiguous() or x.T.is_contiguous()
+    return y.stride() == x.stride() if dense and min(x.shape) > 1 \
+        else y.is_contiguous()
+
+
+_LAYOUTS = ["nm", "nm view", "mn", "mn view", "cg"]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14),
                                        (torch.float32, 1e-6)])
-@pytest.mark.parametrize("transposed", [False, True])
-def test_dia_kernel_matches_plain(cuda, dtype, tol, transposed):
-    """Kernels 1 and 2 against the plain version: within tol of max |A||x|
-    (sums of 27 terms in the working type)."""
+@pytest.mark.parametrize("m", [1, 10, 16, 40])
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_dia_kernel_matches_plain(cuda, dtype, tol, m, layout):
+    """Kernels 1 and 2 against the plain version in every layout: within
+    tol of max |A||x| (sums of 27 terms in the working type), equal bits
+    across two launches, the product in the memory order of x."""
     rows, cols, vals, n = _laplacian_27(12)
     op = make_operator(rows, cols, vals, (n, n), dtype=dtype, device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    basis = torch.randn((n, 13), generator=g, dtype=dtype, device=cuda)
-    x = basis[:, 1:11].T if transposed else basis[:, 1:11]   # strided views
-    before = dict(spmm.LAUNCHES)
+    x, transposed = _operand(layout, n, m, dtype, cuda, 0)
+    key = "dia_f64" if dtype == torch.float64 else "dia_f32"
+    before = spmm.LAUNCHES[key]
     got = spmm.dia_spmm(op.values, op.offsets_t, x, transposed)
+    again = spmm.dia_spmm(op.values, op.offsets_t, x, transposed)
+    assert spmm.LAUNCHES[key] == before + 2
+    assert got.shape == x.shape and torch.equal(got, again)
+    assert _follows(got, x)
     ref = spmm.dia_spmm_reference(op.values, op.offsets_t, x, transposed)
     scale = spmm.dia_spmm_reference(op.values.abs(), op.offsets_t, x.abs(),
                                     transposed).max()
     assert float((got - ref).abs().max()) <= tol * float(scale)
-    key = "dia_f64" if dtype == torch.float64 else "dia_f32"
-    assert spmm.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_dia_f32_kernel_runs_and_edges(cuda, layout):
+    """Kernel 2 with offsets in no order: a run of 20 consecutive offsets
+    (longer than one staged window serves), lone offsets, offsets past
+    either end of the matrix, and an odd n that leaves the last block
+    part-full; against the plain version."""
+    n, m = 1001, 10
+    offsets = list(range(-10, 10)) + [400, -3, n + 5, -(n + 2), 999, -1000]
+    rng = np.random.default_rng(8)
+    values = torch.as_tensor(rng.standard_normal((len(offsets), n)),
+                             dtype=torch.float32, device=cuda)
+    offs = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    x, transposed = _operand(layout, n, m, torch.float32, cuda, 1)
+    got = spmm.dia_spmm(values, offs, x, transposed)
+    assert torch.equal(got, spmm.dia_spmm(values, offs, x, transposed))
+    assert _follows(got, x)
+    ref = spmm.dia_spmm_reference(values, offs, x, transposed)
+    scale = spmm.dia_spmm_reference(values.abs(), offs, x.abs(),
+                                    transposed).max()
+    assert float((got - ref).abs().max()) <= 1e-6 * float(scale)
 
 
 @pytest.mark.parametrize("n,p,q", [(157, 7, 3), (5000, 120, 10),
@@ -210,13 +259,16 @@ def test_small_solve_on_card_matches_cpu(cuda):
     assert np.max(np.abs(ev_gpu - ev_cpu) / np.abs(ev_cpu)) <= 1e-10
 
 
-def _irregular_csr(n: int, seed: int):
+def _irregular_csr(n: int, seed: int, long_rows=()):
     """Random rows of 0 to 30 entries; rows 0 and n-1 empty, row 5 with one
-    entry.  Returns scipy CSR and the device-independent CSR arrays."""
+    entry, and the rows ``long_rows`` with as many entries as given.
+    Returns scipy CSR and the device-independent CSR arrays."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(0, 31, n)
     deg[[0, n - 1]] = 0
     deg[5] = 1
+    for r, d in long_rows:
+        deg[r] = d
     rows = np.repeat(np.arange(n), deg)
     cols = rng.integers(0, n, len(rows))
     vals = rng.standard_normal(len(rows))
@@ -226,34 +278,60 @@ def _irregular_csr(n: int, seed: int):
 
 @pytest.mark.parametrize("dtype,tol,key", [
     (torch.float64, 1e-14, "csr_f64"), (torch.float32, 1e-5, "csr_f32")])
-@pytest.mark.parametrize("m", [1, 10, 40])
-@pytest.mark.parametrize("transposed", [False, True])
-def test_csr_kernel_matches_plain(cuda, dtype, tol, key, m, transposed):
-    """Kernels 5 and 6 against the plain version on strided views, n = 1031
-    (no multiple of the 256-thread block), with empty rows and a one-entry
-    row: within tol of max |A||x|; two launches give the same bits."""
+@pytest.mark.parametrize("m", [1, 10, 16, 40])
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("rows", ["short", "long"])
+def test_csr_kernel_matches_plain(cuda, dtype, tol, key, m, layout, rows):
+    """Kernels 5 and 6 against the plain version in every layout, n = 1031
+    (no multiple of a block), with empty rows, a one-entry row and (``long``)
+    rows past kernel 5's tile budget: within tol of max |A||x|; two launches
+    give the same bits; the product lies in the memory order of x."""
     n = 1031
-    a, (rowptr, colidx, values) = _irregular_csr(n, m)
+    long_rows = [] if rows == "short" else \
+        [(7, 3 * onehot.CSR_BUDGET + 5), (1000, onehot.CSR_BUDGET + 1)]
+    a, (rowptr, colidx, values) = _irregular_csr(n, m, long_rows)
     rowptr, colidx = (torch.as_tensor(t, device=cuda)
                       for t in (rowptr, colidx))
     values = torch.as_tensor(values, device=cuda).to(dtype)
-    g = torch.Generator(device=cuda).manual_seed(1)
-    basis = torch.randn((n, m + 3), generator=g, dtype=dtype, device=cuda)
-    x = basis[:, 2:2 + m].T if transposed else basis[:, 2:2 + m]
+    plan = onehot.csr_plan(rowptr)
+    x, transposed = _operand(layout, n, m, dtype, cuda, 1)
     before = onehot.LAUNCHES[key]
-    got = onehot.csr_spmm(rowptr, colidx, values, x, transposed)
-    again = onehot.csr_spmm(rowptr, colidx, values, x, transposed)
+    got = onehot.csr_spmm(rowptr, colidx, values, x, transposed, plan)
+    again = onehot.csr_spmm(rowptr, colidx, values, x, transposed, plan)
     assert onehot.LAUNCHES[key] == before + 2
     assert got.shape == x.shape and torch.equal(got, again)
+    assert _follows(got, x)
     ref = onehot.csr_spmm_reference(rowptr, colidx, values, x, transposed)
     scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(), x.abs(),
                                       transposed).max()
     assert float((got - ref).abs().max()) <= tol * float(scale)
     y = got.T if transposed else got
     assert not y[0].any() and not y[n - 1].any()             # empty rows
-    host = a @ basis[:, 2:2 + m].double().cpu().numpy()
-    assert np.abs(y.double().cpu().numpy() - host).max() <= \
+    xn = (x.T if transposed else x).double().cpu().numpy()
+    assert np.abs(y.double().cpu().numpy() - a @ xn).max() <= \
         (tol if dtype == torch.float64 else 1e-4) * float(scale)
+
+
+def test_csr_f32_kernel_on_unaligned_arrays(cuda):
+    """Kernel 5 takes colidx and values that do not start on 16 bytes
+    (4-byte copies), and refuses to run without its row tiles."""
+    n = 700
+    _, (rowptr, colidx, values) = _irregular_csr(n, 3)
+    rowptr = torch.as_tensor(rowptr, device=cuda)
+    colidx = torch.as_tensor(np.concatenate([colidx[:1], colidx]),
+                             device=cuda)[1:]
+    values = torch.as_tensor(np.concatenate([values[:1], values]),
+                             device=cuda).float()[1:]
+    assert colidx.data_ptr() % 16 and values.data_ptr() % 16
+    x, _ = _operand("cg", n, 10, torch.float32, cuda, 2)
+    with pytest.raises(ValueError, match="row tiles"):
+        onehot.csr_spmm(rowptr, colidx, values, x, True)
+    got = onehot.csr_spmm(rowptr, colidx, values, x, True,
+                          onehot.csr_plan(rowptr))
+    ref = onehot.csr_spmm_reference(rowptr, colidx, values, x, True)
+    scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(), x.abs(),
+                                      True).max()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(scale)
 
 
 def test_csr_kernel_raises_on_what_it_does_not_take(cuda):

@@ -194,6 +194,39 @@ def test_fixed_count_cg_equals_early_exit(layout, dtype):
     assert int(fixed[1].niters) == early[1].niters
 
 
+@pytest.mark.parametrize("layout", ["dia", "csr"])
+def test_mixed_stage_keeps_one_memory_order(layout):
+    """The f32 CG stage of a DIA or CSR operator hands the transposed SpMM
+    ``r.T.float()``, (m, n) in shape and (n, m) in memory, and gets every
+    product back in that order: every operand and product of the stage
+    has strides (1, m), and the correction comes back as (n, m) f64."""
+    rng = np.random.default_rng(6)
+    n, bs = 300, 6
+    a = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.02)
+    a = a + a.T + np.diag(np.full(n, 20.0))
+    rows, cols = np.nonzero(a)
+    cls = DiaOperator if layout == "dia" else CsrOperator
+    op = cls.from_coo(rows, cols, a[rows, cols], (n, n), device="cpu")
+    stage = gcg._MixedStage(op, None, BlockPCGParams(max_iter=8), bs,
+                            fixed=True, capture=False)
+    assert stage.transposed
+    seen = []
+    apply32 = stage.apply32
+
+    def spy(y):
+        out = apply32(y)
+        seen.append((y.stride(), out.stride()))
+        return out
+
+    stage.apply32 = spy
+    r = torch.as_tensor(rng.standard_normal((n, bs)))
+    d, steps = stage(r, torch.ones(bs, dtype=torch.bool), 0.5)
+    assert len(seen) == 1 + 8 and int(steps) > 0
+    assert all(s == ((1, bs), (1, bs)) for s in seen)
+    assert d.shape == (n, bs) and d.dtype == torch.float64
+    assert d.is_contiguous()
+
+
 # --------------------------------------------------------------------------
 # fused solves
 # --------------------------------------------------------------------------

@@ -15,7 +15,7 @@ import torch
 from gcge_tpu.ops.osgemm_pallas import os_expand_pallas, os_gram_pallas
 from gcge_tpu.ops.spmm_pallas import (dia_spmm_pallas_t,
                                       dia_spmm_pallas_t_df64, split_df32)
-from gcge_tpu_torch.ops import osgemm, spmm
+from gcge_tpu_torch.ops import onehot, osgemm, spmm
 from gcge_tpu_torch.ops.operators import DiaOperator
 
 torch.set_num_threads(2)
@@ -302,3 +302,113 @@ def test_dmma_tile_check_plain_on_cpu():
     np.testing.assert_array_equal(got.numpy(), a @ c)
     with pytest.raises(ValueError, match="16, 8"):
         osgemm.dmma_tile_check(torch.as_tensor(c), torch.as_tensor(c))
+
+
+# ---- launch plans of kernels 5 and 2 (csrc/csr_spmm.cu, csrc/dia_spmm.cu) --
+
+
+def _rowptr(degrees):
+    return np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+
+
+def _row_cases():
+    rng = np.random.default_rng(11)
+    mesh = rng.integers(6, 27, 2001)             # Delaunay-like, odd n
+    mesh[::97] = 0                               # empty rows
+    long = rng.integers(0, 12, 3000)
+    long[[7, 1500, 2999]] = [5000, 2049, 20_000]  # rows past the budget
+    return {
+        "n=0": np.zeros(0, np.int64),
+        "n=1": np.array([5]),
+        "n=1 empty": np.array([0]),
+        "n=1 long": np.array([9000]),
+        "all empty, odd n": np.zeros(1001, np.int64),
+        "mesh-like, odd n": mesh,
+        "long rows": long,
+        "rows of exactly the budget": np.full(9, onehot.CSR_BUDGET),
+    }
+
+
+@pytest.mark.parametrize("case", list(_row_cases()))
+@pytest.mark.parametrize("budget,max_rows", [(onehot.CSR_BUDGET,
+                                               onehot.CSR_MAX_ROWS),
+                                              (64, 8), (1024, 300)])
+def test_csr_tiles_cover_each_row_once_and_fit(case, budget, max_rows):
+    """Kernel 5's row tiles: rows 0..n-1 each in exactly one tile, in order;
+    a tile's entries, widened to 16-byte boundaries, fit the budget unless
+    the tile is one row that does not (it streams in chunks); no tile
+    exceeds max_rows; a tile stops only where the next row would break
+    one of the two limits."""
+    rowptr = _rowptr(_row_cases()[case])
+    n = len(rowptr) - 1
+    tiles = onehot.csr_tiles(rowptr, budget, max_rows)
+    assert tiles.dtype == np.int32 and tiles[0] == 0 and tiles[-1] == n
+    assert np.all(np.diff(tiles) >= 1)
+    rp = rowptr.astype(np.int64)
+    for r0, r1 in zip(tiles[:-1], tiles[1:]):
+        staged = -(-rp[r1] // 4) * 4 - rp[r0] // 4 * 4
+        assert r1 - r0 <= max_rows
+        assert staged <= budget or r1 - r0 == 1
+        if r1 < n:                 # greedy: the next row did not fit
+            grown = -(-rp[r1 + 1] // 4) * 4 - rp[r0] // 4 * 4
+            assert r1 - r0 == max_rows or grown > budget
+    # every row longer than the budget has a tile of its own
+    for r in np.flatnonzero(np.diff(rp) > budget):
+        assert r in tiles and r + 1 in tiles
+
+
+def test_csr_tiles_reject_budgets_the_kernel_cannot_take():
+    rowptr = _rowptr([3, 4])
+    for budget in (0, 6, -4):
+        with pytest.raises(ValueError, match="budget"):
+            onehot.csr_tiles(rowptr, budget)
+    with pytest.raises(ValueError, match="max_rows"):
+        onehot.csr_tiles(rowptr, 8, 0)
+
+
+def test_csr_operator_plans_only_on_a_card():
+    """The row tiles live on the card of the operator; a CPU operator runs
+    the plain version and has none."""
+    op = onehot.CsrOperator.from_coo([0, 1, 1], [1, 0, 1], [1.0, 2.0, 3.0],
+                                     (2, 2), device="cpu")
+    assert op.plan is None
+
+
+@pytest.mark.parametrize("m,x_strides,y_strides,ptr,want", [
+    # the CG's operand: (m, n) in shape, (n, m) in memory
+    (10, (10, 1), (10, 1), 0, (2, 10, True)),
+    # a contiguous (m, n) operand: columns n apart, y likewise
+    (10, (1, 5000), (1, 5000), 0, (1, 5, False)),
+    # (n, m) row-major at m = 40: 16-byte groups, column tiles of 20
+    (40, (40, 1), (40, 1), 0, (4, 20, False)),
+    (16, (16, 1), (16, 1), 0, (4, 16, True)),
+    (1, (1, 1), (1, 1), 0, (1, 1, True)),
+    # a start off 16 bytes: no flat copy, 8-byte groups still
+    (10, (10, 1), (10, 1), 8, (2, 10, False)),
+    # a column slice of a wider basis: rows 13 floats apart
+    (10, (13, 1), (10, 1), 0, (2, 10, False)),
+])
+def test_dia_plan_by_layout(m, x_strides, y_strides, ptr, want):
+    """Kernel 2's plan: the vector width follows y's stores, a column tile
+    holds at most DIA_ITEMS groups, the window is one flat range only where
+    x's rows are adjacent and x starts on 16 bytes."""
+    plan = spmm.dia_plan(m, *x_strides, ptr, *y_strides, ptr)
+    assert (plan.vec, plan.col_tile, plan.flat) == want
+    assert plan.col_tile % plan.vec == 0 and m % plan.vec == 0
+    assert plan.col_tile <= spmm.DIA_ITEMS * plan.vec
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 10, 16, 40, 100, 1000])
+def test_dia_plan_column_tiles_cover_m(m):
+    plan = spmm.dia_plan(m, m, 1, 0, m, 1, 0)
+    tiles = [min(plan.col_tile, m - c0) for c0 in range(0, m, plan.col_tile)]
+    assert sum(tiles) == m and all(t % plan.vec == 0 for t in tiles)
+
+
+@pytest.mark.parametrize("operands,want", [
+    (((10, 1, 0),), 2), (((12, 1, 16),), 4), (((12, 1, 8),), 2),
+    (((11, 1, 0),), 1), (((1, 7, 0),), 1), (((10, 1, 0), (10, 1, 4)), 1),
+])
+def test_vec_width(operands, want):
+    m = 12 if operands[0][0] == 12 else 10
+    assert spmm.vec_width(m, *operands) == want

@@ -146,6 +146,49 @@ def test_csr_spmm_strided_views_and_edge_rows(dtype):
     assert one.shape == (n, 1) and torch.equal(one[:, 0], ref[:, 1])
 
 
+def _layouts(n_cols, m, dtype):
+    """x in each layout a caller hands csr_spmm / dia_spmm, as
+    ``(name, x, transposed, column-major result expected)``."""
+    rng = np.random.default_rng(m)
+    base = _t(rng.standard_normal((n_cols, m + 3))).to(dtype)
+    dense = base[:, 1:1 + m].contiguous()
+    return [
+        ("(n, m) row-major", dense, False, False),
+        ("(n, m) column-major", dense.T.contiguous().T, False, m > 1),
+        ("(m, n) contiguous", dense.T.contiguous(), True, False),
+        ("(m, n) with (n, m) memory: the CG's", dense.T, True, m > 1),
+        ("(n, m) column slice", base[:, 1:1 + m], False, False),
+        ("(m, n) view of a column slice", base[:, 1:1 + m].T, True, False),
+    ]
+
+
+@pytest.mark.parametrize("m", [1, 6])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_csr_spmm_returns_the_memory_order_of_x(m, dtype):
+    """The plain version returns ``y`` in the memory order of a dense ``x``
+    (like ``torch.empty_like(x)``) and contiguous for any other ``x``, in
+    both layouts, as the kernels do; the values do not depend on it.  The
+    matrix is not square (300 x 257), so ``y`` and ``x`` differ in
+    length."""
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, 300, 2000)
+    cols = rng.integers(0, 257, 2000)
+    rowptr, colidx, values = pack_csr(rows, cols, rng.standard_normal(2000),
+                                      (300, 257))
+    rowptr, colidx, values = _t(rowptr), _t(colidx), _t(values).to(dtype)
+    want = None
+    for name, x, transposed, col_major in _layouts(257, m, dtype):
+        y = csr_spmm(rowptr, colidx, values, x, transposed)
+        assert y.shape == ((m, 300) if transposed else (300, m)), name
+        if col_major:
+            assert y.stride() == (1, y.shape[0]), name
+        else:
+            assert y.is_contiguous(), name
+        yn = y.T if transposed else y
+        want = yn if want is None else want
+        assert torch.equal(yn, want), name
+
+
 def test_csr_wrappers_raise_on_bad_input():
     rowptr, colidx, values = _csr_tensors([0, 1], [1, 0], [1.0, 2.0], 2,
                                           torch.float64)

@@ -68,6 +68,35 @@ def test_dia_operator_matches_scipy_both_layouts():
     assert np.abs(op.matvec_t(_t(x.T.copy())).numpy() - ref.T).max() <= tol
 
 
+@pytest.mark.parametrize("m", [1, 10])
+def test_dia_spmm_returns_the_memory_order_of_x(m):
+    """The plain DIA version returns ``y`` in the memory order of a dense
+    ``x`` (like ``torch.empty_like(x)``) and contiguous for any other ``x``,
+    in both layouts, as the kernels do; the values do not depend on it."""
+    n = 211
+    rows, cols, vals = _banded_coo(n, (-7, -1, 0, 1, 2, 30), 5)
+    op = DiaOperator.from_coo(rows, cols, vals, (n, n), device="cpu")
+    base = _t(np.random.default_rng(m).standard_normal((n, m + 3)))
+    dense = base[:, 1:1 + m].contiguous()
+    want = None
+    for name, x, transposed, col_major in [
+            ("(n, m)", dense, False, False),
+            ("(n, m) column-major", dense.T.contiguous().T, False, m > 1),
+            ("(m, n) contiguous", dense.T.contiguous(), True, False),
+            ("(m, n), (n, m) memory", dense.T, True, m > 1),
+            ("column slice", base[:, 1:1 + m], False, False),
+            ("view of a column slice", base[:, 1:1 + m].T, True, False)]:
+        y = op.matvec_t(x) if transposed else op.matvec(x)
+        assert y.shape == x.shape, name
+        if col_major:
+            assert y.stride() == x.stride() == (1, y.shape[0]), name
+        else:
+            assert y.is_contiguous(), name
+        yn = y.T if transposed else y
+        want = yn if want is None else want
+        assert torch.equal(yn, want), name
+
+
 def test_sparse_operator_matches_scipy():
     """ELL from COO and from scipy: to_dense exact, matvec to 1e-13."""
     rows, cols, vals, m = _random_sym_coo(150, 0.05, 2)
