@@ -18,10 +18,17 @@ Phases, each of which raises on failure:
    a read of a buffer five times the L2 cache, which leaves the cache cold
    and clean) beside the plain version and beside the one
    PyTorch call that computes the same function (``torch.sparse.mm`` on a
-   CSR tensor, ``a.T @ b``, ``a @ c``); kernels 3 and 4 at every shape class
-   a solve gives them (Gram (120 x 10), (110 x 10), (10 x 10), (100 x 100);
-   expand (n x 120)(120 x 100), (n x 120)(120 x 10), (n x 110)(110 x 10),
-   (n x 10)(10 x 10)), each also with equal bits across two launches;
+   CSR tensor, ``a.T @ b``, ``a @ c``); kernel 1 at the operands a solve
+   hands it (primary: ``V[:, 110:120]`` of an (n, 120) basis, the W
+   coupling of every Rayleigh-Ritz step; then the residual window
+   ``ritz[:, 41:51]``, the initial Rayleigh-Ritz ``V[:, :100]``) and in the
+   contiguous and transposed layouts, kernel 2 at the f32 CG stage's operand
+   and beside it, each SpMM row with equal bits across two launches and its
+   product in the memory order of its operand; kernels 3 and 4 at every
+   shape class a solve gives them (Gram (120 x 10), (110 x 10), (10 x 10),
+   (100 x 100); expand (n x 120)(120 x 100), (n x 120)(120 x 10),
+   (n x 110)(110 x 10), (n x 10)(10 x 10)), each also with equal bits across
+   two launches;
 3. headline solve — ``gcge_tpu_torch.solve`` on the 3-D 27-point Laplacian at
    nx=54 (n=157,464), nev=50 at tol_rel 1e-8, block 10, inner CG budget 30;
    checks the converged count, the eigenvalues against the closed-form
@@ -32,12 +39,13 @@ Phases, each of which raises on failure:
 4. irregular matrix — the P1 FEM stiffness matrix on an unstructured Delaunay
    tet mesh of 64^3 jittered points (n=250,047), built on the host with the
    port's own ``io.fem``, and its RCM ordering; host times printed;
-5. kernels 5-7 — the CSR SpMM kernels on the RCM-ordered matrix (block 10 in
-   both layouts, block 40 transposed, and the f32 CG stage's own operand)
-   against the plain version and beside ``torch.sparse.mm``; kernel 5 also
-   on the Hybrid check's CSR remainder and on a matrix with rows longer than
-   its tile budget; the mask probe against its plain version bit for bit;
-   kernels 3 and 4 again at this matrix's n;
+5. kernels 5-7 — the CSR SpMM kernels on the RCM-ordered matrix against the
+   plain version and beside ``torch.sparse.mm``, as kernels 1 and 2 (kernel
+   6 at the solve's operands first, then block 10 in both layouts and block
+   40 transposed; kernel 5 at the f32 CG stage's own operand first); both
+   also on a matrix with rows longer than their tile budget, kernel 5 on the
+   Hybrid check's CSR remainder; the mask probe against its plain version
+   bit for bit; kernels 3 and 4 again at this matrix's n;
 6. Hybrid check — a banded matrix plus a thin scatter of outliers (n=50,000)
    through ``make_operator``: DIA core and CSR remainder applied together in
    f64 and f32 against scipy;
@@ -69,7 +77,7 @@ Phases, each of which raises on failure:
 solve and the whole headline solve, each phased and fused) and prints the
 device's busy and idle share, the device operations, host launches and host
 synchronisations per iteration, the device time by kernel, that of kernels
-3 and 4 together, of kernel 2, of kernel 5 and of PyTorch's f32 elementwise
+3 and 4 together, of kernels 1, 2, 5 and 6 and of PyTorch's f32 elementwise
 and reduction kernels (the CG stage's); then the
 walls of the headline solve, of a short solve and of the irregular solve,
 phased and fused in chunks of 20 and 5, taken in turns.
@@ -243,6 +251,73 @@ def csr_tensor(torch, a_csr, dtype):
         torch.as_tensor(a_csr.indices, device=DEVICE),
         torch.as_tensor(a_csr.data, device=DEVICE).to(dtype),
         size=a_csr.shape, check_invariants=False)
+
+
+def spmm_operand(torch, name, n, dtype, gen):
+    """The operand of an SpMM row, as ``(x, transposed)``: a column view of
+    a basis as a solve hands it to kernels 1 and 6 (``V[:, 110:120]``, the W
+    coupling of every Rayleigh-Ritz step: rows 120 elements apart, on 16
+    bytes; ``V[:, :100]``, the initial Rayleigh-Ritz; ``ritz[:, 41:51]``, a
+    residual window at an odd offset: rows 8-byte aligned only), a
+    contiguous ``(n, m)`` or a contiguous ``(m, n)`` of the transposed
+    layout."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=DEVICE)
+
+    if name == "V[:, 110:120]":
+        return randn(n, 120)[:, 110:120], False
+    if name == "V[:, :100]":
+        return randn(n, 120)[:, :100], False
+    if name == "ritz[:, 41:51]":
+        return randn(n, 100)[:, 41:51], False
+    rows, cols = name.strip("()").split(", ")
+    if rows == "n":
+        return randn(n, int(cols)), False
+    return randn(int(rows), n), True
+
+
+def follows(y, x) -> bool:
+    """``y`` lies in the memory order of ``x``: x's strides where x is dense
+    (and not a single row or column), else contiguous."""
+    dense = x.is_contiguous() or x.T.is_contiguous()
+    return y.stride() == x.stride() if dense and min(x.shape) > 1 \
+        else y.is_contiguous()
+
+
+def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
+              cases, tol, gen, tag=""):
+    """An SpMM kernel (``apply(x, transposed)``) against its plain version
+    (``plain(x, transposed, absolute)``, on |A| where ``absolute``) and
+    beside ``torch.sparse.mm`` on ``lib`` (the same values, in the (n, m)
+    layout), for each operand of ``cases`` (:func:`spmm_operand`, or ``cg``:
+    the f32 CG stage's, :func:`cg_operand`).  Each row also gives equal bits
+    twice and returns its product in the memory order of its operand; its
+    bound counts the matrix's bytes, x and y once each.  The first case is
+    the primary one where ``tag`` is empty."""
+    dtype = lib.dtype
+    item = torch.empty((), dtype=dtype).element_size()
+    for name in cases:
+        if name == "cg":
+            x = cg_operand(torch, lambda z: apply(z, True), n, BS, gen)
+            transposed = True
+        else:
+            x, transposed = spmm_operand(torch, name, n, dtype, gen)
+        m = x.shape[0] if transposed else x.shape[1]
+        x_nm = x.T.contiguous() if transposed else x.contiguous()
+        label = f"{key}{tag} {name} m={m} strides {tuple(x.stride())}"
+
+        def kernel():
+            return apply(x, transposed)
+
+        if not follows(kernel(), x):
+            raise AssertionError(f"{label}: the product's strides "
+                                 f"{kernel().stride()} do not follow x's")
+        twice_equal(torch, kernel, label)
+        scale = plain(x.abs(), transposed, True).max()
+        log.run(key, label, kernel, lambda: plain(x, transposed, False),
+                scale, tol, matrix_bytes + 2 * n * m * item, 2.0 * nnz * m,
+                library=lambda: torch.sparse.mm(lib, x_nm),
+                primary=not tag and name == cases[0])
 
 
 def launch_counters():
@@ -450,10 +525,6 @@ def phase_kernels_headline(torch, log, rows, cols, vals, n):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, dtype=torch.float64):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
-
     op = make_operator(rows, cols, vals, (n, n), device=dev)
     v64, offs = op.values, op.offsets_t
     v32 = v64.float()
@@ -462,44 +533,24 @@ def phase_kernels_headline(torch, log, rows, cols, vals, n):
     lib32 = csr_tensor(torch, a_csr, torch.float32)
     ndiag = v64.shape[0]
 
-    def dia_cost(m, item):
-        return ((ndiag * n + 2 * n * m) * item + 4 * ndiag,
-                2.0 * a_csr.nnz * m)
+    def dia(values):
+        return (lambda x, t: spmm.dia_spmm(values, offs, x, t),
+                lambda x, t, absolute: spmm.dia_spmm_reference(
+                    values.abs() if absolute else values, offs, x, t))
 
-    # kernel 1: f64 DIA, both layouts; error relative to max (|A| |x|).  The
-    # library call takes the (n, m) layout in every case.
-    for m in (10, 100):
-        for transposed in (False, True):
-            x = randn(m, n) if transposed else randn(n, m)
-            x_nm = x.T.contiguous() if transposed else x
-            scale = spmm.dia_spmm_reference(v64.abs(), offs, x.abs(),
-                                            transposed).max()
-            log.run("dia_f64", f"dia_f64 m={m} transposed={transposed}",
-                    lambda: spmm.dia_spmm(v64, offs, x, transposed),
-                    lambda: spmm.dia_spmm_reference(v64, offs, x, transposed),
-                    scale, 1e-14, *dia_cost(m, 8),
-                    library=lambda: torch.sparse.mm(lib64, x_nm),
-                    primary=(m == 10 and not transposed))
+    # kernel 1: f64 DIA; error relative to max (|A| |x|).  Primary: the W
+    # coupling's column view of V, then the solve's other operands and the
+    # other layouts
+    spmm_rows(torch, log, "dia_f64", *dia(v64), n, a_csr.nnz,
+              8 * ndiag * n + 4 * ndiag, lib64,
+              ["V[:, 110:120]", "ritz[:, 41:51]", "V[:, :100]", "(n, 10)",
+               "(10, n)", "(100, n)"], 1e-14, gen)
     # kernel 2: f32 DIA.  Primary: the operand the mixed inner CG hands it,
     # (m, n) with strides (1, m); besides, a contiguous (m, n) operand and
     # the (n, m) layout
-    for xt, transposed in (
-            (cg_operand(torch, lambda z: spmm.dia_spmm(v32, offs, z, True),
-                        n, BS, gen), True),
-            (randn(BS, n, dtype=torch.float32), True),
-            (randn(n, BS, dtype=torch.float32), False)):
-        xt_nm = xt.T.contiguous() if transposed else xt
-        scale = spmm.dia_spmm_reference(v32.abs(), offs, xt.abs(),
-                                        transposed).max()
-        twice_equal(torch, lambda: spmm.dia_spmm(v32, offs, xt, transposed),
-                    "dia_f32")
-        log.run("dia_f32", f"dia_f32 m={BS} transposed={transposed} strides "
-                f"{tuple(xt.stride())}",
-                lambda: spmm.dia_spmm(v32, offs, xt, transposed),
-                lambda: spmm.dia_spmm_reference(v32, offs, xt, transposed),
-                scale, 1e-5, *dia_cost(BS, 4),
-                library=lambda: torch.sparse.mm(lib32, xt_nm),
-                primary=transposed and not xt.is_contiguous())
+    spmm_rows(torch, log, "dia_f32", *dia(v32), n, a_csr.nnz,
+              4 * ndiag * n + 4 * ndiag, lib32,
+              ["cg", f"({BS}, n)", f"(n, {BS})"], 1e-5, gen)
     kernels_tall(torch, log, n, gen, primary=True)
     tall_host_cost(torch)
 
@@ -640,48 +691,22 @@ def build_delaunay(g: int):
     return a, a_rcm
 
 
-def csr_kernel_rows(torch, log, key, op, vals, lib, cases, tol, gen, tag):
-    """Kernel 5 or 6 on the CSR operator ``op`` against its plain version and
-    beside ``torch.sparse.mm`` (on ``lib``, in the (n, m) layout), for each
-    ``(m, layout)`` of ``cases``: ``nm`` an (n, m) operand, ``t`` a
-    contiguous (m, n) one, ``cg`` the f32 CG stage's (:func:`cg_operand`).
-    Each also gives equal bits twice and returns its product in the memory
-    order of its operand.  The first case is the primary one where ``tag``
-    is empty."""
+def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag=""):
+    """Kernel 5 or 6 (by the dtype of ``vals``) on the CSR operator ``op``
+    in its own plan: :func:`spmm_rows` with the library call on the scipy
+    matrix ``a_csr``."""
     from gcge_tpu_torch.ops import onehot
 
     rowptr, colidx, plan = op.rowptr, op.colidx, op.plan
-    n, nnz = op.shape[0], int(vals.shape[0])
-    item = vals.element_size()
-    for m, layout in cases:
-        transposed = layout != "nm"
-        if layout == "cg":
-            x = cg_operand(torch, lambda z: onehot.csr_spmm(
-                rowptr, colidx, vals, z, True, plan), n, m, gen)
-        else:
-            x = torch.randn((m, n) if transposed else (n, m), generator=gen,
-                            dtype=vals.dtype, device=DEVICE)
-        x_nm = x.T.contiguous() if transposed else x
-
-        def kernel():
-            return onehot.csr_spmm(rowptr, colidx, vals, x, transposed, plan)
-
-        if kernel().stride() != x.stride():
-            raise AssertionError(f"{key}: the product's strides "
-                                 f"{kernel().stride()} are not x's "
-                                 f"{x.stride()}")
-        twice_equal(torch, kernel, key)
-        scale = onehot.csr_spmm_reference(rowptr, colidx, vals.abs(),
-                                          x.abs(), transposed).max()
-        log.run(key, f"{key}{tag} m={m} transposed={transposed} strides "
-                f"{tuple(x.stride())}", kernel,
-                lambda: onehot.csr_spmm_reference(rowptr, colidx, vals, x,
-                                                  transposed),
-                scale, tol,
-                nnz * (4 + item) + 4 * (n + 1) + 2 * n * m * item,
-                2.0 * nnz * m,
-                library=lambda: torch.sparse.mm(lib, x_nm),
-                primary=not tag and (m, layout) == cases[0])
+    nnz = int(vals.shape[0])
+    spmm_rows(
+        torch, log, key,
+        lambda x, t: onehot.csr_spmm(rowptr, colidx, vals, x, t, plan),
+        lambda x, t, absolute: onehot.csr_spmm_reference(
+            rowptr, colidx, vals.abs() if absolute else vals, x, t),
+        op.shape[0], nnz,
+        nnz * (4 + vals.element_size()) + 4 * (op.shape[0] + 1),
+        csr_tensor(torch, a_csr, vals.dtype), cases, tol, gen, tag)
 
 
 def phase_kernels_irregular(torch, log, a_rcm):
@@ -702,19 +727,17 @@ def phase_kernels_irregular(torch, log, a_rcm):
     if not isinstance(op, onehot.CsrOperator):
         raise AssertionError(f"make_operator picked {type(op).__name__}, "
                              "not CsrOperator")
-    values = {torch.float64: op.values, torch.float32: op.values.float()}
-    lib = {dt: csr_tensor(torch, a_rcm, dt) for dt in values}
     # kernel 6 (f64) and kernel 5 (f32); error relative to max (|A| |x|).
-    # Primary: kernel 6 in the (n, m) layout of the f64 products, kernel 5
-    # at the f32 CG stage's own operand
-    for dtype, key, tol in ((torch.float64, "csr_f64", 1e-14),
-                            (torch.float32, "csr_f32", 1e-5)):
-        cases = [(10, "nm"), (10, "t"), (40, "t")]
-        cases = [(10, "cg")] + cases if dtype == torch.float32 else cases
-        csr_kernel_rows(torch, log, key, op, values[dtype], lib[dtype],
-                        cases, tol, gen, "")
-    # kernel 5 at rows longer than its tile budget: 50,000 rows of 0 to 11
-    # entries (every 997th empty) and three of 3,000, 5,000 and 20,000
+    # Primary: kernel 6 at the W coupling's column view of V, kernel 5 at the
+    # f32 CG stage's own operand
+    csr_rows(torch, log, "csr_f64", op, op.values, a_rcm,
+             ["V[:, 110:120]", "ritz[:, 41:51]", "V[:, :100]", "(n, 10)",
+              "(10, n)", "(40, n)"], 1e-14, gen)
+    csr_rows(torch, log, "csr_f32", op, op.values.float(), a_rcm,
+             ["cg", "(n, 10)", "(10, n)", "(40, n)"], 1e-5, gen)
+    # kernels 6 and 5 at rows longer than their tile budget: 50,000 rows of
+    # 0 to 11 entries (every 997th empty) and three of 3,000, 5,000 and
+    # 20,000
     rng = np.random.default_rng(3)
     n2 = 50_000
     deg = rng.integers(0, 12, n2)
@@ -730,11 +753,11 @@ def phase_kernels_irregular(torch, log, a_rcm):
     tiles = op2.plan.tiles.cpu().numpy()
     if not (np.diff(tiles) == 1).sum() >= 3:
         raise AssertionError("the long rows do not have tiles of their own")
-    csr_kernel_rows(torch, log, "csr_f32", op2, op2.values.float(),
-                    csr_tensor(torch, long_rows, torch.float32),
-                    [(10, "cg"), (16, "nm")], 1e-5, gen,
-                    f" long rows (max {deg.max()}, budget "
-                    f"{onehot.CSR_BUDGET})")
+    tag = f" long rows (max {deg.max()}, budget {onehot.CSR_BUDGET})"
+    csr_rows(torch, log, "csr_f64", op2, op2.values, long_rows,
+             ["V[:, 110:120]"], 1e-14, gen, tag)
+    csr_rows(torch, log, "csr_f32", op2, op2.values.float(), long_rows,
+             ["cg", "(n, 16)"], 1e-5, gen, tag)
     # kernel 7: the mask probe, bit for bit
     rng = np.random.default_rng(0)
     for name, ids0 in (("ids=arange%8", np.arange(128) % 8),
@@ -793,13 +816,12 @@ def phase_hybrid(torch, log):
                               "csr_f32")] != [1, 1, 1, 1]:
         raise AssertionError(f"hybrid matvec launches: {launches}")
     rest = op.rest
-    lib = torch.sparse_csr_tensor(
-        rest.rowptr, rest.colidx, rest.values.float(), size=rest.shape,
-        check_invariants=False)
-    csr_kernel_rows(torch, log, "csr_f32", rest, rest.values.float(), lib,
-                    [(10, "cg")], 1e-5,
-                    torch.Generator(device=DEVICE).manual_seed(2),
-                    f" hybrid remainder ({rest.nnz} entries)")
+    rest_csr = sps.csr_matrix((rest.values.cpu().numpy(),
+                               rest.colidx.cpu().numpy(),
+                               rest.rowptr.cpu().numpy()), shape=rest.shape)
+    csr_rows(torch, log, "csr_f32", rest, rest.values.float(), rest_csr,
+             ["cg"], 1e-5, torch.Generator(device=DEVICE).manual_seed(2),
+             f" hybrid remainder ({rest.nnz} entries)")
 
 
 def phase_irregular(torch, log, a, a_rcm):
@@ -1094,8 +1116,10 @@ def profile_solve(torch, label: str, run):
     for what, picks in (
             ("kernels 3+4 (the Gram's chunk sum among them)",
              lambda k: "tall_gram" in k or "tall_expand" in k),
+            ("kernel 1", lambda k: "dia_spmm_f64_staged" in k),
             ("kernel 2", lambda k: "dia_spmm_f32_staged" in k),
             ("kernel 5", lambda k: "csr_spmm_f32_tiled" in k),
+            ("kernel 6", lambda k: "csr_spmm_f64_tiled" in k),
             # the f32 CG stage is the only f32 work of a solve
             ("PyTorch f32 elementwise and reductions (the CG stage's)",
              lambda k: ("elementwise" in k or "reduce_kernel" in k)

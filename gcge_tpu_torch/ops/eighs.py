@@ -60,17 +60,22 @@ def safe_eigh(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w, u
 
 
-def eigh(h: torch.Tensor, backend: str = "auto"
-         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric eigendecomposition, ascending.
-
-    ``'auto'`` and ``'device'`` run :func:`safe_eigh`.  ``gcge_tpu``'s
-    ``'jacobi'``, ``'newton'`` and ``'host'`` backends serve the TPU only and
-    are not ported."""
+def check_backend(backend: str) -> None:
+    """Raise unless ``backend`` is one :func:`eigh` runs: ``'auto'`` or
+    ``'device'``.  ``gcge_tpu``'s ``'jacobi'``, ``'newton'`` and ``'host'``
+    backends serve the TPU only and are not ported."""
     if backend in ("auto", "device"):
-        return safe_eigh(h)
+        return
     if backend in ("jacobi", "newton", "host"):
         raise NotImplementedError(
             f"eigh backend {backend!r} exists for the TPU's emulated f64 "
             f"only; use 'auto' or 'device'")
     raise ValueError(f"unknown eigh backend {backend!r}")
+
+
+def eigh(h: torch.Tensor, backend: str = "auto"
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric eigendecomposition, ascending: :func:`safe_eigh` for the
+    backends :func:`check_backend` accepts."""
+    check_backend(backend)
+    return safe_eigh(h)

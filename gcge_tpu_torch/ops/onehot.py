@@ -11,9 +11,9 @@ on the host and sorted by (row, column).
   ``(n, m)`` or ``(m, n)`` (``transposed=True``), and returns it in the
   memory order of ``x``.  On a CUDA tensor it launches kernel 5 (f32) or
   kernel 6 (f64) of ``csrc/csr_spmm.cu``; on a CPU tensor it runs
-  :func:`csr_spmm_reference`, the plain PyTorch version.  Kernel 5 works in
-  row tiles planned once per matrix on the host (:func:`csr_tiles`,
-  :func:`csr_plan`).
+  :func:`csr_spmm_reference`, the plain PyTorch version.  Both kernels work
+  in row tiles planned once per matrix on the host (:func:`csr_tiles`,
+  :func:`csr_plan`): the plan depends on ``rowptr`` alone and serves both.
 * :class:`CsrOperator` is the operator on top of it.
 * :func:`onehot_mask_probe` / :func:`bf16_mask_supported` are the counterpart
   of the TPU's one-hot mask probe (kernel 7, ``csrc/mask_probe.cu``).
@@ -33,15 +33,17 @@ import torch
 
 from gcge_tpu_torch.ops import _build
 from gcge_tpu_torch.ops.operators import LinearOperator, _np_dtype
-from gcge_tpu_torch.ops.spmm import empty_in_order_of, in_order_of, vec_width
+from gcge_tpu_torch.ops.spmm import (empty_in_order_of, in_order_of,
+                                     row_fast, vec_width)
 
 # launches of the CUDA kernels since the last reset, by kernel
 LAUNCHES = {"csr_f32": 0, "csr_f64": 0, "mask_probe": 0}
 
 _INT32_MAX = 2 ** 31 - 1
 MASK_SHAPE = (8, 128)
-# kernel 5's row tiles: entries of colidx and values a block stages (8 bytes
-# each in shared memory), and rows a tile holds at most
+# the row tiles of kernels 5 and 6: entries of colidx and values a block
+# stages (8 bytes each in shared memory in f32, 12 in f64), and rows a tile
+# holds at most
 CSR_BUDGET = 1024
 CSR_MAX_ROWS = 64
 _ALIGN = 4             # entries of a 16-byte copy
@@ -77,8 +79,8 @@ def _row_ids(rowptr: torch.Tensor, nnz: int) -> torch.Tensor:
 
 def csr_tiles(rowptr: np.ndarray, budget: int = CSR_BUDGET,
               max_rows: int = CSR_MAX_ROWS) -> np.ndarray:
-    """Kernel 5's row tiles for CSR ``rowptr`` (n+1,): the first row of each
-    tile, then n, as int32.  A tile is a range of at most ``max_rows`` whole
+    """The row tiles of kernels 5 and 6 for CSR ``rowptr`` (n+1,): the first
+    row of each tile, then n, as int32.  A tile is a range of at most ``max_rows`` whole
     rows whose entries, widened to 16-byte boundaries (``[rowptr[r0] // 4 *
     4, ceil4(rowptr[r1]))``), fit ``budget`` entries; a row whose entries do
     not is a tile of its own, which the kernel streams in chunks.  Greedy
@@ -108,7 +110,8 @@ class CsrPlan:
 
 
 def csr_plan(rowptr: torch.Tensor) -> CsrPlan:
-    """Kernel 5's launch plan for ``rowptr``, on its device.  It reads
+    """The launch plan of kernels 5 and 6 for ``rowptr``, on its device (the
+    same for both: it depends on ``rowptr`` alone).  It reads
     ``rowptr`` to the host and copies the tiles back: build it once per
     matrix (:class:`CsrOperator` does, when it is built), never while a CUDA
     graph is being captured."""
@@ -143,8 +146,8 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     it).  The result is ``(n, m)`` or ``(m, n)``, freshly allocated, in the
     memory order of ``x``: like ``torch.empty_like(x)`` for a dense ``x``,
     else contiguous in the logical layout (``spmm.empty_in_order_of``).
-    ``plan``: kernel 5's row tiles for this ``rowptr`` (:func:`csr_plan`),
-    which an f32 product on a card needs."""
+    ``plan``: the row tiles for this ``rowptr`` (:func:`csr_plan`), which a
+    product on a card needs."""
     if x.dim() != 2:
         raise ValueError(f"csr_spmm: x must be 2-D, got {tuple(x.shape)}")
     if rowptr.dim() != 1 or rowptr.shape[0] < 1 or colidx.dim() != 1 or \
@@ -183,28 +186,22 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     else:
         xs_i, xs_j = x.stride(0), x.stride(1)
         ys_i, ys_j = y.stride(0), y.stride(1)
-    if x.dtype == torch.float32 and plan is None:
-        raise ValueError("csr_spmm: kernel 5 needs the row tiles of rowptr "
-                         "(plan=csr_plan(rowptr))")
-    lib = _build.lib()
+    if plan is None:
+        raise ValueError("csr_spmm: kernels 5 and 6 need the row tiles of "
+                         "rowptr (plan=csr_plan(rowptr))")
+    item = x.element_size()
+    vec = vec_width(m, (xs_i, xs_j, x.data_ptr()), (ys_i, ys_j, y.data_ptr()),
+                    item=item)
+    copy16 = colidx.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
+    entry, counter = ("gcge_csr_spmm_f64", "csr_f64") if item == 8 else \
+        ("gcge_csr_spmm_f32", "csr_f32")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.float64:
-            entry, counter = "gcge_csr_spmm_f64", "csr_f64"
-            err = lib.gcge_csr_spmm_f64(
-                rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), n,
-                m, x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, stream)
-        else:
-            entry, counter = "gcge_csr_spmm_f32", "csr_f32"
-            vec = vec_width(m, (xs_i, xs_j, x.data_ptr()),
-                            (ys_i, ys_j, y.data_ptr()))
-            copy16 = colidx.data_ptr() % 16 == 0 and \
-                values.data_ptr() % 16 == 0
-            err = lib.gcge_csr_spmm_f32(
-                rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), nnz,
-                plan.tiles.data_ptr(), plan.tiles.shape[0] - 1, plan.budget,
-                m, x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, vec,
-                int(copy16), stream)
+        err = getattr(_build.lib(), entry)(
+            rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), nnz,
+            plan.tiles.data_ptr(), plan.tiles.shape[0] - 1, plan.budget, m,
+            x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, vec,
+            int(copy16), int(row_fast(m, ys_i, ys_j)), stream)
     _build.check(entry, err)
     LAUNCHES[counter] += 1
     return y
@@ -221,8 +218,8 @@ class CsrOperator(LinearOperator):
     the operator's dtype runs on ``values`` (f64: kernel 6 on the card); a
     float32 ``x`` on a float64 operator runs on a float32 copy of the values,
     made once at first use (kernel 5: the mixed-precision inner CG).  On a
-    card the operator plans kernel 5's row tiles when it is built, so that a
-    captured CG stage finds them on the card."""
+    card the operator plans the row tiles of both kernels when it is built,
+    so that a captured CG stage finds them on the card."""
 
     def __init__(self, rowptr: torch.Tensor, colidx: torch.Tensor,
                  values: torch.Tensor, n_cols: int):

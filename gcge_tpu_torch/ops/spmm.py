@@ -4,7 +4,8 @@
 ``values[d, i] = A[i, i + offsets[d]]`` in two layouts: ``x`` of shape
 ``(n, m)`` (``transposed=False``, :meth:`DiaOperator.matvec`) or ``(m, n)``
 (``transposed=True``, :meth:`DiaOperator.matvec_t`).  On a CUDA tensor it
-launches kernel 1 (f64) or kernel 2 (f32) of ``csrc/dia_spmm.cu``; on a CPU
+launches kernel 1 (f64) or kernel 2 (f32) of ``csrc/dia_spmm.cu``, one
+staged design in two types, on the launch plan of :func:`dia_plan`; on a CPU
 tensor it runs :func:`dia_spmm_reference`, the plain PyTorch version.
 
 Both SpMM wrappers of the port (this one and ``onehot.csr_spmm``) return
@@ -61,40 +62,63 @@ def in_order_of(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.contiguous()
 
 
-def vec_width(m: int, *operands) -> int:
-    """Floats a thread of kernels 2 and 5 moves at once: the largest of 4,
-    2 and 1 that divides ``m`` and for which every operand, given as
+def vec_width(m: int, *operands, item: int = 4) -> int:
+    """Elements of ``item`` bytes a thread of the SpMM kernels moves at
+    once: the largest count of at most 16 bytes (4, 2 or 1 floats; 2 or 1
+    doubles) that divides ``m`` and for which every operand, given as
     ``(row stride, column stride, data_ptr)`` of its logical ``(rows, m)``
     view, has unit column stride, rows starting on a multiple of it and a
-    start aligned to as many floats."""
+    start aligned to as many elements."""
     for v in (4, 2):
-        if m % v == 0 and all(sj == 1 and si % v == 0 and ptr % (4 * v) == 0
-                              for si, sj, ptr in operands):
+        if v * item <= 16 and m % v == 0 and all(
+                sj == 1 and si % v == 0 and ptr % (item * v) == 0
+                for si, sj, ptr in operands):
             return v
     return 1
 
 
+def row_fast(m: int, ys_i: int, ys_j: int) -> bool:
+    """Whether a thread of the SpMM kernels walks one row's column groups:
+    where y's rows are adjacent and its columns are not (a transposed
+    layout), so that neighbouring threads store neighbouring elements."""
+    return ys_i == 1 and ys_j != 1 and m > 1
+
+
 @dataclass(frozen=True)
 class DiaPlan:
-    vec: int          # floats a thread reads from a window and writes to y
-    col_tile: int     # columns of x a block holds (grid y: m / col_tile)
-    flat: bool        # the window is one range of x: 16-byte copies
+    vec: int          # elements a thread reads from a window and writes to y
+    col_tile: int     # columns of x a block holds (m / col_tile tiles)
+    flat: bool        # f32: the window is one range of x, 16-byte copies
+    rows16: bool = False    # f64: each window row's segment starts on 16
+                            # bytes, 16-byte copies
+    row_fast: bool = False  # y's rows are adjacent: a thread's items are one
+                            # row's column groups
 
 
 @functools.lru_cache(maxsize=None)
 def dia_plan(m: int, xs_i: int, xs_j: int, x_ptr16: int, ys_i: int,
-             ys_j: int, y_ptr16: int) -> DiaPlan:
-    """Launch plan of kernel 2 for the logical ``(n, m)`` views of ``x`` and
-    ``y`` given by their strides and their ``data_ptr() % 16``.  The
+             ys_j: int, y_ptr16: int, item: int = 4) -> DiaPlan:
+    """Launch plan of kernel 2 (``item`` 4, f32) or kernel 1 (``item`` 8,
+    f64) for the logical ``(n, m)`` views of ``x`` and ``y`` given by their
+    strides and their ``data_ptr() % 16``.  ``vec`` follows the stores to
+    ``y`` (:func:`vec_width`); a column tile holds at most ``DIA_ITEMS``
+    groups of ``vec`` columns and is all of ``m`` where it can be.  The f32
     window copy is flat where x's rows are contiguous and adjacent and x
-    starts on 16 bytes; ``vec`` follows the stores to ``y``
-    (:func:`vec_width`); a column tile holds at most ``DIA_ITEMS`` groups of
-    ``vec`` columns and is all of ``m`` where it can be."""
-    vec = vec_width(m, (ys_i, ys_j, y_ptr16))
+    starts on 16 bytes; the f64 one copies 16-byte pieces of each row where
+    every tile's row segment starts on 16 bytes (unit column stride, an even
+    row stride, x on 16 bytes and tiles of an even width or one tile).
+    ``row_fast`` (kernel 1 only): see :func:`row_fast`."""
+    vec = vec_width(m, (ys_i, ys_j, y_ptr16), item=item)
     col_tile = min(m, DIA_ITEMS * vec)
-    flat = col_tile == m and (xs_j == 1 or m == 1) and xs_i == m \
-        and x_ptr16 == 0
-    return DiaPlan(vec, col_tile, flat)
+    unit = xs_j == 1 or m == 1
+    fast = row_fast(m, ys_i, ys_j)
+    if item == 4:
+        # kernel 2 keeps its column-group-fastest items (csrc/dia_spmm.cu)
+        flat = col_tile == m and unit and xs_i == m and x_ptr16 == 0
+        return DiaPlan(vec, col_tile, flat)
+    rows16 = unit and xs_i % 2 == 0 and x_ptr16 == 0 and \
+        (col_tile % 2 == 0 or col_tile == m)
+    return DiaPlan(vec, col_tile, False, rows16, fast)
 
 
 def dia_spmm_reference(values: torch.Tensor, offsets: torch.Tensor,
@@ -158,23 +182,20 @@ def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
     else:
         xs_i, xs_j = x.stride(0), x.stride(1)
         ys_i, ys_j = y.stride(0), y.stride(1)
-    lib = _build.lib()
+    item = x.element_size()
+    plan = dia_plan(m, xs_i, xs_j, x.data_ptr() % 16, ys_i, ys_j,
+                    y.data_ptr() % 16, item)
+    # the value rows in 16-byte pieces: n a multiple of 16 bytes' worth
+    vec16 = n % (16 // item) == 0 and values.data_ptr() % 16 == 0
+    entry, counter = ("gcge_dia_spmm_f64", "dia_f64") if item == 8 else \
+        ("gcge_dia_spmm_f32", "dia_f32")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.float64:
-            entry, counter = "gcge_dia_spmm_f64", "dia_f64"
-            err = lib.gcge_dia_spmm_f64(
-                values.data_ptr(), offsets.data_ptr(), ndiag, n, m,
-                x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, stream)
-        else:
-            entry, counter = "gcge_dia_spmm_f32", "dia_f32"
-            plan = dia_plan(m, xs_i, xs_j, x.data_ptr() % 16, ys_i, ys_j,
-                            y.data_ptr() % 16)
-            err = lib.gcge_dia_spmm_f32(
-                values.data_ptr(), offsets.data_ptr(), ndiag, n, m,
-                x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, plan.vec,
-                plan.col_tile, int(plan.flat),
-                int(n % 4 == 0 and values.data_ptr() % 16 == 0), stream)
+        err = getattr(_build.lib(), entry)(
+            values.data_ptr(), offsets.data_ptr(), ndiag, n, m, x.data_ptr(),
+            xs_i, xs_j, y.data_ptr(), ys_i, ys_j, plan.vec, plan.col_tile,
+            int(plan.flat or plan.rows16), int(vec16), int(plan.row_fast),
+            stream)
     _build.check(entry, err)
     LAUNCHES[counter] += 1
     return y

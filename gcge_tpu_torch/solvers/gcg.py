@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from gcge_tpu_torch.ops import onehot, spmm
-from gcge_tpu_torch.ops.eighs import eigh
+from gcge_tpu_torch.ops.eighs import check_backend, eigh
 from gcge_tpu_torch.ops.multivec import col_dots, set_random
 from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import (DiagOperator, DiaOperator,
@@ -86,18 +86,37 @@ class GCGParams:
     # split evenly over the cg_refine stages.
     cg_mixed: bool = False
     cg_refine: int = 2
+    # a user inner solver and a preconditioner of the block CG: not ported
+    # yet, anything but None raises
+    linear_solver: Any = None
+    linear_precond: Any = None
     check_max: int = 0                # residual window; 0 -> 2*block_size
     orth_zero_tol: float = 1e-13
     orth_passes: int = 2
     orth_method: str = "evp"
+    # precision of the W block's projection and of the Rayleigh-Ritz tall
+    # products: 'auto' and 'f64' both mean f64 off the TPU ('osgemm' and
+    # 'mixed' are the TPU's emulated-f64 GEMMs and raise)
+    orth_proj_precision: str = "auto"
+    rr_gemm_precision: str = "auto"
     verbose: int = 1
     dtype: Any = torch.float64
     # > 0: chunks of up to this many iterations without a host read of
     # solver state (the fused loop); 0: the phased loop
     fuse: int = 0
+    # 'auto', 'on', 'off': accepted and ignored (the hot swap works around
+    # the TPU's compile time)
+    fuse_hotswap: str = "auto"
     # not ported yet; setting them raises
     checkpoint_path: Any = None
+    checkpoint_every: int = 0
     profile_dir: Any = None
+    # backend of the projected eigensolve (ops.eighs.eigh): 'auto' or
+    # 'device'; the TPU's backends raise
+    rr_backend: str = "auto"
+    # 'auto' and 'off': a cold eigh in every Rayleigh-Ritz step, as
+    # gcge_tpu off its TPU newton path; 'struct' raises
+    rr_warm: str = "auto"
 
     def resolved(self, n: int) -> "GCGParams":
         """Fill auto defaults as the reference test program does: bs = nev/5,
@@ -138,14 +157,14 @@ def _matvec(op, x):
     return x if op is None else op.matvec(x)
 
 
-def _initial_rr(a_op, v, size_x: int, bs: int):
+def _initial_rr(a_op, v, size_x: int, bs: int, rr_backend: str = "auto"):
     """First Rayleigh-Ritz on V = [X]: H = X^T A X, eigh, Ritz vectors
     written into the X slots of ``v``."""
     m = size_x + 2 * bs
     x = v[:, :size_x]
     h_xx = tall_gram(x, a_op.matvec(x))
     h_xx = 0.5 * (h_xx + h_xx.T)
-    w, c = eigh(h_xx)
+    w, c = eigh(h_xx, rr_backend)
     ss_eval = torch.cat([w, w[-1:].expand(m - size_x)])
     ss_evec = torch.eye(m, dtype=v.dtype, device=v.device)
     ss_evec[:size_x, :size_x] = c
@@ -387,7 +406,7 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
 
 
 def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
-                   bs: int):
+                   bs: int, rr_backend: str = "auto"):
     """Assemble the projected matrix and solve the small eigenproblem:
     X block diag(lambda), X-P block 0, P block from the recurrence, the W
     coupling ``V^T A W`` the only large A-application; invalid slots padded
@@ -413,7 +432,7 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     fvalid = valid.to(dt)
     h = h * fvalid[None, :] * fvalid[:, None]
     gersh = h.abs().sum(dim=1).max() + 1.0
-    w, c = eigh(h + torch.diag((1.0 - fvalid) * gersh))
+    w, c = eigh(h + torch.diag((1.0 - fvalid) * gersh), rr_backend)
     act_tot = size_x + p_cnt + w_cnt
     # a gather, not ``w[act_tot - 1]``: indexing by a 0-d tensor reads it
     # back to the host
@@ -636,7 +655,8 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
         bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order, p.cg_mixed,
         p.cg_refine, p.orth_method, stage=stage, fixed=True)
     ss_eval, ss_evec, h, ritz = _rayleigh_ritz(a_op, v, h_pp, st.ss_eval,
-                                               p_cnt, w_cnt, size_x, bs)
+                                               p_cnt, w_cnt, size_x, bs,
+                                               p.rr_backend)
 
     def keep(new, old):
         return torch.where(go, new, old)
@@ -778,15 +798,36 @@ def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
 
 
 def _not_ported(params: GCGParams, mesh) -> None:
+    """Raise for what the port does not run: a value not ported yet names
+    its ROADMAP item; a value that exists for the TPU only says so."""
     if mesh is not None:
         raise NotImplementedError("mesh (distribution) is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
-    if params.checkpoint_path:
-        raise NotImplementedError("checkpoint_path is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
-    if params.profile_dir:
-        raise NotImplementedError("profile_dir is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
+    for name in ("linear_solver", "linear_precond"):
+        if getattr(params, name) is not None:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
+                                      f"Queue 1 item 4)")
+    for name in ("checkpoint_path", "profile_dir", "checkpoint_every"):
+        if getattr(params, name):
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
+                                      f"Queue 1 item 11)")
+    if params.rr_warm == "struct":
+        raise NotImplementedError("rr_warm='struct' (the structural warm "
+                                  "start of the spectrum-sliced eigh) is not "
+                                  "ported yet (ROADMAP Queue 1 item 12)")
+    if params.rr_warm not in ("auto", "off"):
+        raise ValueError(f"unknown rr_warm {params.rr_warm!r}")
+    check_backend(params.rr_backend)
+    if params.fuse_hotswap not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fuse_hotswap {params.fuse_hotswap!r}")
+    for name in ("orth_proj_precision", "rr_gemm_precision"):
+        value = getattr(params, name)
+        if value in ("osgemm", "mixed"):
+            raise ValueError(f"{name}={value!r}: the Ozaki GEMMs exist only "
+                             f"for the TPU's emulated f64; use 'auto' or "
+                             f"'f64'")
+        if value not in ("auto", "f64"):
+            raise ValueError(f"unknown {name} {value!r}")
 
 
 def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
@@ -853,7 +894,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
     v = torch.zeros((n, m), dtype=dtype, device=device)
     v[:, :size_x] = x
     ss_eval, ss_evec, h, ritz, v = timed("compRR", _initial_rr, a_op, v,
-                                         size_x, bs)
+                                         size_x, bs, p.rr_backend)
 
     nev_target = nev0 if size_x >= p.nev_max else min(2 * bs, nev0)
     if p.verbose:
@@ -970,7 +1011,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         # ---- RayleighRitz + RitzVec ---------------------------------------
         ss_eval, ss_evec, h, ritz = timed(
             "compRR", _rayleigh_ritz, a_op, v, h_pp, ss_eval, p_cnt, w_cnt,
-            size_x, bs)
+            size_x, bs, p.rr_backend)
 
         p_cnt_h, w_cnt_h = int(p_cnt), int(w_cnt)
         if p.verbose >= 2:

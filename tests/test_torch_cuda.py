@@ -116,6 +116,93 @@ def test_dia_f32_kernel_runs_and_edges(cuda, layout):
     assert float((got - ref).abs().max()) <= 1e-6 * float(scale)
 
 
+def _solve_operand(kind, n, m, device, seed):
+    """An f64 column view of the kind a solve hands kernels 1 and 6:
+    ``even``, ``V[:, o:o + m]`` of an (n, 120) basis at the even offset
+    ``o = 120 - m`` rounded down to even (the W coupling ``V[:, 110:120]``,
+    the initial Rayleigh-Ritz ``V[:, :100]`` at m = 100 from another even
+    offset), rows 16-byte aligned; ``odd``, ``ritz[:, 41:41 + m]`` of a
+    Ritz block at least 100 wide (the residual window), rows 8-byte aligned
+    only."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "even":
+        base = torch.randn((n, 120), generator=g, dtype=torch.float64,
+                           device=device)
+        off = (120 - m) // 2 * 2
+    else:
+        base = torch.randn((n, max(100, 41 + m)), generator=g,
+                           dtype=torch.float64, device=device)
+        off = 41
+    x = base[:, off:off + m]
+    assert x.data_ptr() % 16 == (0 if kind == "even" else 8)
+    return x
+
+
+def _check_f64_spmm(apply, plain, plain_abs, x, transposed, key, counters,
+                    dense=None):
+    """Two launches with equal bits, the product in the memory order of x,
+    within 1e-14 of max |A||x| of the plain version (and of scipy's product
+    where ``dense`` gives A on the host)."""
+    before = counters[key]
+    got, again = apply(x, transposed), apply(x, transposed)
+    assert counters[key] == before + 2
+    assert got.shape == x.shape and torch.equal(got, again)
+    assert _follows(got, x)
+    scale = float(plain_abs(x.abs(), transposed).max())
+    assert float((got - plain(x, transposed)).abs().max()) <= 1e-14 * scale
+    if dense is not None:
+        xn = (x.T if transposed else x).cpu().numpy()
+        y = (got.T if transposed else got).cpu().numpy()
+        assert np.abs(y - dense @ xn).max() <= 1e-14 * scale
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 10, 16, 100])
+@pytest.mark.parametrize("kind", ["even", "odd", "nm", "mn", "mn view"])
+def test_dia_f64_kernel_at_the_solve_operands(cuda, m, kind):
+    """Kernel 1 on the operands a solve hands it (column views of V at an
+    even and an odd offset) and the other layouts, at m in {1, 10, 16,
+    100}, on the 27-point Laplacian at nx = 12 (n = 1,728: thirteen full
+    blocks of 128 rows and a part-full last one)."""
+    rows, cols, vals, n = _laplacian_27(12)
+    op = make_operator(rows, cols, vals, (n, n), device=cuda)
+    if kind in ("even", "odd"):
+        x, transposed = _solve_operand(kind, n, m, cuda, m), False
+    else:
+        x, transposed = _operand(kind, n, m, torch.float64, cuda, m)
+    dense = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    _check_f64_spmm(
+        lambda z, t: spmm.dia_spmm(op.values, op.offsets_t, z, t),
+        lambda z, t: spmm.dia_spmm_reference(op.values, op.offsets_t, z, t),
+        lambda z, t: spmm.dia_spmm_reference(op.values.abs(), op.offsets_t,
+                                             z, t),
+        x, transposed, "dia_f64", spmm.LAUNCHES, dense)
+
+
+@pytest.mark.parametrize("m", [1, 10, 100])
+@pytest.mark.parametrize("kind", ["even", "odd"] + _LAYOUTS)
+def test_dia_f64_kernel_runs_and_edges(cuda, m, kind):
+    """Kernel 1 with offsets in no order: a run of 20 consecutive offsets
+    (longer than one staged window serves), lone offsets, offsets past
+    either end of the matrix, and an odd n that leaves the last block
+    part-full and the value rows off 16 bytes; against the plain version."""
+    n = 1001
+    offsets = list(range(-10, 10)) + [400, -3, n + 5, -(n + 2), 999, -1000]
+    rng = np.random.default_rng(8)
+    values = torch.as_tensor(rng.standard_normal((len(offsets), n)),
+                             device=cuda)
+    offs = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    if kind in ("even", "odd"):
+        x, transposed = _solve_operand(kind, n, m, cuda, 1), False
+    else:
+        x, transposed = _operand(kind, n, m, torch.float64, cuda, 1)
+    _check_f64_spmm(
+        lambda z, t: spmm.dia_spmm(values, offs, z, t),
+        lambda z, t: spmm.dia_spmm_reference(values, offs, z, t),
+        lambda z, t: spmm.dia_spmm_reference(values.abs(), offs, z, t),
+        x, transposed, "dia_f64", spmm.LAUNCHES)
+
+
 @pytest.mark.parametrize("n,p,q", [(157, 7, 3), (5000, 120, 10),
                                    (4099, 100, 100), (300, 33, 65)])
 def test_tall_gemm_kernels_match_plain(cuda, n, p, q):
@@ -332,6 +419,57 @@ def test_csr_f32_kernel_on_unaligned_arrays(cuda):
     scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(), x.abs(),
                                       True).max()
     assert float((got - ref).abs().max()) <= 1e-5 * float(scale)
+
+
+@pytest.mark.parametrize("m", [1, 10, 40])
+@pytest.mark.parametrize("kind", ["even", "odd", "nm", "mn", "mn view"])
+@pytest.mark.parametrize("rows", ["short", "long"])
+def test_csr_f64_kernel_at_the_solve_operands(cuda, m, kind, rows):
+    """Kernel 6 on the operands a solve hands it (column views of V at an
+    even and an odd offset) and the other layouts, at m in {1, 10, 40}, on
+    n = 1031 rows with empty first and last rows, a one-entry row and
+    (``long``) rows past the tile budget; in the operator's own plan."""
+    n = 1031
+    long_rows = [] if rows == "short" else \
+        [(7, 3 * onehot.CSR_BUDGET + 5), (1000, onehot.CSR_BUDGET + 1)]
+    a, (rowptr, colidx, values) = _irregular_csr(n, m, long_rows)
+    op = onehot.CsrOperator(*(torch.as_tensor(t, device=cuda)
+                              for t in (rowptr, colidx, values)), n)
+    if kind in ("even", "odd"):
+        x, transposed = _solve_operand(kind, n, m, cuda, 3), False
+    else:
+        x, transposed = _operand(kind, n, m, torch.float64, cuda, 3)
+    got = _check_f64_spmm(
+        lambda z, t: op.matvec_t(z) if t else op.matvec(z),
+        lambda z, t: onehot.csr_spmm_reference(op.rowptr, op.colidx,
+                                               op.values, z, t),
+        lambda z, t: onehot.csr_spmm_reference(op.rowptr, op.colidx,
+                                               op.values.abs(), z, t),
+        x, transposed, "csr_f64", onehot.LAUNCHES, a)
+    y = got.T if transposed else got
+    assert not y[0].any() and not y[n - 1].any()             # empty rows
+
+
+def test_csr_f64_kernel_on_unaligned_arrays_and_needs_a_plan(cuda):
+    """Kernel 6 takes colidx and values that do not start on 16 bytes
+    (4- and 8-byte copies), and refuses to run without its row tiles."""
+    n = 700
+    _, (rowptr, colidx, values) = _irregular_csr(n, 4)
+    rowptr = torch.as_tensor(rowptr, device=cuda)
+    colidx = torch.as_tensor(np.concatenate([colidx[:1], colidx]),
+                             device=cuda)[1:]
+    values = torch.as_tensor(np.concatenate([values[:1], values]),
+                             device=cuda)[1:]
+    assert colidx.data_ptr() % 16 and values.data_ptr() % 16
+    x = _solve_operand("even", n, 10, cuda, 2)
+    with pytest.raises(ValueError, match="row tiles"):
+        onehot.csr_spmm(rowptr, colidx, values, x)
+    got = onehot.csr_spmm(rowptr, colidx, values, x, False,
+                          onehot.csr_plan(rowptr))
+    ref = onehot.csr_spmm_reference(rowptr, colidx, values, x)
+    scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(),
+                                      x.abs()).max()
+    assert float((got - ref).abs().max()) <= 1e-14 * float(scale)
 
 
 def test_csr_kernel_raises_on_what_it_does_not_take(cuda):

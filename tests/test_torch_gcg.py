@@ -228,3 +228,76 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_params_take_every_field_of_gcge_tpu():
+    """Every field of ``gcge_tpu.GCGParams`` exists in the port's, with the
+    same default (``dtype`` apart: a torch dtype against a jnp one)."""
+    import dataclasses
+
+    ours = {f.name: f.default for f in dataclasses.fields(GCGParams)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JParams)}
+    assert set(theirs) <= set(ours), set(theirs) - set(ours)
+    for name, default in theirs.items():
+        if name != "dtype":
+            assert ours[name] == default, name
+
+
+def _laplacian_solve(**kw):
+    n = 60
+    a = sps.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                  [-1, 0, 1], format="csr")
+    op = make_operator(*(lambda c: (c.row, c.col, c.data))(a.tocoo()),
+                       (n, n), device="cpu")
+    return gcg_solve(op, None, GCGParams(nev=3, block_size=3, max_iter=60,
+                                         verbose=0, **kw))
+
+
+# field: (values that run, (value, exception, message) that raise); the
+# values that run change nothing: gcge_tpu gives them this meaning off the TPU
+_FIELDS = {
+    "linear_solver": ([None], [(lambda *a: a[1], NotImplementedError,
+                                "item 4")]),
+    "linear_precond": ([None], [(lambda r: r, NotImplementedError,
+                                 "item 4")]),
+    "checkpoint_every": ([0], [(5, NotImplementedError, "item 11")]),
+    "rr_warm": (["auto", "off"], [("struct", NotImplementedError, "item 12"),
+                                  ("warm", ValueError, "rr_warm")]),
+    "rr_backend": (["auto", "device"],
+                   [("jacobi", NotImplementedError, "TPU"),
+                    ("newton", NotImplementedError, "TPU"),
+                    ("host", NotImplementedError, "TPU"),
+                    ("lapack", ValueError, "unknown")]),
+    "fuse_hotswap": (["auto", "on", "off"], [("yes", ValueError,
+                                              "fuse_hotswap")]),
+    "orth_proj_precision": (["auto", "f64"],
+                            [("osgemm", ValueError, "Ozaki"),
+                             ("mixed", ValueError, "Ozaki"),
+                             ("f32", ValueError, "unknown")]),
+    "rr_gemm_precision": (["auto", "f64"],
+                          [("osgemm", ValueError, "Ozaki"),
+                           ("bf16", ValueError, "unknown")]),
+}
+
+
+@pytest.mark.parametrize("name", list(_FIELDS))
+def test_params_field_runs_or_raises(name):
+    """Each of the eight fields the port took from ``gcge_tpu.GCGParams``:
+    the accepted values construct and solve a small problem with the
+    default's bits, on both loops; the others raise, a value not ported
+    naming its ROADMAP item, before the solve starts."""
+    runs, raises = _FIELDS[name]
+    base = _laplacian_solve()
+    assert base.nev_conv >= 3
+    for value in runs:
+        for fuse in (0, 2):
+            got = _laplacian_solve(**{name: value}, fuse=fuse)
+            ref = base if fuse == 0 else _laplacian_solve(fuse=fuse)
+            assert got.nev_conv == ref.nev_conv
+            np.testing.assert_array_equal(got.eval, ref.eval)
+    for value, exc, match in raises:
+        with pytest.raises(exc, match=match):
+            _laplacian_solve(**{name: value})
+        with pytest.raises(exc, match=match):
+            gcge_tpu_torch.solve(sps.identity(40, format="csr"), nev=2,
+                                 device="cpu", verbose=0, **{name: value})

@@ -179,3 +179,48 @@ def test_solve_rcm_matches_jax(delaunay):
         gcge_tpu_torch.api._as_operator(
             CsrOperator.from_scipy(a, device="cpu"), torch.float64, "cpu",
             perm=np.arange(n))
+
+
+@pytest.mark.slow
+def test_irregular_iterations_match_jax_at_middle_size():
+    """The irregular cell's solve (nev=50, block 10, inner CG budget 60 in
+    three mixed stages, auto shift, phased loop) on the P1 stiffness matrix
+    of a 30^3-point Delaunay mesh (seed 1, n = 24,389) after RCM, as
+    ``benchmarks/irregular.py`` orders it, in both packages in f64 on the
+    CPU from the same starting block: gcge_tpu on the operator its
+    ``make_operator`` picks off the TPU (gather-ELL), the port on
+    ``CsrOperator``.  The same converged count, iterations within 2,
+    eigenvalues within 1e-10.  It prints both counts.  About two minutes;
+    ``-m 'not slow'`` deselects it."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from gcge_tpu.io.fem import assemble_p1 as j_assemble_p1
+    from gcge_tpu.io.fem import random_delaunay_mesh as j_delaunay
+    from gcge_tpu.ops.operators import make_operator as j_make_operator
+    from gcge_tpu_torch import make_operator
+
+    def rcm_matrix(mesh, assemble):
+        rows, cols, av, _, n = assemble(*mesh(30 ** 3, seed=1))
+        a = sps.coo_matrix((av, (rows, cols)), shape=(n, n)).tocsr()
+        perm = reverse_cuthill_mckee(a, symmetric_mode=True)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n)
+        return inv[rows], inv[cols], av, n
+
+    kw = dict(nev=50, block_size=10, max_iter=300, cg_max_iter=60,
+              cg_refine=3, cg_mixed=True, cg_auto_shift=True, fuse=0,
+              verbose=0)
+    rows, cols, vals, n = rcm_matrix(j_delaunay, j_assemble_p1)
+    x0 = np.random.default_rng(0).uniform(-1, 1, (n, 100))
+    jr = j_gcg_solve(j_make_operator(rows, cols, vals, (n, n)), None,
+                     JParams(**kw), x0=jnp.asarray(x0))
+    t_rows, t_cols, t_vals, _ = rcm_matrix(random_delaunay_mesh, assemble_p1)
+    np.testing.assert_array_equal(t_rows, rows)
+    np.testing.assert_array_equal(t_cols, cols)
+    top = make_operator(t_rows, t_cols, t_vals, (n, n), device="cpu")
+    assert isinstance(top, CsrOperator)
+    tr = gcg_solve(top, None, GCGParams(**kw), x0=x0)
+    print(f"irregular n={n}: gcge_tpu {jr.num_iter} iterations, "
+          f"{jr.nev_conv} converged; gcge_tpu_torch {tr.num_iter} "
+          f"iterations, {tr.nev_conv} converged")
+    _assert_parity(tr, jr, 50)

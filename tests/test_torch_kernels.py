@@ -412,3 +412,76 @@ def test_dia_plan_column_tiles_cover_m(m):
 def test_vec_width(operands, want):
     m = 12 if operands[0][0] == 12 else 10
     assert spmm.vec_width(m, *operands) == want
+
+
+# ---- launch plans of kernels 1 and 6 (f64): the same rules by element size --
+
+
+# (m, column offset of an (n, 120) basis view): even offsets start rows on 16
+# bytes in both types, odd ones on 8 (f64) or 4 (f32) bytes only
+_VIEWS = [(1, 110), (1, 41), (10, 110), (10, 41), (16, 104), (16, 41),
+          (100, 0), (100, 19)]
+
+
+@pytest.mark.parametrize("m,off", _VIEWS)
+@pytest.mark.parametrize("item", [4, 8])
+def test_vec_width_by_element_size(m, off, item):
+    """A thread moves at most 16 bytes: f64 groups of 2 where the view's
+    rows start on 16 bytes and m is even, else 1; f32 groups of 4 or 2 by
+    the same rule; the fresh contiguous product never narrows them."""
+    x = (120, 1, off * item)
+    y = (m, 1, 0)
+    want = {8: 2 if m % 2 == 0 and off % 2 == 0 else 1,
+            4: 4 if m % 4 == 0 and off % 4 == 0 else
+            2 if m % 2 == 0 and off % 2 == 0 else 1}[item]
+    assert spmm.vec_width(m, x, y, item=item) == want
+    if item == 4:                # the default is the f32 rule, unchanged
+        assert spmm.vec_width(m, x, y) == want
+
+
+@pytest.mark.parametrize("m,off", _VIEWS)
+def test_dia_plan_f64_at_the_solve_operands(m, off):
+    """Kernel 1's plan on a column view of V: 16-byte row copies where the
+    offset is even (every row segment on 16 bytes), 8-byte copies where it
+    is odd; vec follows the contiguous product; f32's plan at the same view
+    keeps the f32 rule (never flat: the rows are not adjacent)."""
+    args = (m, 120, 1, off * 8 % 16, m, 1, 0)
+    plan = spmm.dia_plan(*args, item=8)
+    vec = 2 if m % 2 == 0 else 1
+    assert (plan.vec, plan.col_tile) == (vec, min(m, spmm.DIA_ITEMS * vec))
+    assert plan.rows16 == (off % 2 == 0)
+    assert not plan.flat and not plan.row_fast
+    plan32 = spmm.dia_plan(m, 120, 1, off * 4 % 16, m, 1, 0)
+    vec32 = spmm.vec_width(m, (m, 1, 0))
+    assert (plan32.vec, plan32.col_tile, plan32.flat, plan32.rows16) == \
+        (vec32, min(m, spmm.DIA_ITEMS * vec32), False, False)
+
+
+@pytest.mark.parametrize("item", [4, 8])
+@pytest.mark.parametrize("m", [1, 10, 16, 100])
+def test_dia_plan_transposed_layouts(item, m):
+    """A contiguous (m, n) operand and its product: rows adjacent, so one
+    element a group; kernel 1's items along one row's columns (row_fast)
+    where there is more than one column, kernel 2's column groups fastest
+    always; at m = 1 the f32 window is one flat range of x, and f64
+    rows one double apart take 8-byte copies."""
+    n = 1000
+    plan = spmm.dia_plan(m, 1, n, 0, 1, n, 0, item=item)
+    assert plan.vec == 1 and plan.col_tile == min(m, spmm.DIA_ITEMS)
+    assert plan.row_fast == (m > 1 and item == 8)
+    assert not plan.rows16 and plan.flat == (m == 1 and item == 4)
+
+
+@pytest.mark.parametrize("case", list(_row_cases()))
+def test_csr_plan_serves_both_dtypes(case):
+    """One plan for kernels 5 and 6: the tiles csr_tiles gives at
+    CSR_BUDGET, whose entries fit 48 KB of shared memory at 8 bytes (f32)
+    and at 12 bytes (f64) each, and whose 16-byte copies start on 4 entries
+    (16 bytes of colidx, 16 or 32 of values)."""
+    rowptr = _rowptr(_row_cases()[case])
+    plan = onehot.csr_plan(torch.as_tensor(rowptr))
+    np.testing.assert_array_equal(plan.tiles.numpy(),
+                                  onehot.csr_tiles(rowptr, onehot.CSR_BUDGET))
+    assert plan.budget == onehot.CSR_BUDGET and plan.budget % 4 == 0
+    for item in (4, 8):
+        assert plan.budget * (4 + item) <= 48 * 1024
