@@ -11,7 +11,9 @@ Phases, each of which raises on failure:
 1. build — print the card's name and power limit, build the CUDA kernels from
    ``gcge_tpu_torch/ops/csrc`` and print the build time; check one 16 x 8 x 8
    tile of the f64 mma that kernels 3 and 4 use against ``a @ c`` (the
-   fragment layout);
+   fragment layout), and one 64 x 112 x 64 product through kernel 9's bf16
+   wgmma against ``a.float() @ b.float().T`` (its operand and accumulator
+   layouts);
 2. kernels 1-4 — run each wrapper on the card at the shapes of the headline
    solve, hold it against its plain PyTorch version on the same inputs
    (stated tolerance), and time it (CUDA events, median of 20, each after
@@ -58,8 +60,10 @@ Phases, each of which raises on failure:
    operator, plain gather route).
 8. kernels 8 and 9 — the FMA probe (Dekker block bit for bit, block 0 equal
    to the exact error or to zero) and the four modes of the sliced-Gram
-   isolation kernel (stated tolerance, equal bits across two launches)
-   against their plain versions, timed like the others; then the two
+   isolation kernel (stated tolerance, equal bits across two launches,
+   ``full`` also in runs of one chunk, bit for bit) against their plain
+   versions, timed like the others (kernel 9's ``dot`` and ``full`` beside
+   ``torch.mm`` of the bf16 stacks with f32 output); then the two
    measurement scripts ``gcge_tpu_torch.benchmarks.df64_push`` and
    ``.pallas_isolate`` through their ``main``, the path that launches these
    kernels;
@@ -355,8 +359,10 @@ def phase_build():
 
 def phase_fragment_check(torch):
     """One 16 x 8 x 8 tile through the f64 mma of kernels 3 and 4, its
-    fragments read straight from device memory, against ``a @ c``: the
-    fragment layout both kernels rely on, checked before either runs."""
+    fragments read straight from device memory, against ``a @ c``; one
+    64 x 112 x 64 product through kernel 9's stack layout, descriptors and
+    bf16 wgmma against ``a.float() @ b.float().T``: the layouts the kernels
+    rely on, checked before any runs."""
     from gcge_tpu_torch.ops import osgemm
 
     gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -370,6 +376,21 @@ def phase_fragment_check(torch):
           f"max |a| |c| (tol 1e-14)")
     if not err <= 1e-14:
         raise AssertionError("the f64 mma fragment layout is wrong")
+    # kernel 9's bf16 wgmma: products of bf16 values are exact in f32, 64 of
+    # them summed by the tensor cores to within a few units in the last
+    # place of the largest partial sum
+    from gcge_tpu_torch.ops import probes
+
+    a = torch.randn((64, 64), generator=gen, device=DEVICE).bfloat16()
+    b = torch.randn((112, 64), generator=gen, device=DEVICE).bfloat16()
+    ref = a.float() @ b.float().T
+    err = float((probes.bf16_mma_tile_check(a, b) - ref).abs().max()
+                / (a.float().abs() @ b.float().abs().T).max())
+    print(f"bf16 wgmma tile check (64 x 112 x 64, kernel 9's layout): max "
+          f"error {err:.3e} of max |a| |b| (tol 1e-6)")
+    if not err <= 1e-6:
+        raise AssertionError("the bf16 wgmma operand or accumulator layout "
+                             "is wrong")
 
 
 def tall_cost(n: int, p: int, q: int):
@@ -941,7 +962,7 @@ def phase_kernels_probes(torch, log):
     """Kernels 8 and 9 against their plain versions at the shapes of their
     measurement scripts."""
     from gcge_tpu_torch.benchmarks.pallas_isolate import make_planes
-    from gcge_tpu_torch.ops import probes
+    from gcge_tpu_torch.ops import _build, probes
 
     rng = np.random.default_rng(0)
     rows, cols = probes.PROBE_SHAPE
@@ -969,15 +990,21 @@ def phase_kernels_probes(torch, log):
     # kernel 9 at P = 128, Q = 16, n = 157,464 in chunks of 1024.  The bound
     # takes the peel's f32 operations at the f32 rate and the slab product
     # (bf16 values, f32 sums) at the bf16 tensor-core rate, the card's peak
-    # for that type; the kernel multiplies with f32 FMAs on the CUDA cores,
-    # and the time those alone need at their peak is printed beside it.
-    # Tolerance 1e-5 of the largest entry of the plain slab: both sum exact products of
-    # bf16 values in f32, the kernel a chunk's 1024 in another order than the
-    # plain matrix product (`dot`, `none`); with 7-bit slices (`full`) the
-    # chunk sums are exact and equal bits are expected, which the line says.
+    # for that type.  Tolerance 1e-5 of the largest entry of the plain slab:
+    # both sum exact products of bf16 values in f32, the kernel a chunk's
+    # 1024 in another order than the plain matrix product (`dot`, `none`).
+    # With 7-bit slices (`full`) the chunk sums are exact, so `full` must
+    # give the bits of the plain version summed in the kernel's runs: most
+    # of the slab's blocks lie far below 1e-5 of its largest entry, and only
+    # equal bits hold them.  The line also says whether the bits equal the
+    # plain version's in the TPU kernel's order of chunk adds.  The library
+    # call is one torch.mm of the bf16 stacks with f32 output, built once
+    # outside the timing: the product only, without the peel.
     p_rows, q_rows, nr = 128, 16, 1024
     planes = make_planes(p_rows, q_rows, NX ** 3, nr, DEVICE)
     n_pad = planes[0].shape[1]
+    run = probes.slice_gram_plan(p_rows, q_rows, n_pad, nr,
+                                 _build.sm_count(planes[0].device)).run
     nbytes = 8 * (p_rows + q_rows) * n_pad + 4 * 49 * p_rows * q_rows
     peel_flops = 27.0 * (p_rows + q_rows) * n_pad
     dot_flops = 2.0 * 49 * p_rows * q_rows * n_pad
@@ -987,27 +1014,41 @@ def phase_kernels_probes(torch, log):
         ref = probes.slice_gram_plain(*planes, mode=mode, nr=nr)
         if not torch.equal(first, again):
             raise AssertionError(f"slice_gram {mode}: two launches differ")
+        in_runs = torch.equal(first, probes.slice_gram_plain(
+            *planes, mode=mode, nr=nr, run=run))
         print(f"kernel slice_gram {mode}: two launches equal bits; bits "
-              f"equal to the plain version: {torch.equal(first, ref)}")
+              f"equal to the plain version: {torch.equal(first, ref)} in the "
+              f"TPU kernel's order of chunk adds, {in_runs} in the kernel's "
+              f"runs of {run} chunks")
+        if mode == "full" and not in_runs:
+            raise AssertionError(f"slice_gram full: bits differ from the "
+                                 f"plain version summed in runs of {run} "
+                                 "chunks")
         flops = [(peel_flops if mode in ("peel", "full") else 0.0,
                   PEAK_FLOP_S),
                  (dot_flops if mode in ("dot", "full") else 0.0,
                   PEAK_BF16_FLOP_S)]
+        library = None
+        if mode in ("dot", "full"):
+            sa, sb = probes.stacks(*planes, mode=mode)
+
+            def library():
+                return torch.mm(sa, sb.T, out_dtype=torch.float32)
+
         log.run("slice_gram", f"slice_gram {mode} P={p_rows} Q={q_rows} "
-                f"n_pad={n_pad}",
+                f"n_pad={n_pad} (runs of {run} chunks)",
                 lambda: probes.slice_gram(*planes, mode=mode, nr=nr),
                 lambda: probes.slice_gram_plain(*planes, mode=mode, nr=nr),
                 ref.abs().max().clamp(min=1.0), 1e-5, nbytes, flops,
-                primary=(mode == "full"))
+                library=library, primary=(mode == "full"))
         entry = log.last
         if mode in ("dot", "full"):
             print(f"kernel slice_gram {mode}: the slab's {dot_flops:.4g} "
                   f"operations take {1e3 * dot_flops / PEAK_BF16_FLOP_S:.4f} "
-                  f"ms at the bf16 tensor-core rate (in the bound) and "
-                  f"{1e3 * dot_flops / PEAK_FLOP_S:.4f} ms at the f32 rate of "
-                  f"the CUDA cores, which this kernel's FMAs run at: "
-                  f"{entry['ms']:.4f} ms is {entry['ms'] / entry['bound_ms']:.1f}"
-                  f" times the bound")
+                  f"ms at the bf16 tensor-core rate; {entry['ms']:.4f} ms is "
+                  f"{entry['ms'] / entry['bound_ms']:.2f} times the bound; "
+                  f"the library call (torch.mm of the stacks, f32 out) is "
+                  f"the product only, without the peel")
         if mode in ("none", "peel") and entry["ms"] < entry["bound_ms"]:
             raise AssertionError(
                 f"slice_gram {mode}: {entry['ms']:.4f} ms is below the "

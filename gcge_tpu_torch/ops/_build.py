@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -46,7 +48,9 @@ SIGNATURES = {
                           _I, _I, _I, _I, _P),
     "gcge_onehot_mask_probe": (_P, _P, _P),
     "gcge_fma_probe": (_P, _P, _P, _P),
-    "gcge_slice_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "gcge_slice_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P),
+    "gcge_bf16_mma_tile_check": (_P, _P, _P, _P),
 }
 
 _lib = None
@@ -130,6 +134,20 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a card, read once per device: the launch plans of kernels 3,
+    4 and 9 size their grids by it."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _SMS[idx]
 
 
 def check(name: str, err: int) -> None:

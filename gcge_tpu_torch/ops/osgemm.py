@@ -142,19 +142,6 @@ def expand_plan(n: int, k: int, q: int, sms: int) -> ExpandPlan:
     return ExpandPlan(q_tile, k_chunk, nt, grid, smem)
 
 
-_SMS: dict[int, int] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """SMs of a card, read once per device."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx) \
-            .multi_processor_count
-    return _SMS[idx]
-
-
 def _check_cuda(name: str, *ts: torch.Tensor) -> None:
     dev = ts[0].device
     if dev.type != "cuda":
@@ -182,7 +169,7 @@ def tall_gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return c
     if n == 0:
         return c.zero_()
-    plan = gram_plan(n, p, q, sm_count(a.device))
+    plan = gram_plan(n, p, q, _build.sm_count(a.device))
     part = torch.empty((plan.chunks, p, q), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -212,7 +199,7 @@ def tall_expand(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         return y
     if k == 0:
         return y.zero_()
-    plan = expand_plan(n, k, q, sm_count(a.device))
+    plan = expand_plan(n, k, q, _build.sm_count(a.device))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = _build.lib().gcge_tall_expand_f64(

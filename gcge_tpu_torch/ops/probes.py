@@ -23,8 +23,10 @@ import torch
 
 from gcge_tpu_torch.ops import _build
 
-# launches of the CUDA kernels since the last reset, by kernel
+# launches of the CUDA kernels since the last reset, by kernel; the tile
+# check of kernel 9's bf16 wgmma layouts apart, in CHECK_LAUNCHES
 LAUNCHES = {"fma_probe": 0, "slice_gram": 0}
+CHECK_LAUNCHES = {"bf16_mma_tile": 0}
 
 PROBE_SHAPE = (8, 128)
 _SPLITTER = 4097.0          # 2^12 + 1: Veltkamp split of an f32
@@ -33,6 +35,7 @@ MODES = ("none", "peel", "dot", "full")
 _ROW_TILE = 16              # rows of A per block of csrc/slice_gram.cu
 _MAX_Q = 16                 # rows of B it takes
 _COL_STEP = 64              # columns it stages per step
+_RESIDENT = 1               # blocks of it an SM holds (185 KB shared memory)
 
 
 class FmaProbe(NamedTuple):
@@ -141,7 +144,36 @@ def peel_stack(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return torch.cat(slices, dim=0)
 
 
-def _check_planes(ahi, alo, bhi, blo, mode: str, nr: int) -> None:
+class SliceGramPlan(NamedTuple):
+    """How kernel 9 splits the chunks: each block adds ``run`` consecutive
+    chunks in order, and a second pass adds the ``runs`` run sums, kept in
+    scratch of shape ``scratch``, in order."""
+
+    run: int
+    runs: int
+    scratch: tuple
+
+
+def slice_gram_plan(p: int, q: int, n_pad: int, nr: int, sms: int,
+                    run: int | None = None) -> SliceGramPlan:
+    """The launch plan of kernel 9 for A ``(p, n_pad)``, B ``(q, n_pad)``
+    and chunks of ``nr`` columns on a card of ``sms`` SMs.  ``run=None``
+    takes runs just long enough that the ``runs x p / 16`` blocks fit the
+    card in one wave of ``_RESIDENT`` blocks an SM; ``run=1`` adds every
+    chunk on its own, in the TPU kernel's order."""
+    chunks = n_pad // nr
+    if run is None:
+        wanted = max(1, _RESIDENT * sms // max(1, p // _ROW_TILE))
+        run = -(-chunks // wanted)
+    run = min(run, chunks)
+    runs = -(-chunks // run)
+    return SliceGramPlan(run, runs, (runs, SLICES * p, SLICES * q))
+
+
+def _check_planes(ahi, alo, bhi, blo, mode: str, nr: int, run=None) -> None:
+    if run is not None and (not isinstance(run, int) or run < 1):
+        raise ValueError(f"slice_gram: run {run!r} is not a positive number "
+                         "of chunks")
     if mode not in MODES:
         raise ValueError(f"slice_gram: mode {mode!r} not in {MODES}")
     for t in (ahi, alo, bhi, blo):
@@ -159,30 +191,43 @@ def _check_planes(ahi, alo, bhi, blo, mode: str, nr: int) -> None:
                          f"multiple of the chunk {nr}")
 
 
+def stacks(ahi, alo, bhi, blo, mode: str = "full"):
+    """The bf16 stacks of A and B whose product kernel 9's dot takes: peeled
+    (``peel``, ``full``), or slice 0 = ``bf16(hi)`` and zeros behind
+    (``none``, ``dot``)."""
+    def stack(hi, lo):
+        if mode in ("peel", "full"):
+            return peel_stack(hi, lo)
+        rest = torch.zeros(((SLICES - 1) * hi.shape[0], hi.shape[1]),
+                           dtype=torch.bfloat16, device=hi.device)
+        return torch.cat([hi.to(torch.bfloat16), rest], dim=0)
+
+    return stack(ahi, alo), stack(bhi, blo)
+
+
 def slice_gram_plain(ahi, alo, bhi, blo, mode: str = "full",
-                     nr: int = 1024) -> torch.Tensor:
+                     nr: int = 1024, run: int = 1) -> torch.Tensor:
     """Plain PyTorch version of kernel 9: chunk by chunk of ``nr`` columns,
-    the stacks (peeled, or slice 0 = ``bf16(hi)`` and zeros behind), their
-    product in f32, and the chunk slabs added in order into one f32 slab
-    ``(7P, 7Q)``.  Zeros without the dot."""
-    _check_planes(ahi, alo, bhi, blo, mode, nr)
+    the stacks (:func:`stacks`), their product in f32, and the chunk slabs
+    added in order into one f32 slab ``(7P, 7Q)``.  Zeros without the dot.
+    ``run > 1`` adds the kernel's way with runs of that many chunks: the
+    chunk slabs of a run in order, then the run sums in order into the
+    slab."""
+    _check_planes(ahi, alo, bhi, blo, mode, nr, run)
     p, q = ahi.shape[0], bhi.shape[0]
     acc = torch.zeros((SLICES * p, SLICES * q), dtype=torch.float32,
                       device=ahi.device)
     if mode in ("none", "peel"):
         return acc
-
-    def stack(hi, lo):
-        if mode == "full":
-            return peel_stack(hi, lo).float()
-        rest = torch.zeros(((SLICES - 1) * hi.shape[0], hi.shape[1]),
-                           dtype=torch.float32, device=hi.device)
-        return torch.cat([hi.to(torch.bfloat16).float(), rest], dim=0)
-
-    for c0 in range(0, ahi.shape[1], nr):
-        cols = slice(c0, c0 + nr)
-        acc = acc + stack(ahi[:, cols], alo[:, cols]) @ \
-            stack(bhi[:, cols], blo[:, cols]).T
+    chunks = ahi.shape[1] // nr
+    for g in range(chunks):
+        cols = slice(g * nr, (g + 1) * nr)
+        sa, sb = stacks(ahi[:, cols], alo[:, cols], bhi[:, cols],
+                        blo[:, cols], mode)
+        slab = sa.float() @ sb.float().T
+        part = slab if g % run == 0 else part + slab
+        if g % run == run - 1 or g == chunks - 1:
+            acc = acc + part
     return acc
 
 
@@ -193,10 +238,24 @@ def slice_gram(ahi, alo, bhi, blo, mode: str = "full",
     columns: kernel 9 on CUDA tensors, :func:`slice_gram_plain` on CPU
     tensors.  ``mode`` picks the pieces that run; without the dot (``none``,
     ``peel``) the result is zeros.  In ``dot`` and ``none`` only slice 0 of
-    each stack is filled, so only the ``[:P, :Q]`` block can be nonzero."""
-    _check_planes(ahi, alo, bhi, blo, mode, nr)
+    each stack is filled, so only the ``[:P, :Q]`` block can be nonzero.
+
+    Order of the sums: on the CPU the chunk slabs are added one by one (the
+    TPU kernel's order); the kernel adds them in runs whose length
+    :func:`slice_gram_plan` takes from the card's SM count, so ``full``'s
+    bits are those of ``slice_gram_plain(..., run=plan.run)`` and may differ
+    between cards with different SM counts (a 132-SM H100 SXM, a 114-SM
+    H100 PCIe)."""
+    return _slice_gram(ahi, alo, bhi, blo, mode, nr, None)
+
+
+def _slice_gram(ahi, alo, bhi, blo, mode: str, nr: int,
+                run: int | None) -> torch.Tensor:
+    """:func:`slice_gram` in runs of ``run`` chunks (``None``: the plan's,
+    on the CPU 1)."""
+    _check_planes(ahi, alo, bhi, blo, mode, nr, run)
     if ahi.device.type == "cpu":
-        return slice_gram_plain(ahi, alo, bhi, blo, mode, nr)
+        return slice_gram_plain(ahi, alo, bhi, blo, mode, nr, run or 1)
     if ahi.device.type != "cuda":
         raise ValueError(f"slice_gram: unsupported device {ahi.device}")
     p, n_pad = ahi.shape
@@ -210,17 +269,45 @@ def slice_gram(ahi, alo, bhi, blo, mode: str = "full",
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("slice_gram: planes must be contiguous and "
                              "16-byte aligned")
-    size = (SLICES * p, SLICES * q)
-    out = torch.empty(size, dtype=torch.float32, device=ahi.device)
-    part = torch.empty((n_pad // nr, *size), dtype=torch.float32,
-                       device=ahi.device)
+    plan = slice_gram_plan(p, q, n_pad, nr, _build.sm_count(ahi.device),
+                           run)
+    out = torch.empty(plan.scratch[1:], dtype=torch.float32,
+                      device=ahi.device)
+    part = torch.empty(plan.scratch, dtype=torch.float32, device=ahi.device)
     with torch.cuda.device(ahi.device):
         stream = torch.cuda.current_stream(ahi.device).cuda_stream
-        # the tenth argument is the kernel's keep_alive guard: always 0
+        # the eleventh argument is the kernel's keep_alive guard: always 0
         err = _build.lib().gcge_slice_gram(
             ahi.data_ptr(), alo.data_ptr(), bhi.data_ptr(), blo.data_ptr(),
-            p, q, n_pad, nr, MODES.index(mode), 0, part.data_ptr(),
-            out.data_ptr(), stream)
+            p, q, n_pad, nr, plan.run, MODES.index(mode), 0,
+            part.data_ptr(), out.data_ptr(), stream)
     _build.check("gcge_slice_gram", err)
     LAUNCHES["slice_gram"] += 1
     return out
+
+
+def bf16_mma_tile_check(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` in f32 for bf16 ``a`` ``(64, 64)`` and ``b`` ``(112, 64)``
+    through kernel 9's stack layout, shared-memory descriptors and bf16
+    ``wgmma`` m64n112k16 (four k16 steps): a check of the operand and
+    accumulator layouts (plain version: ``a.float() @ b.float().T``)."""
+    if tuple(a.shape) != (64, 64) or tuple(b.shape) != (112, 64) or \
+            a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("bf16_mma_tile_check takes bfloat16 tiles of shapes "
+                        f"(64, 64) and (112, 64), got {a.dtype} "
+                        f"{tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError("bf16_mma_tile_check: tiles must share a device")
+    if a.device.type == "cpu":
+        return a.float() @ b.float().T
+    if a.device.type != "cuda":
+        raise ValueError(f"bf16_mma_tile_check: unsupported device {a.device}")
+    a, b = a.contiguous(), b.contiguous()
+    d = torch.empty((64, 112), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _build.lib().gcge_bf16_mma_tile_check(
+            a.data_ptr(), b.data_ptr(), d.data_ptr(), stream)
+    _build.check("gcge_bf16_mma_tile_check", err)
+    CHECK_LAUNCHES["bf16_mma_tile"] += 1
+    return d

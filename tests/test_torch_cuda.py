@@ -14,7 +14,7 @@ import torch
 from gcge_tpu_torch import HybridOperator, make_operator, solve
 from gcge_tpu_torch.io.fem import assemble_p1, random_delaunay_mesh
 from gcge_tpu_torch.benchmarks.pallas_isolate import make_planes
-from gcge_tpu_torch.ops import onehot, osgemm, probes, spmm
+from gcge_tpu_torch.ops import _build, onehot, osgemm, probes, spmm
 from gcge_tpu_torch.solvers import gcg
 from gcge_tpu_torch.solvers.bpcg import BlockPCGParams
 
@@ -619,6 +619,85 @@ def test_slice_gram_kernel_matches_plain(cuda, p, q, n, nr, mode):
         assert not bool(got[p:].any()) and not bool(got[:, q:].any())
 
 
+def test_bf16_mma_fragment_layout(cuda):
+    """One 64 x 112 x 64 product through kernel 9's stack layout,
+    descriptors and bf16 wgmma, against ``a.float() @ b.float().T``:
+    products of bf16 values are exact in f32, and 64 of them sum to within
+    a few units of the last place of the largest partial sum."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randn((64, 64), generator=g, device=cuda).bfloat16()
+    b = torch.randn((112, 64), generator=g, device=cuda).bfloat16()
+    before = probes.CHECK_LAUNCHES["bf16_mma_tile"]
+    got = probes.bf16_mma_tile_check(a, b)
+    assert probes.CHECK_LAUNCHES["bf16_mma_tile"] == before + 1
+    scale = float((a.float().abs() @ b.float().abs().T).max())
+    assert float((got - a.float() @ b.float().T).abs().max()) <= \
+        1e-6 * scale
+
+
+@pytest.mark.parametrize("p,q,n,nr,run", [(32, 5, 1280, 128, 3),
+                                          (48, 16, 7 * 1024, 1024, 2),
+                                          (16, 16, 640, 64, 4)])
+@pytest.mark.parametrize("mode", ["dot", "full"])
+def test_slice_gram_kernel_in_runs(cuda, p, q, n, nr, run, mode):
+    """Kernel 9 with runs of several chunks and a ragged last run: ``full``
+    bit for bit against the plain version summed in the same runs and
+    against the TPU kernel's order (the sums are exact at these sizes),
+    ``dot`` within 1e-5 of the largest entry; two launches equal."""
+    planes = make_planes(p, q, n, nr, cuda, seed=q)
+    plan = probes.slice_gram_plan(p, q, planes[0].shape[1], nr, 132, run)
+    assert plan.run == run and plan.runs * run > planes[0].shape[1] // nr
+    got = probes._slice_gram(*planes, mode, nr, run)
+    assert torch.equal(got, probes._slice_gram(*planes, mode, nr, run))
+    ref = probes.slice_gram_plain(*planes, mode=mode, nr=nr, run=run)
+    if mode == "full":
+        assert torch.equal(got, ref)
+        assert torch.equal(got, probes.slice_gram_plain(*planes, mode=mode,
+                                                        nr=nr))
+    else:
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("run", [1, 3])
+def test_slice_gram_kernel_peel_paths(cuda, run):
+    """Kernel 9 peels in full-rate adds where a warp's values are small
+    (|hi| < 2^15, |lo| < 2^-21) and by ``rint`` elsewhere, with the same
+    bits.  Here some rows of A and B get, every 64 columns, a value with
+    hi = 0 and lo = n 2^-28 (n in 128..255): their warps take the general
+    path, the others the fast one, and every sum stays exact, so ``full``
+    gives the plain version's bits."""
+    ahi, alo, bhi, blo = make_planes(32, 9, 640, 128, cuda, seed=7)
+    rng = np.random.default_rng(7)
+    for hi, lo, rows in ((ahi, alo, (3, 20)), (bhi, blo, (1, 8))):
+        for r in rows:
+            cols = torch.arange(r % 64, hi.shape[1], 64, device=cuda)
+            n = rng.integers(128, 256, cols.numel()) * \
+                rng.choice([-1.0, 1.0], cols.numel())
+            hi[r, cols] = 0.0
+            lo[r, cols] = torch.as_tensor(n * 2.0 ** -28, dtype=torch.float32,
+                                          device=cuda)
+    planes = (ahi, alo, bhi, blo)
+    got = probes._slice_gram(*planes, "full", 128, run)
+    assert torch.equal(got, probes.slice_gram_plain(*planes, mode="full",
+                                                    nr=128, run=run))
+    assert torch.equal(got, probes.slice_gram_plain(*planes, mode="full",
+                                                    nr=128))
+
+
+def test_slice_gram_kernel_at_the_script_shape(cuda):
+    """``full`` at the measurement script's shape (P=128, Q=16, 154 chunks)
+    with the plan's runs: the bits of the plain version summed in the same
+    runs; with runs of one chunk, the bits of the TPU kernel's order."""
+    planes = make_planes(128, 16, 157464, 1024, cuda)
+    plan = probes.slice_gram_plan(128, 16, planes[0].shape[1], 1024,
+                                  _build.sm_count(cuda))
+    got = probes.slice_gram(*planes, mode="full")
+    assert torch.equal(got, probes.slice_gram_plain(*planes, mode="full",
+                                                    run=plan.run))
+    assert torch.equal(probes._slice_gram(*planes, "full", 1024, 1),
+                       probes.slice_gram_plain(*planes, mode="full"))
+
+
 def test_slice_gram_kernel_raises_on_what_it_does_not_take(cuda):
     ahi, alo, bhi, blo = make_planes(16, 4, 128, 64, cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -632,6 +711,11 @@ def test_slice_gram_kernel_raises_on_what_it_does_not_take(cuda):
     big = make_planes(16, 17, 128, 64, cuda)
     with pytest.raises(ValueError, match="Q <= 16"):
         probes.slice_gram(*big, nr=64)
+    with pytest.raises(ValueError, match="run"):
+        probes._slice_gram(ahi, alo, bhi, blo, "full", 64, 0)
+    with pytest.raises(TypeError):
+        probes.bf16_mma_tile_check(ahi[:, :64].contiguous(),
+                                   ahi[:, :64].contiguous())
 
 
 @pytest.mark.parametrize("layout", ["dia", "csr"])

@@ -205,6 +205,71 @@ def test_slice_gram_rejects_bad_planes(planes):
         probes.slice_gram(t[0].double(), t[1], t[2], t[3], nr=NR)
 
 
+@pytest.mark.parametrize("p,n_pad,nr,sms,run,plan", [
+    # the script's shape on 132 SMs: 8 row blocks, 16 runs wanted, runs of
+    # 10 chunks, the last of 4
+    (128, 157696, 1024, 132, None, (10, 16)),
+    (16, 157696, 1024, 132, None, (2, 77)),     # one row block
+    (128, 5120, 1024, 132, None, (1, 5)),       # more runs wanted than chunks
+    (2048, 157696, 1024, 132, None, (154, 1)),  # 128 row blocks: 1 run
+    (128, 157696, 1024, 132, 1, (1, 154)),      # the TPU kernel's order
+    (32, 1280, 128, 132, 3, (3, 4)),            # a ragged last run
+    (32, 1280, 128, 132, 50, (10, 1)),          # one run of every chunk
+])
+def test_slice_gram_plan(p, n_pad, nr, sms, run, plan):
+    got = probes.slice_gram_plan(p, 16, n_pad, nr, sms, run)
+    assert (got.run, got.runs) == plan
+    assert got.scratch == (plan[1], 7 * p, 7 * 16)
+    assert got.runs * got.run >= n_pad // nr > (got.runs - 1) * got.run
+
+
+def test_slice_gram_plain_in_runs(planes):
+    """Summed in runs, the plain version adds each run's chunk slabs, then
+    the run sums: at this size every sum is exact, so the bits are those
+    of the TPU kernel's order; one run of every chunk is the plain sum of
+    the chunk slabs."""
+    t = [torch.as_tensor(x) for x in planes]
+    ref = probes.slice_gram_plain(*t, nr=NR)
+    for run in (1, 2, 3, 7):
+        assert torch.equal(probes.slice_gram_plain(*t, nr=NR, run=run), ref)
+        assert torch.equal(probes._slice_gram(*t, "full", NR, run), ref)
+    sa, sb = probes.stacks(*t)
+    slabs = [sa[:, g * NR:(g + 1) * NR].float()
+             @ sb[:, g * NR:(g + 1) * NR].float().T for g in range(G)]
+    assert torch.equal(probes.slice_gram_plain(*t, nr=NR, run=G),
+                       0 + ((slabs[0] + slabs[1]) + slabs[2]))
+    for run in (0, -1, 1.5):
+        with pytest.raises(ValueError, match="run"):
+            probes._slice_gram(*t, "full", NR, run)
+        with pytest.raises(ValueError, match="run"):
+            probes.slice_gram_plain(*t, nr=NR, run=run)
+
+
+def test_stacks_and_mma_tile_check_plain():
+    """The stacks the dot multiplies: peeled in ``peel``/``full``, slice 0
+    ``bf16(hi)`` and zeros behind in ``none``/``dot``; the tile check's
+    plain version is the f32 product of its bf16 tiles."""
+    rng = np.random.default_rng(2)
+    hi = torch.as_tensor(rng.standard_normal((4, 32)).astype(np.float32))
+    lo = hi * 1e-8
+    for mode in probes.MODES:
+        sa, sb = probes.stacks(hi, lo, hi[:2], lo[:2], mode)
+        assert sa.shape == (28, 32) and sb.shape == (14, 32)
+        if mode in ("peel", "full"):
+            assert torch.equal(sa, probes.peel_stack(hi, lo))
+        else:
+            assert torch.equal(sa[:4], hi.to(torch.bfloat16))
+            assert not bool(sa[4:].any()) and not bool(sb[2:].any())
+    a = torch.as_tensor(rng.standard_normal((64, 64)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal((112, 64)).astype(np.float32))
+    d = probes.bf16_mma_tile_check(a.bfloat16(), b.bfloat16())
+    assert torch.equal(d, a.bfloat16().float() @ b.bfloat16().float().T)
+    with pytest.raises(TypeError):
+        probes.bf16_mma_tile_check(a, b)
+    with pytest.raises(TypeError):
+        probes.bf16_mma_tile_check(b.bfloat16(), a.bfloat16())
+
+
 def test_df64_push_main_cpu(capsys):
     assert df64_push.main(["--device", "cpu", "--nx", "6", "--bs", "3", "5",
                            "--trials", "2", "--reps", "2"]) == 0
