@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--profile]
 
 Nine kernels, four solves (the headline and the irregular problem, each by
-the phased and by the fused loop), the two kernel measurement scripts and a
-check that a fused chunk never waits for the device outside ``eigh``.
-Phases, each of which raises on failure:
+the phased and by the fused loop), the two kernel measurement scripts, the
+multilevel path on the cube FEM pair (GCG preconditioned by an AMG V-cycle,
+standard and generalized, and the PAS solver) and a check that a fused chunk
+never waits for the device outside ``eigh``.  Phases, each of which raises
+on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
    ``gcge_tpu_torch/ops/csrc`` and print the build time; check one 16 x 8 x 8
@@ -75,10 +77,31 @@ Phases, each of which raises on failure:
    card;
 10. sync check — one fused chunk of the headline problem under
     ``torch.cuda.set_sync_debug_mode("error")``: any wait of the host for the
-    device outside ``safe_eigh`` fails the run.
+    device outside ``safe_eigh`` fails the run; after phase 12's AMG
+    standard solve, the same for one fused chunk of the AMG-preconditioned
+    standard solve (the V-cycle inside the captured f32 CG stage);
+11. launch floor — an ``add_`` on a one-element tensor, timed as the kernel
+    rows are, beside kernels 7 and 8.
+12. multilevel path — the P1 FEM pair on the structured tet mesh of the unit
+    cube at nx=54 (n=148,877), assembled once on the host.  AMG standard:
+    ``solve(A, None, nev=50, multigrid=True)`` (the mixed f32 stage with the
+    V-cycle captured in its graph) against a plain ``solve(A, None,
+    nev=50)``; AMG generalized: ``solve(A, B, nev=50, multigrid=True)`` (the
+    fused f64 CG with the V-cycle) against a plain ``solve(A, B, nev=50)``;
+    PAS: ``solve(A, B, nev=50, method="pas")`` and the composite
+    Rayleigh-Ritz (``pas_solve(..., composite_rr=True)`` on the PAS phase's
+    hierarchy).  Each prints its hierarchy (n, nnz, layout, longest row and
+    host set-up seconds by level), wall, iterations or sweeps and converged
+    count, and holds its converged pairs to host residuals of 2e-8 (the
+    solver's measure: ``||Ax - lambda Bx|| / |lambda|`` for B-orthonormal x,
+    and ``X^T B X = I`` to 1e-10) and its 50 eigenvalues to 1e-9 of the plain
+    solve; then kernel 6 at the coarse levels' own operands (rows past its
+    tile budget), timed like the other rows.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
-solve and the whole headline solve, each phased and fused) and prints the
+solve and the whole headline solve, each phased and fused; 10 iterations of
+each AMG-preconditioned solve and one PAS solve on the FEM pair) and prints
+the
 device's busy and idle share, the device operations, host launches and host
 synchronisations per iteration, the device time by kernel, that of kernels
 3 and 4 together, of kernels 1, 2, 5 and 6 and of PyTorch's f32 elementwise
@@ -126,6 +149,9 @@ HEADLINE_FUSE, IRREGULAR_FUSE = 20, 10
 
 IRREGULAR_KWARGS = dict(nev=NEV, block_size=BS, max_iter=300, cg_max_iter=60,
                         cg_refine=3)
+FEM_NX = 54                  # the cube FEM pair: n = (FEM_NX - 1)^3
+# solve's PAS defaults, for the composite run on a prebuilt hierarchy
+PAS_KWARGS = dict(sweeps_per_level=2, final_sweeps=16, bamg_cycles=8)
 
 
 def median_ms(torch, fn, reps: int = REPS, flush=None) -> float:
@@ -289,7 +315,7 @@ def follows(y, x) -> bool:
 
 
 def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
-              cases, tol, gen, tag=""):
+              cases, tol, gen, tag="", n_in=None):
     """An SpMM kernel (``apply(x, transposed)``) against its plain version
     (``plain(x, transposed, absolute)``, on |A| where ``absolute``) and
     beside ``torch.sparse.mm`` on ``lib`` (the same values, in the (n, m)
@@ -297,15 +323,17 @@ def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
     the f32 CG stage's, :func:`cg_operand`).  Each row also gives equal bits
     twice and returns its product in the memory order of its operand; its
     bound counts the matrix's bytes, x and y once each.  The first case is
-    the primary one where ``tag`` is empty."""
+    the primary one where ``tag`` is empty.  ``n_in``: the rows of x where
+    the matrix is rectangular (its columns; default ``n``)."""
     dtype = lib.dtype
     item = torch.empty((), dtype=dtype).element_size()
+    n_in = n if n_in is None else n_in
     for name in cases:
         if name == "cg":
-            x = cg_operand(torch, lambda z: apply(z, True), n, BS, gen)
+            x = cg_operand(torch, lambda z: apply(z, True), n_in, BS, gen)
             transposed = True
         else:
-            x, transposed = spmm_operand(torch, name, n, dtype, gen)
+            x, transposed = spmm_operand(torch, name, n_in, dtype, gen)
         m = x.shape[0] if transposed else x.shape[1]
         x_nm = x.T.contiguous() if transposed else x.contiguous()
         label = f"{key}{tag} {name} m={m} strides {tuple(x.stride())}"
@@ -319,7 +347,8 @@ def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
         twice_equal(torch, kernel, label)
         scale = plain(x.abs(), transposed, True).max()
         log.run(key, label, kernel, lambda: plain(x, transposed, False),
-                scale, tol, matrix_bytes + 2 * n * m * item, 2.0 * nnz * m,
+                scale, tol, matrix_bytes + (n + n_in) * m * item,
+                2.0 * nnz * m,
                 library=lambda: torch.sparse.mm(lib, x_nm),
                 primary=not tag and name == cases[0])
 
@@ -727,7 +756,8 @@ def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag=""):
             rowptr, colidx, vals.abs() if absolute else vals, x, t),
         op.shape[0], nnz,
         nnz * (4 + vals.element_size()) + 4 * (op.shape[0] + 1),
-        csr_tensor(torch, a_csr, vals.dtype), cases, tol, gen, tag)
+        csr_tensor(torch, a_csr, vals.dtype), cases, tol, gen, tag,
+        n_in=op.shape[1])
 
 
 def phase_kernels_irregular(torch, log, a_rcm):
@@ -1075,11 +1105,11 @@ def phase_scripts():
     return launches
 
 
-def phase_sync_check(torch, a_csr):
-    """One fused chunk of the headline problem with every wait of the host
-    for the device turned into an error.  ``safe_eigh`` lifts the mode for
-    its own waits (cuSOLVER's info, the NaN flag) and counts its calls."""
-    import gcge_tpu_torch
+def phase_sync_check(torch, label, run, steps: int = 5):
+    """One fused chunk of ``steps`` iterations (``run(steps)`` solves with
+    ``fuse=steps, max_iter=steps``) with every wait of the host for the
+    device turned into an error.  ``safe_eigh`` lifts the mode for its own
+    waits (cuSOLVER's info, the NaN flag) and counts its calls."""
     from gcge_tpu_torch.ops import eighs
     from gcge_tpu_torch.solvers import gcg
 
@@ -1096,19 +1126,339 @@ def phase_sync_check(torch, a_csr):
         chunks.append(eighs.CALLS["safe_eigh"] - before)
         return out
 
-    steps = 5
     gcg._gcg_chunk = strict_chunk
     try:
-        gcge_tpu_torch.solve(a_csr, None, verbose=0, **dict(
-            HEADLINE_KWARGS, device=DEVICE, fuse=steps, max_iter=steps))
+        run(steps)
     finally:
         gcg._gcg_chunk = chunk
     torch.cuda.synchronize()
-    print(f"sync check: {len(chunks)} fused chunk of {steps} iterations "
-          f"under set_sync_debug_mode('error'): no wait outside safe_eigh, "
-          f"which was called {chunks[-1]} times inside it")
+    print(f"sync check ({label}): {len(chunks)} fused chunk of {steps} "
+          f"iterations under set_sync_debug_mode('error'): no wait outside "
+          f"safe_eigh, which was called {chunks[-1]} times inside it")
     if len(chunks) != 1 or chunks[-1] <= 0:
         raise AssertionError("the sync check did not run one fused chunk")
+
+
+def sync_check_headline(torch, a_csr):
+    import gcge_tpu_torch
+
+    phase_sync_check(torch, "headline", lambda steps: gcge_tpu_torch.solve(
+        a_csr, None, verbose=0, **dict(HEADLINE_KWARGS, device=DEVICE,
+                                       fuse=steps, max_iter=steps)))
+
+
+# --------------------------------------------------------------------------
+# the multilevel path: the cube FEM pair
+# --------------------------------------------------------------------------
+
+
+def build_fem(nx: int):
+    """The P1 FEM pair (stiffness A, mass B) on the structured tet mesh of
+    the unit cube, interior vertices, as scipy CSR matrices on the host."""
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.io.fem import cube_fem_laplacian
+
+    t0 = time.perf_counter()
+    rows, cols, av, bv, n = cube_fem_laplacian(nx)
+    a = sps.coo_matrix((av, (rows, cols)), shape=(n, n)).tocsr()
+    b = sps.coo_matrix((bv, (rows, cols)), shape=(n, n)).tocsr()
+    print(f"FEM pair (cube, nx={nx}): n={n} nnz={a.nnz} "
+          f"({np.diff(a.indptr).max()} a row at most); host assembly "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n != (nx - 1) ** 3:
+        raise AssertionError(f"n = {n}, expected {(nx - 1) ** 3}")
+    return a, b
+
+
+def op_rows(op):
+    """``(nonzeros, longest row)`` of a port operator, counted on its
+    device (DIA storage holds explicit zeros, which are not counted)."""
+    from gcge_tpu_torch import DiaOperator, HybridOperator
+
+    if isinstance(op, HybridOperator):
+        per_row = (op.dia.values != 0).sum(dim=0)
+        if op.rest is not None:
+            per_row = per_row + (op.rest.rowptr[1:] - op.rest.rowptr[:-1])
+    elif isinstance(op, DiaOperator):
+        per_row = (op.values != 0).sum(dim=0)
+    else:
+        per_row = op.rowptr[1:] - op.rowptr[:-1]
+    return int(per_row.sum()), int(per_row.max())
+
+
+def layout(op) -> str:
+    from gcge_tpu_torch import DiaOperator, HybridOperator
+
+    if isinstance(op, HybridOperator):
+        return (f"Hybrid ({len(op.dia.offsets)} diagonals + CSR "
+                f"{op_rows(op.rest)[0] if op.rest is not None else 0})")
+    if isinstance(op, DiaOperator):
+        return f"DIA ({len(op.offsets)} diagonals)"
+    return type(op).__name__
+
+
+def print_hierarchy(tag, hier, wall):
+    """Each level's n, nnz, layout and longest row, the transfers', and the
+    host set-up seconds by level."""
+    print(f"{tag}: hierarchy of {hier.num_levels} levels, host set-up "
+          f"{wall:.2f} s")
+    for i, (lv, t) in enumerate(zip(hier.levels, hier.setup)):
+        nnz, longest = op_rows(lv.a_op)
+        line = (f"{tag}:   level {i}: n={lv.a_op.shape[0]} nonzeros {nnz} "
+                f"longest row {longest}, A as {layout(lv.a_op)}")
+        if lv.b_op is not None:
+            line += f", B as {layout(lv.b_op)}"
+        if lv.p_op is not None:
+            p_nnz, p_long = op_rows(lv.p_op)
+            _, r_long = op_rows(lv.r_op)
+            line += (f"; P {tuple(lv.p_op.shape)} as CSR, {p_nnz} nonzeros, "
+                     f"rows up to {p_long}, R rows up to {r_long}")
+        line += (f"; host aggregate {t['aggregate']:.2f} s, Galerkin "
+                 f"{t['galerkin']:.2f} s, placing {t['place']:.2f} s")
+        print(line)
+
+
+class Captured:
+    """Records, for its duration, the hierarchies ``solve`` builds (with
+    their walls), the f32 CG stages ``gcg_solve`` builds, and the results of
+    ``gcg_solve`` and ``pas_solve`` as ``solve`` reaches them."""
+
+    def __enter__(self):
+        from gcge_tpu_torch import api
+        from gcge_tpu_torch.solvers import gcg, multigrid
+
+        self.hiers, self.stages, self.results = [], [], []
+        build, stage_cls = multigrid.build_hierarchy, gcg._MixedStage
+        gcg_solve, pas_solve = api.gcg_solve, api.pas_solve
+        outer = self
+
+        def build_hierarchy(*args, **kwargs):
+            t0 = time.perf_counter()
+            hier = build(*args, **kwargs)
+            outer.hiers.append((hier, time.perf_counter() - t0))
+            return hier
+
+        class Stage(stage_cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                outer.stages.append(self)
+
+        def recorded(fn):
+            def run(*args, **kwargs):
+                res = fn(*args, **kwargs)
+                outer.results.append(res)
+                return res
+            return run
+
+        self.saved = [(multigrid, "build_hierarchy", build),
+                      (gcg, "_MixedStage", stage_cls),
+                      (api, "gcg_solve", gcg_solve),
+                      (api, "pas_solve", pas_solve)]
+        multigrid.build_hierarchy = build_hierarchy
+        gcg._MixedStage = Stage
+        api.gcg_solve = recorded(gcg_solve)
+        api.pas_solve = recorded(pas_solve)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def fem_gates(tag, a, b, ev, evec, count, ev_plain):
+    """Host checks of a multilevel solve: the first ``count`` pairs' residuals
+    in the solver's measure (standard: ||Ax - lambda x|| / (|lambda| ||x||);
+    generalized: ||Ax - lambda Bx|| / |lambda| for B-orthonormal x, with
+    X^T B X = I to 1e-10) at most 2e-8, and all NEV eigenvalues within 1e-9
+    of the plain solve's."""
+    x = evec[:, :NEV].cpu().numpy()
+    lam = ev[:NEV]
+    if b is None:
+        res = residuals(a, lam, x)
+        orth = 0.0
+    else:
+        bx = b @ x
+        res = np.linalg.norm(a @ x - bx * lam[None, :], axis=0) / np.abs(lam)
+        orth = float(np.abs(x.T @ bx - np.eye(NEV)).max())
+    rel = float(np.max(np.abs(lam - ev_plain[:NEV]) / np.abs(ev_plain[:NEV])))
+    worst = float(res[:count].max()) if count else 0.0
+    print(f"{tag}: host residuals of the first {count} pairs max "
+          f"{worst:.3e} (tol 2e-8; all {NEV}: max {res.max():.3e}), "
+          f"X^T B X - I max {orth:.3e} (tol 1e-10), eigenvalues vs the "
+          f"plain solve max rel diff {rel:.3e} (tol 1e-9)")
+    if not worst <= 2e-8:
+        raise AssertionError(f"{tag}: residual {worst:.3e} > 2e-8")
+    if not orth <= 1e-10:
+        raise AssertionError(f"{tag}: X^T B X - I = {orth:.3e} > 1e-10")
+    if not rel <= 1e-9:
+        raise AssertionError(f"{tag}: eigenvalues disagree with the plain "
+                             f"solve ({rel:.3e})")
+
+
+def phase_amg(torch, log, a, b):
+    """``solve(A, B, nev=50, multigrid=True)`` (B None: standard) against a
+    plain ``solve(A, B, nev=50)`` on the same pair, both with ``solve``'s
+    defaults on a card.  Returns ``(launches, hierarchy, the plain solve's
+    eigenvalues)``."""
+    import gcge_tpu_torch
+    from gcge_tpu_torch.solvers import gcg
+
+    tag = "AMG standard" if b is None else "AMG generalized"
+    t0 = time.perf_counter()
+    with Captured() as plain:
+        ev_plain, _, conv_plain = gcge_tpu_torch.solve(
+            a, b, nev=NEV, device=DEVICE, verbose=0)
+    torch.cuda.synchronize()
+    print(f"{tag}: plain solve (no multigrid) wall "
+          f"{time.perf_counter() - t0:.3f} s, {plain.results[0].num_iter} "
+          f"iterations, nev_conv {conv_plain}")
+    reset_counters()
+    gcg.GRAPH_REPLAYS["cg_stage"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TallCalls() as tall, Captured() as cap:
+        ev, evec, nev_conv = gcge_tpu_torch.solve(
+            a, b, nev=NEV, multigrid=True, device=DEVICE, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    (hier, setup), = cap.hiers
+    res, = cap.results
+    print_hierarchy(tag, hier, setup)
+    tall.report(tag, log, a.shape[0])
+    print(f"{tag}: wall {wall:.3f} s (host set-up {setup:.2f} s included), "
+          f"{res.num_iter} iterations, nev_conv {nev_conv}, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches}, replays {gcg.GRAPH_REPLAYS['cg_stage']}")
+    if nev_conv < NEV:
+        raise AssertionError(f"{tag}: nev_conv {nev_conv} < {NEV}")
+    fem_gates(tag, a, b, ev, evec, NEV, ev_plain)
+    want = ("dia_f64", "gram", "expand", "csr_f64") + \
+        (("dia_f32",) if b is None else ())
+    idle = [k for k in want if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: kernels not launched: {idle}")
+    if b is None:
+        # the V-cycle inside the captured f32 stage: its graph holds
+        # kernel 1 (the fine level) and kernel 6 (coarse levels, transfers)
+        stage, = cap.stages
+        in_graph = {k: v for counts in stage._launches
+                    for k, v in counts.items() if v}
+        print(f"{tag}: the captured f32 CG stage launches {in_graph} a "
+              f"replay")
+        if gcg.GRAPH_REPLAYS["cg_stage"] <= 0 or stage.graph is None:
+            raise AssertionError(f"{tag}: the CG stage was not replayed "
+                                 "from a graph")
+        if not (in_graph.get("dia_f64") and in_graph.get("csr_f64")):
+            raise AssertionError(f"{tag}: the V-cycle is not in the graph")
+    elif cap.stages:
+        raise AssertionError(f"{tag}: a non-diagonal B built an f32 stage")
+    return launches, hier, ev_plain
+
+
+def phase_pas(torch, a, b, ev_plain):
+    """``solve(A, B, nev=50, method="pas")``, then ``pas_solve(...,
+    composite_rr=True)`` on the hierarchy that solve built, each against the
+    plain generalized solve's eigenvalues ``ev_plain``.  Returns the
+    launches of both."""
+    import gcge_tpu_torch
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    out = {}
+    hier = None
+    for tag in ("PAS", "PAS composite"):
+        reset_counters()
+        t0 = time.perf_counter()
+        with Captured() as cap:
+            if hier is None:
+                ev, evec, nev_conv = gcge_tpu_torch.solve(
+                    a, b, nev=NEV, method="pas", device=DEVICE, verbose=1)
+                (hier, setup), = cap.hiers
+                print_hierarchy(tag, hier, setup)
+                res, = cap.results
+            else:
+                res = pas_solve(hier, NEV, tol_rel=1e-8, verbose=1,
+                                composite_rr=True, **PAS_KWARGS)
+                ev, evec, nev_conv = res.eval, res.evec, res.nev_conv
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        for level, lam in res.level_history:
+            print(f"{tag}: level {level} lam[0:3] = {lam[:3]}")
+        print(f"{tag}: wall {wall:.3f} s, sweeps by level (finest last) "
+              f"{res.sweeps}, nev_conv {nev_conv} of {NEV}, launches "
+              f"{launches}")
+        fem_gates(tag, a, b, ev, evec, nev_conv, ev_plain)
+        idle = [k for k in ("dia_f64", "gram", "expand", "csr_f64")
+                if launches[k] <= 0]
+        if idle:
+            raise AssertionError(f"{tag}: kernels not launched: {idle}")
+        out[tag] = launches
+    return out["PAS"], out["PAS composite"]
+
+
+def kernels_amg_levels(torch, log, hier):
+    """Kernel 6 at the operands the V-cycle hands the CSR levels and the
+    transfers (an ``(n, 10)`` block), against its plain version and beside
+    ``torch.sparse.mm``; rows past the tile budget run as serial chains."""
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.ops import onehot
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    for i, lv in enumerate(hier.levels):
+        for what, op in (("A", lv.a_op), ("P", lv.p_op), ("R", lv.r_op)):
+            if not isinstance(op, onehot.CsrOperator):
+                continue
+            a_csr = sps.csr_matrix((op.values.cpu().numpy(),
+                                    op.colidx.cpu().numpy(),
+                                    op.rowptr.cpu().numpy()), shape=op.shape)
+            lengths = np.diff(a_csr.indptr)
+            past = int((lengths > onehot.CSR_BUDGET).sum())
+            csr_rows(torch, log, "csr_f64", op, op.values, a_csr,
+                     [f"(n, {BS})"], 1e-14, gen,
+                     f" AMG level {i} {what} {op.shape} ({a_csr.nnz} "
+                     f"entries, rows up to {lengths.max()}, {past} past the "
+                     f"budget of {onehot.CSR_BUDGET})")
+
+
+def sync_check_amg(torch, a, hier):
+    """One fused chunk of the AMG-standard solve: ``gcg_solve`` with
+    ``solve``'s defaults on a card and the V-cycle of ``hier`` as
+    ``linear_precond``, on the operator ``solve`` places."""
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+    from gcge_tpu_torch.api import _tuned_defaults
+    from gcge_tpu_torch.solvers.multigrid import bamg_preconditioner
+
+    coo = a.tocoo()
+    op = make_operator(coo.row, coo.col, coo.data, coo.shape, device=DEVICE)
+    tuned = _tuned_defaults(torch.device(DEVICE), "gcg", a, None)
+
+    def run(steps):
+        params = GCGParams(**dict(tuned, fuse=steps), nev=NEV, verbose=0,
+                           max_iter=steps,
+                           linear_precond=bamg_preconditioner(hier))
+        gcg_solve(op, None, params)
+
+    phase_sync_check(torch, "AMG standard, V-cycle in the captured stage",
+                     run)
+
+
+def phase_launch_floor(torch, log):
+    """The time of an empty launch, by the kernel rows' method: an ``add_``
+    on a one-element tensor, beside kernels 7 and 8."""
+    one = torch.zeros(1, device=DEVICE)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    ms = median_ms(torch, lambda: one.add_(1.0), flush=flush)
+    b2b = median_ms(torch, lambda: one.add_(1.0))
+    del flush
+    k7, k8 = (log.entries[k]["ms"] for k in ("mask_probe", "fma_probe"))
+    print(f"launch floor: add_ on one element {ms:.4f} ms ({b2b:.4f} ms "
+          f"back to back); kernel 7 (mask probe) {k7:.4f} ms, kernel 8 (FMA "
+          f"probe) {k8:.4f} ms: {k7 / ms:.2f} and {k8 / ms:.2f} times the "
+          f"floor")
+    return ms
 
 
 def profile_solve(torch, label: str, run):
@@ -1196,6 +1546,37 @@ def phase_profile(torch, op, a_csr):
                       lambda: gcg_solve(dia, None, params).num_iter)
 
 
+def profile_multilevel(torch, a, b):
+    """Profiles of the multilevel path on the cube FEM pair: 10 iterations
+    of the AMG-preconditioned solve, standard (the V-cycle in the captured
+    f32 stage) and generalized (the f64 CG with the V-cycle), each on a
+    hierarchy built outside the window, and PAS on the generalized one."""
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+    from gcge_tpu_torch.api import _tuned_defaults
+    from gcge_tpu_torch.solvers.multigrid import (bamg_preconditioner,
+                                                  build_hierarchy)
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    dev = torch.device(DEVICE)
+    coo = a.tocoo()
+    a_op = make_operator(coo.row, coo.col, coo.data, coo.shape, device=dev)
+    b_vals = np.asarray(b[coo.row, coo.col]).ravel()
+    b_op = make_operator(coo.row, coo.col, b_vals, coo.shape, device=dev)
+    for tag, bv, bop in (("standard", None, None),
+                         ("generalized", b_vals, b_op)):
+        hier = build_hierarchy(coo.row, coo.col, coo.data, coo.shape[0],
+                               b_vals=bv, device=dev)
+        params = GCGParams(**_tuned_defaults(dev, "gcg", a, None if bv is
+                                             None else b),
+                           nev=NEV, max_iter=10, verbose=0,
+                           linear_precond=bamg_preconditioner(hier))
+        profile_solve(torch, f"AMG {tag} solve",
+                      lambda: gcg_solve(a_op, bop, params).num_iter)
+    profile_solve(torch, "PAS solve (iterations: sweeps)",
+                  lambda: sum(pas_solve(hier, NEV, tol_rel=1e-8, verbose=0,
+                                        **PAS_KWARGS).sweeps))
+
+
 KERNELS = (  # key, source, the TPU kernel it replaces
     ("dia_f64", "gcge_tpu_torch/ops/csrc/dia_spmm.cu",
      "gcge_tpu/ops/spmm_pallas.py:207"),
@@ -1243,15 +1624,34 @@ def main(argv) -> int:
     paths["headline"], ev_headline = phase_headline(torch, log, a_csr, 0)
     paths["fused_headline"], _ = phase_headline(torch, log, a_csr,
                                                 HEADLINE_FUSE, ev_headline)
-    phase_sync_check(torch, a_csr)
+    sync_check_headline(torch, a_csr)
     a, a_rcm = build_delaunay(MESH)
     op = phase_kernels_irregular(torch, log, a_rcm)
     phase_hybrid(torch, log)
     paths["irregular"], ev_irregular = phase_irregular(torch, log, a, a_rcm)
     paths["fused_irregular"] = phase_irregular_fused(torch, log, a,
                                                      ev_irregular)
+    phase_launch_floor(torch, log)
+    t0 = time.perf_counter()
+    fem_a, fem_b = build_fem(FEM_NX)
+    paths["amg"], hier, _ = phase_amg(torch, log, fem_a, None)
+    print(f"AMG standard phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sync_check_amg(torch, fem_a, hier)
+    kernels_amg_levels(torch, log, hier)
+    del hier
+    print(f"AMG sync check and kernel 6 rows: {time.perf_counter() - t0:.1f} "
+          f"s")
+    t0 = time.perf_counter()
+    paths["amg_generalized"], _, ev_gen = phase_amg(torch, log, fem_a, fem_b)
+    print(f"AMG generalized phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["pas"], paths["pas_composite"] = phase_pas(torch, fem_a, fem_b,
+                                                     ev_gen)
+    print(f"PAS phases: {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         phase_profile(torch, op, a_csr)
+        profile_multilevel(torch, fem_a, fem_b)
         phase_walls(torch, a_csr, a)
     print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s")
     print(card)

@@ -31,8 +31,9 @@ from gcge_tpu_torch.ops.onehot import CsrOperator, bf16_mask_supported  # noqa: 
 from gcge_tpu_torch.ops.probes import fma_probe, slice_gram  # noqa: E402
 from gcge_tpu_torch.api import eigsh, solve  # noqa: E402
 from gcge_tpu_torch.solvers.gcg import GCGParams, GCGResult, gcg_solve  # noqa: E402
-from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg  # noqa: E402
-from gcge_tpu_torch.solvers.orth import orth_against, orth_block  # noqa: E402
+from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg, pcg  # noqa: E402
+from gcge_tpu_torch.solvers.orth import (bgs_orth, mgs_orth,  # noqa: E402
+                                         orth_against, orth_block)
 
 __version__ = "0.1.0"
 
@@ -55,6 +56,9 @@ __all__ = [
     "eigsh",
     "BlockPCGParams",
     "block_pcg",
+    "pcg",
+    "bgs_orth",
+    "mgs_orth",
     "orth_block",
     "orth_against",
     "bf16_mask_supported",

@@ -3,12 +3,14 @@
 :func:`solve` takes a scipy sparse matrix, a dense or 1-D numpy array, or a
 prebuilt operator, packs it for the given ``device`` (DIA when the pattern is
 banded — optionally after RCM reordering — Hybrid or CSR otherwise), runs GCG
+(optionally preconditioned by an AMG V-cycle) or the multilevel PAS solver,
 and returns ``(eval, evec, nev_conv)`` in the caller's row order.  The device
 is always the caller's choice: there is no silent move to the CPU.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any
 
 import numpy as np
@@ -21,7 +23,9 @@ from gcge_tpu_torch.ops.operators import (DenseOperator, DiagOperator,
                                           DiaOperator, HybridOperator,
                                           IdentityOperator, LinearOperator,
                                           SparseOperator, make_operator)
+from gcge_tpu_torch.solvers import multigrid as mg
 from gcge_tpu_torch.solvers.gcg import GCGParams, gcg_solve
+from gcge_tpu_torch.solvers.pas import pas_solve
 
 
 def _as_operator(mat, dtype, device, perm=None):
@@ -84,9 +88,42 @@ def _tuned_defaults(device: torch.device, method: str, a, b) -> dict:
     return tuned
 
 
+def _hierarchy(a, b, perm, max_levels: int, method: str, dtype, device):
+    """The AMG hierarchy of a scipy sparse ``a`` (and ``b``, projected onto
+    A's pattern), in the RCM order ``perm`` where given."""
+    if not sps.issparse(a):
+        raise ValueError("multigrid/pas need a scipy sparse A")
+    coo = a.tocoo()
+    rows, cols = coo.row, coo.col
+    if perm is not None:
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        rows, cols = inv[rows], inv[cols]
+    b_vals = None
+    if b is not None and sps.issparse(b):
+        # the hierarchy takes B on A's pattern: B's entries outside it would
+        # be dropped, so they are refused
+        bcsr = sps.csr_matrix(b)
+        pattern = sps.csr_matrix((np.ones(coo.nnz), (coo.row, coo.col)),
+                                 shape=coo.shape)
+        outside = (abs(bcsr) - abs(bcsr).multiply(pattern)).count_nonzero()
+        if outside:
+            raise ValueError("multigrid/pas: B has nonzeros outside A's "
+                             "pattern")
+        b_vals = np.asarray(bcsr[coo.row, coo.col]).ravel()
+    elif b is not None and method == "pas":
+        raise ValueError("method='pas' with B needs a scipy sparse B on A's "
+                         "sparsity pattern")
+    return mg.build_hierarchy(rows, cols, coo.data, coo.shape[0],
+                              b_vals=b_vals, max_levels=max_levels,
+                              dtype=dtype, device=device)
+
+
 def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
           distribute: bool = False, multigrid: bool | int = False,
-          method: str = "gcg", x0=None, params=None, **kwargs: Any):
+          method: str = "gcg", x0=None, params=None, pas_sweeps: int = 2,
+          pas_final_sweeps: int = 16, pas_cycles: int = 8,
+          pas_composite_rr: bool = False, **kwargs: Any):
     """Compute the ``nev`` smallest eigenpairs of ``A x = lambda B x``.
 
     ``a``, ``b``: scipy sparse matrix, dense ndarray, 1-D ndarray (diagonal),
@@ -96,6 +133,13 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
     (scipy, on the host), which concentrates irregular patterns onto fewer
     diagonals; ``b`` and ``x0`` follow the same permutation and the
     eigenvectors come back in the caller's ordering.
+    ``multigrid``: build a smoothed-aggregation AMG hierarchy of the scipy
+    sparse ``a`` (and ``b``, on A's pattern) on the host and precondition
+    GCG's inner block CG by one Chebyshev-smoothed V-cycle; an int above 1
+    caps the levels (default 4).  ``method``: ``'gcg'`` or ``'pas'``, the
+    multilevel PAS solver on the same hierarchy, with ``pas_sweeps`` sweeps
+    a level, ``pas_final_sweeps`` on the finest, ``pas_cycles`` V-cycles a
+    correction, and ``pas_composite_rr`` for the composite Rayleigh-Ritz.
     ``params``: a prebuilt :class:`GCGParams`; otherwise one is assembled
     from ``nev`` and ``**kwargs``.
 
@@ -105,12 +149,8 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
     if distribute:
         raise NotImplementedError("distribute is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
-    if multigrid:
-        raise NotImplementedError("multigrid is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
-    if method != "gcg":
-        raise NotImplementedError(f"method={method!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 10)")
+    if method not in ("gcg", "pas"):
+        raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
     if params is None:
         for k, v in _tuned_defaults(device, method, a, b).items():
@@ -126,15 +166,32 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
             dtype=np.int64)
         if x0 is not None:
             x0 = torch.as_tensor(x0)[torch.from_numpy(perm)]
-    a_op = _as_operator(a, params.dtype, device, perm)
-    b_op = _as_operator(b, params.dtype, device, perm)
-    res = gcg_solve(a_op, b_op, params, x0=x0)
+    hier = None
+    if multigrid or method == "pas":
+        max_levels = multigrid if isinstance(multigrid, int) and \
+            multigrid > 1 else 4
+        hier = _hierarchy(a, b, perm, max_levels, method, params.dtype,
+                          device)
+    if method == "pas":
+        res = pas_solve(hier, params.nev, tol_rel=params.tol_rel,
+                        verbose=params.verbose, sweeps_per_level=pas_sweeps,
+                        final_sweeps=pas_final_sweeps,
+                        bamg_cycles=pas_cycles,
+                        composite_rr=pas_composite_rr)
+        n = hier.levels[0].a_op.shape[0]
+    else:
+        if hier is not None:
+            params = replace(params,
+                             linear_precond=mg.bamg_preconditioner(hier))
+        a_op = _as_operator(a, params.dtype, device, perm)
+        b_op = _as_operator(b, params.dtype, device, perm)
+        res = gcg_solve(a_op, b_op, params, x0=x0)
+        n = a_op.shape[0]
     evec = res.evec
     if perm is not None:
         scattered = torch.empty_like(evec)
         scattered[torch.from_numpy(perm).to(evec.device)] = evec
         evec = scattered
-    n = a_op.shape[0]
     return res.eval[:params.resolved(n).nev], evec, res.nev_conv
 
 

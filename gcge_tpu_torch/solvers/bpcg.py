@@ -126,3 +126,15 @@ def block_pcg_t(matvec_t, bt: torch.Tensor, x0t: torch.Tensor,
     :meth:`DiaOperator.matvec_t` and of the mixed-precision inner CG."""
     return _pcg(matvec_t, bt, x0t, params, active0, norm_b, precond, axis=1,
                 fixed=fixed)
+
+
+def pcg(matvec, b: torch.Tensor, x0: torch.Tensor, max_iter: int = 50,
+        rate: float = 1e-2, tol: float = 1e-12):
+    """Single-vector CG (the reference's ``PCG``): :func:`block_pcg` on a
+    one-column block, stopping on the relative decrease ``rate`` or the
+    absolute floor ``tol``.  ``b, x0`` are ``(n,)``; returns
+    ``(x, BlockPCGInfo)``."""
+    x, info = block_pcg(matvec, b[:, None], x0[:, None],
+                        BlockPCGParams(max_iter=max_iter, rate=rate, tol=tol,
+                                       tol_type="abs"))
+    return x[:, 0], info

@@ -86,8 +86,9 @@ class GCGParams:
     # split evenly over the cg_refine stages.
     cg_mixed: bool = False
     cg_refine: int = 2
-    # a user inner solver and a preconditioner of the block CG: not ported
-    # yet, anything but None raises
+    # a user inner solver ``(shifted, rhs, x0, colmask) -> w`` that replaces
+    # the block CG, and a preconditioner ``R -> M^{-1} R`` of the block CG
+    # (f64, (n, m) layout; composed with the f32 stages of the mixed branch)
     linear_solver: Any = None
     linear_precond: Any = None
     check_max: int = 0                # residual window; 0 -> 2*block_size
@@ -248,7 +249,10 @@ class _MixedStage:
     f32 from ``d = 0``, for a residual ``r (n, bs)`` in f64.
 
     Built once per solve: the f32 form of the operator, the stage's step
-    budget, and whether the CG runs its whole budget (``fixed``).  With
+    budget, whether the CG runs its whole budget (``fixed``), and the
+    preconditioner ``precond`` (f64, ``(n, m)`` layout, or None), which the
+    stage applies as ``precond(r.T.double()).float().T`` in the transposed
+    layout and ``precond(r.double()).float()`` in the other.  With
     ``capture`` the stage is recorded once as a CUDA graph on static buffers
     (residual, column mask and ``sigma`` in; correction and step count out)
     and every call is three small copies and one replay: shapes ``(bs, n)``
@@ -256,9 +260,10 @@ class _MixedStage:
     is no eager retreat on a card."""
 
     def __init__(self, a_op, b_op, cg: BlockPCGParams, bs: int, fixed: bool,
-                 capture: bool):
+                 capture: bool, precond=None):
         self.apply32, self.transposed = _f32_apply(a_op)
         self.cg, self.fixed = cg, fixed
+        self.precond, self.dtype = precond, a_op.dtype
         self.b32 = None
         if b_op is not None:
             b32 = b_op.d.float()
@@ -273,9 +278,17 @@ class _MixedStage:
         def mv32(y):
             return self.apply32(y) + sigma * (y if b32 is None else b32 * y)
 
+        precond32 = None
+        if self.precond is not None:
+            if self.transposed:
+                def precond32(rt):
+                    return self.precond(rt.T.to(self.dtype)).float().T
+            else:
+                def precond32(r):
+                    return self.precond(r.to(self.dtype)).float()
         pcg = block_pcg_t if self.transposed else block_pcg
         d, info = pcg(mv32, r32, torch.zeros_like(r32), self.cg,
-                      active0=colmask, fixed=self.fixed)
+                      active0=colmask, precond=precond32, fixed=self.fixed)
         return d, info.niters
 
     def _capture(self, n: int, bs: int, device):
@@ -285,7 +298,9 @@ class _MixedStage:
         # every tensor of the captured stage has the eager stage's strides:
         # both run the same kernels on the same layout.  A CSR operator's
         # row tiles were planned when it was built: nothing is copied to the
-        # card under capture
+        # card under capture.  A preconditioner is captured with the stage:
+        # it must read nothing back (bamg_preconditioner's coarse CG runs its
+        # whole budget)
         r32 = torch.zeros((n, bs), dtype=torch.float32, device=device)
         self._r32 = r32.T if self.transposed else r32
         self._mask = torch.zeros(bs, dtype=torch.bool, device=device)
@@ -352,13 +367,16 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
                zero_tol: float, passes: int, cg_order: int = 1,
                mixed: bool = False, refine: int = 2,
                orth_method: str = "evp", stage: Optional[_MixedStage] = None,
-               fixed: bool = False):
+               fixed: bool = False, linear_solver=None, precond=None):
     """Inverse-power correction block W: for the active window solve
     ``(A + sigma B) w = (lambda + sigma) B x`` from ``x``, then
     B-orthonormalize W against [X | P] and within (rank-revealing) into the
     W slots of ``v``.  ``act_cnt`` and ``sigma`` are Python numbers or 0-d
     tensors; ``stage`` is the f32 CG stage of the mixed branch (None: A has
-    no f32 form); ``fixed`` makes every CG run its whole step budget."""
+    no f32 form), which carries its own preconditioner; ``fixed`` makes
+    every CG run its whole step budget.  ``linear_solver(shifted, rhs, x,
+    colmask)`` replaces the block CG (zero steps and residuals reported);
+    ``precond`` preconditions the f64 block CGs."""
     colmask = torch.arange(bs, device=v.device) < act_cnt
     fmask = colmask.to(v.dtype)
     xact = ritz[:, act_idx] * fmask[None, :]
@@ -368,14 +386,18 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
     def shifted(y):
         return a_op.matvec(y) + sigma * _matvec(b_op, y)
 
-    if mixed:
+    if linear_solver is not None:
+        w = linear_solver(shifted, rhs, xact, colmask)
+        niters = 0
+        final_res = torch.zeros(bs, dtype=v.dtype, device=v.device)
+    elif mixed:
         if stage is not None:
             w, niters = _mixed_inner_solve(stage, rhs, xact, fmask, colmask,
                                            sigma, refine, shifted)
         else:
             # no f32 operator for this A (dense, diagonal, user): plain f64
             w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
-                                fixed=fixed)
+                                precond=precond, fixed=fixed)
             w = w * fmask[None, :]
             niters = info.niters
         rfin = (rhs - shifted(w)) * fmask[None, :]
@@ -384,9 +406,9 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
         half = max(bs // 2, 1)
         hmask = colmask & (torch.arange(bs, device=v.device) < half)
         w1, info1 = block_pcg(shifted, rhs, xact, cg, active0=hmask,
-                              fixed=fixed)
+                              precond=precond, fixed=fixed)
         w2, info2 = block_pcg(shifted, rhs, w1, cg, active0=hmask,
-                              fixed=fixed)
+                              precond=precond, fixed=fixed)
         hf = hmask.to(v.dtype)[None, :]
         w = torch.cat([(w1 * hf)[:, :half], (w2 * hf)[:, :half]], dim=1)
         w = torch.nn.functional.pad(w, (0, bs - w.shape[1]))[:, :bs]
@@ -394,7 +416,7 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
         final_res = info2.final_res
     else:
         w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
-                            fixed=fixed)
+                            precond=precond, fixed=fixed)
         w = w * fmask[None, :]
         niters, final_res = info.niters, info.final_res
     q = v[:, :size_x + bs]
@@ -653,7 +675,8 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
     v, w_cnt, _, _ = _compute_w(
         a_op, b_op, v, st.ritz, st.ss_eval, act_idx, act_cnt, sigma, size_x,
         bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order, p.cg_mixed,
-        p.cg_refine, p.orth_method, stage=stage, fixed=True)
+        p.cg_refine, p.orth_method, stage=stage, fixed=True,
+        linear_solver=p.linear_solver, precond=p.linear_precond)
     ss_eval, ss_evec, h, ritz = _rayleigh_ritz(a_op, v, h_pp, st.ss_eval,
                                                p_cnt, w_cnt, size_x, bs,
                                                p.rr_backend)
@@ -803,10 +826,6 @@ def _not_ported(params: GCGParams, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh (distribution) is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
-    for name in ("linear_solver", "linear_precond"):
-        if getattr(params, name) is not None:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                      f"Queue 1 item 4)")
     for name in ("checkpoint_path", "profile_dir", "checkpoint_every"):
         if getattr(params, name):
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
@@ -857,7 +876,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
     fused = p.fuse > 0
     stage = None
     t_start = time.perf_counter()
-    if p.cg_mixed:
+    if p.cg_mixed and p.linear_solver is None:
         if b_op is not None and not isinstance(b_op, DiagOperator):
             raise ValueError("cg_mixed requires B = None or diagonal")
         stage_cg = cg if p.cg_refine <= 1 else replace(
@@ -865,7 +884,8 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         # the fused loop's stages run their whole budget and, on a card,
         # run as one captured graph
         stage = _MixedStage(a_op, b_op, stage_cg, bs, fixed=fused,
-                            capture=fused and device.type == "cuda")
+                            capture=fused and device.type == "cuda",
+                            precond=p.linear_precond)
         if stage.apply32 is None:
             stage = None
     timers = {k: 0.0 for k in ("initX", "checkconv", "compP", "compX",
@@ -1001,7 +1021,8 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             a_op, b_op, v, ritz, ss_eval,
             torch.as_tensor(act_idx, device=device), act_cnt, sigma,
             size_x, bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order,
-            p.cg_mixed, p.cg_refine, p.orth_method, stage=stage)
+            p.cg_mixed, p.cg_refine, p.orth_method, stage=stage,
+            linear_solver=p.linear_solver, precond=p.linear_precond)
         sync()
         timers["compW"] += time.perf_counter() - t0
         timers["linsol"] += time.perf_counter() - t0

@@ -1,5 +1,7 @@
 """Block B-orthonormalization with rank deflation — the counterpart of
-``gcge_tpu/solvers/orth.py`` (EVP method).
+``gcge_tpu/solvers/orth.py``: the EVP kernel (:func:`orth_block`), the
+binary split (:func:`bgs_orth`) and column-wise modified Gram-Schmidt
+(:func:`mgs_orth`).
 
 Shapes stay fixed: the returned multivector has its ``rank`` valid columns
 compacted at the front and exact zeros behind; ``rank`` is a 0-d integer
@@ -113,15 +115,25 @@ def _ns_polish(x, b_matvec=None, precision: str = "f64"):
 
 def orth_within(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
                 ref_scale2=None, method: str = "evp", precision: str = "f64"):
-    """In-block B-orthonormalization.  ``method='evp'``
-    (:func:`orth_block`) is ported; ``'bgs'`` and ``'mgs'`` are not yet."""
+    """In-block B-orthonormalization: ``method='evp'`` (:func:`orth_block`),
+    ``'bgs'`` (:func:`bgs_orth`) or ``'mgs'`` (:func:`mgs_orth`).  bgs and
+    mgs zero dependent columns in place; here the zero columns are moved to
+    the back in a stable order, since GCG's count-based masks take the valid
+    columns to be the first ones.  Returns ``(x, rank)``."""
     if method == "evp":
         return orth_block(x, b_matvec, zero_tol=zero_tol, passes=passes,
                           ref_scale2=ref_scale2, precision=precision)
-    if method in ("bgs", "mgs"):
-        raise NotImplementedError(f"orth method {method!r} is not ported "
-                                  f"yet (ROADMAP Queue 1 item 3)")
-    raise ValueError(f"unknown orth method {method!r}")
+    if method == "bgs":
+        x, rank = bgs_orth(x, b_matvec, zero_tol=zero_tol, passes=passes,
+                           ref_scale2=ref_scale2, precision=precision)
+    elif method == "mgs":
+        _check_precision(precision)
+        x, rank = mgs_orth(x, b_matvec, zero_tol=zero_tol * zero_tol)
+    else:
+        raise ValueError(f"unknown orth method {method!r}")
+    zero = (col_dots(x, x) == 0).to(torch.int8)
+    order = torch.sort(zero, stable=True).indices
+    return x.index_select(1, order), rank
 
 
 def orth_block_against(x, q, b_matvec=None, zero_tol: float = 1e-13,
@@ -145,3 +157,60 @@ def orth_block_against(x, q, b_matvec=None, zero_tol: float = 1e-13,
     # the last within-block recombination can re-amplify span(q) leakage of
     # near-floor directions; one more projection removes it
     return orth_against(x, q, b_matvec, passes=1, precision=precision), rank
+
+
+def bgs_orth(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
+             leaf: int = 16, ref_scale2=None, precision: str = "auto"):
+    """Binary-split B-orthonormalization (the reference's
+    ``BinaryGramSchmidt``): orthonormalize the left half, project it out of
+    the right half, recurse into the right half; blocks of at most ``leaf``
+    columns go to :func:`orth_block`.  Dependent columns are zeroed in
+    place, not compacted across halves; the rank counts the surviving
+    columns.  Deflation is judged against the entry's largest column norm
+    (``ref_scale2``).  The projections and Grams run through
+    :func:`orth_against` and :func:`orth_block` at ``precision`` (``'auto'``:
+    kernels 3 and 4 on the card).  Reads nothing back to the host."""
+    _check_precision(precision)
+    if ref_scale2 is None:
+        bx = x if b_matvec is None else b_matvec(x)
+        ref_scale2 = torch.clamp(col_dots(x, bx).max(), min=1e-30)
+    m = x.shape[1]
+    if m <= leaf:
+        return orth_block(x, b_matvec, zero_tol=zero_tol, passes=passes,
+                          ref_scale2=ref_scale2, precision=precision)
+    half = m // 2
+    left, lrank = bgs_orth(x[:, :half], b_matvec, zero_tol, passes, leaf,
+                           ref_scale2, precision)
+    right = orth_against(x[:, half:], left, b_matvec, passes=passes,
+                         precision=precision)
+    right, rrank = bgs_orth(right, b_matvec, zero_tol, passes, leaf,
+                            ref_scale2, precision)
+    # the right half's recombinations can re-grow left components at
+    # rounding level: one more projection, then a Newton-Schulz polish
+    right = orth_against(right, left, b_matvec, passes=1, precision=precision)
+    right = _ns_polish(right, b_matvec, precision)
+    return torch.cat([left, right], dim=1), lrank + rrank
+
+
+def mgs_orth(x, b_matvec=None, zero_tol: float = 1e-14, reorth: int = 1):
+    """Column-wise modified Gram-Schmidt with deflation (the reference's
+    ``OrthSelf``), a test oracle: a column whose B-norm squared is at most
+    ``zero_tol`` after ``1 + reorth`` sweeps of projections is zeroed in
+    place.  Returns ``(x, rank)``, ``rank`` a 0-d tensor.  Quadratic in the
+    column count; reads nothing back to the host."""
+    def bmv(v):
+        return v if b_matvec is None else b_matvec(v[:, None])[:, 0]
+
+    cols = []
+    rank = torch.zeros((), dtype=torch.int64, device=x.device)
+    for k in range(x.shape[1]):
+        v = x[:, k]
+        for _ in range(1 + reorth):
+            for q in cols:
+                v = v - q * (q @ bmv(v))
+        nrm2 = v @ bmv(v)
+        ok = nrm2 > zero_tol
+        v = v * torch.where(ok, torch.rsqrt(torch.where(ok, nrm2, 1.0)), 0.0)
+        cols.append(v)
+        rank = rank + ok
+    return torch.stack(cols, dim=1), rank

@@ -12,11 +12,13 @@ import scipy.sparse as sps
 import torch
 
 from gcge_tpu_torch import HybridOperator, make_operator, solve
-from gcge_tpu_torch.io.fem import assemble_p1, random_delaunay_mesh
+from gcge_tpu_torch.io.fem import (assemble_p1, cube_fem_laplacian,
+                                   random_delaunay_mesh)
 from gcge_tpu_torch.benchmarks.pallas_isolate import make_planes
 from gcge_tpu_torch.ops import _build, onehot, osgemm, probes, spmm
-from gcge_tpu_torch.solvers import gcg
+from gcge_tpu_torch.solvers import gcg, multigrid
 from gcge_tpu_torch.solvers.bpcg import BlockPCGParams
+from gcge_tpu_torch.solvers.orth import bgs_orth
 
 pytestmark = pytest.mark.cuda
 
@@ -783,3 +785,127 @@ def test_fused_solve_on_card_matches_phased_and_cpu(cuda):
     assert conv_f == conv_p >= 10 and conv_c >= 10
     assert np.max(np.abs(ev_f - ev_p) / np.abs(ev_p)) <= 1e-10
     assert np.max(np.abs(ev_f - ev_c) / np.abs(ev_c)) <= 1e-10
+
+
+def _fem_hierarchy(nx, device):
+    """The cube FEM pair's hierarchy at ``nx`` (four levels at nx=12: DIA,
+    Hybrid, CSR and DIA operators, CSR transfers)."""
+    rows, cols, av, bv, n = cube_fem_laplacian(nx)
+    return multigrid.build_hierarchy(rows, cols, av, n, b_vals=bv,
+                                     device=device), n
+
+
+@pytest.mark.parametrize("smoother", ["chebyshev", "cg"])
+def test_vcycle_on_card_matches_cpu(cuda, smoother):
+    """One V-cycle (and ``bamg_preconditioner``'s) on the card against the
+    same on the CPU: 1e-12 of the largest entry; kernels 1 and 6 launched
+    (the fine DIA level, the CSR level and the transfers)."""
+    h_gpu, n = _fem_hierarchy(12, cuda)
+    h_cpu, _ = _fem_hierarchy(12, "cpu")
+    assert [type(lv.a_op).__name__ for lv in h_gpu.levels] == \
+        ["DiaOperator", "HybridOperator", "CsrOperator", "DiaOperator"]
+    rng = np.random.default_rng(0)
+    b = rng.standard_normal((n, 10))
+    spmm.LAUNCHES["dia_f64"] = onehot.LAUNCHES["csr_f64"] = 0
+    got = multigrid._vcycle(h_gpu, 0, torch.as_tensor(b, device=cuda),
+                            torch.zeros((n, 10), dtype=torch.float64,
+                                        device=cuda), (2, 2, 2, 2), 30,
+                            1e-16, 1e-13, smoother)
+    ref = multigrid._vcycle(h_cpu, 0, torch.as_tensor(b),
+                            torch.zeros((n, 10), dtype=torch.float64),
+                            (2, 2, 2, 2), 30, 1e-16, 1e-13, smoother)
+    assert spmm.LAUNCHES["dia_f64"] > 0 and onehot.LAUNCHES["csr_f64"] > 0
+    scale = ref.abs().max()
+    assert (got.cpu() - ref).abs().max() <= 1e-12 * scale
+    pre = multigrid.bamg_preconditioner(h_gpu)(torch.as_tensor(b, device=cuda))
+    pre_ref = multigrid.bamg_preconditioner(h_cpu)(torch.as_tensor(b))
+    assert (pre.cpu() - pre_ref).abs().max() <= 1e-12 * pre_ref.abs().max()
+
+
+def test_captured_cg_stage_with_preconditioner_matches_eager(cuda):
+    """The f32 CG stage with ``bamg_preconditioner`` inside it, replayed
+    from its CUDA graph, against the same stage run eagerly: equal bits over
+    several residuals, masks and shifts; a replay counts the V-cycle's
+    kernel-1 and kernel-6 launches."""
+    h, n = _fem_hierarchy(12, cuda)
+    op = h.levels[0].a_op
+    pre = multigrid.bamg_preconditioner(h)
+    bs = 10
+    cg = BlockPCGParams(max_iter=15, rate=1e-2, tol=1e-14)
+    captured = gcg._MixedStage(op, None, cg, bs, fixed=True, capture=True,
+                               precond=pre)
+    eager = gcg._MixedStage(op, None, cg, bs, fixed=True, capture=False,
+                            precond=pre)
+    assert captured.graph is not None and captured.transposed
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for trial, active in enumerate((10, 6)):
+        r = torch.randn((n, bs), generator=g, dtype=torch.float64,
+                        device=cuda)
+        mask = torch.arange(bs, device=cuda) < active
+        sigma = torch.full((), -5.0 + trial, dtype=torch.float64,
+                           device=cuda)
+        was = dict(onehot.LAUNCHES)
+        d_cap, k_cap = captured(r, mask, sigma)
+        assert onehot.LAUNCHES["csr_f64"] > was["csr_f64"]
+        d_eag, k_eag = eager(r, mask, sigma)
+        assert torch.equal(d_cap, d_eag)
+        assert int(k_cap) == int(k_eag)
+        assert torch.isfinite(d_cap).all()
+
+
+@pytest.mark.parametrize("m", [12, 40])
+def test_bgs_orth_on_card_matches_cpu(cuda, m):
+    """``bgs_orth`` on the card (kernels 3 and 4 in its projections)
+    against the CPU: equal rank, the same zero columns, the span to 1e-12,
+    B-orthonormal to 1e-12."""
+    n = 5000
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((n, m))
+    x[:, 5] = x[:, 2] + 0.5 * x[:, 1]
+    d = rng.uniform(0.5, 2.0, n)
+    d_gpu = torch.as_tensor(d, device=cuda)
+    osgemm.LAUNCHES["gram"] = osgemm.LAUNCHES["expand"] = 0
+    q_gpu, r_gpu = bgs_orth(torch.as_tensor(x, device=cuda),
+                            lambda v: d_gpu[:, None] * v)
+    assert osgemm.LAUNCHES["gram"] > 0 and osgemm.LAUNCHES["expand"] > 0
+    q_cpu, r_cpu = bgs_orth(torch.as_tensor(x),
+                            lambda v: torch.as_tensor(d)[:, None] * v)
+    assert int(r_gpu) == int(r_cpu) == m - 1
+    q, qc = q_gpu.cpu().numpy(), q_cpu.numpy()
+    keep = np.abs(qc).max(axis=0) > 0
+    assert np.array_equal(np.abs(q).max(axis=0) > 0, keep)
+    q, qc = q[:, keep], qc[:, keep]
+    assert np.abs(q.T @ (d[:, None] * q) - np.eye(m - 1)).max() <= 1e-12
+    assert np.abs(q @ (q.T * d[None, :]) - qc @ (qc.T * d[None, :])).max() \
+        <= 1e-12
+
+
+@pytest.mark.parametrize("m", [1, 10, 75])
+def test_csr_kernel_on_rectangular_transfers(cuda, m):
+    """Kernel 6 on the hierarchy's rectangular P and R (at nx=24 the last
+    restriction's rows reach 1,236 entries, past the tile budget of 1,024)
+    against the plain version on the same card: 1e-14 of max |P| |x|, in
+    the (n, m) layout and transposed, equal bits across two launches."""
+    h, _ = _fem_hierarchy(24, cuda)
+    longest = h.levels[-2].r_op.rowptr.diff().max()
+    assert int(longest) > onehot.CSR_BUDGET
+    for lv in h.levels[:-1]:
+        for op in (lv.p_op, lv.r_op):
+            assert isinstance(op, onehot.CsrOperator)
+            assert op.shape[0] != op.shape[1]
+            for transposed in (False, True):
+                g = torch.Generator(device=cuda).manual_seed(m)
+                x = torch.randn((op.shape[1], m), generator=g,
+                                dtype=torch.float64, device=cuda)
+                if transposed:
+                    x = x.T.contiguous()
+                got = onehot.csr_spmm(op.rowptr, op.colidx, op.values, x,
+                                      transposed, op.plan)
+                ref = onehot.csr_spmm_reference(op.rowptr, op.colidx,
+                                                op.values, x, transposed)
+                scale = onehot.csr_spmm_reference(
+                    op.rowptr, op.colidx, op.values.abs(), x.abs(),
+                    transposed).max()
+                assert (got - ref).abs().max() <= 1e-14 * scale
+                assert torch.equal(got, onehot.csr_spmm(
+                    op.rowptr, op.colidx, op.values, x, transposed, op.plan))

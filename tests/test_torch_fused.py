@@ -350,7 +350,8 @@ def test_chunk_reads_nothing_back(monkeypatch):
     """Inside ``_gcg_chunk`` every way of reading a tensor's value on the
     host raises, except inside ``safe_eigh``'s own region: the solve still
     runs, so the port's code reads nothing back between a chunk's start and
-    its end."""
+    its end; also with an AMG V-cycle preconditioning the f64 inner CG and
+    the f32 stages of the mixed one."""
     armed = {"on": False, "chunks": 0}
 
     def guarded(name, method):
@@ -391,9 +392,34 @@ def test_chunk_reads_nothing_back(monkeypatch):
     with pytest.raises(AssertionError, match="item"):
         torch.ones(()).item()
     armed["on"] = False
-    for name in ("diagonal_b", "restart_growth"):
-        (a_op, b_op), _, kw, x0 = _case(name)
+    for name in ("diagonal_b", "restart_growth", "amg", "amg_mixed"):
+        if name.startswith("amg"):
+            (a_op, b_op), _, kw, x0 = _case("diagonal_b" if name == "amg_mixed"
+                                            else "csr")
+            kw = dict(kw, linear_precond=_csr_amg(a_op))
+        else:
+            (a_op, b_op), _, kw, x0 = _case(name)
         before = armed["chunks"]
         res = gcg_solve(a_op, b_op, GCGParams(**kw), x0=x0)
         assert res.nev_conv >= kw["nev"]
         assert armed["chunks"] - before == len(res.history) > 1
+
+
+def _csr_amg(a_op):
+    """``bamg_preconditioner`` on the hierarchy of a CSR operator, every
+    level's operator a CSR one: the plain DIA product reads its offsets to
+    the host on the CPU (on a card the kernel does not), which would trip
+    the guard above."""
+    from gcge_tpu_torch.solvers import multigrid
+
+    dense = a_op.to_dense().numpy()
+    rows, cols = np.nonzero(dense)
+    hier = multigrid.build_hierarchy(rows, cols, dense[rows, cols],
+                                     dense.shape[0], max_levels=3,
+                                     min_coarse=16, device="cpu")
+    assert hier.num_levels == 3
+    for lv in hier.levels:
+        a = lv.a_op.to_dense().numpy()
+        r, c = np.nonzero(a)
+        lv.a_op = CsrOperator.from_coo(r, c, a[r, c], a.shape, device="cpu")
+    return multigrid.bamg_preconditioner(hier)

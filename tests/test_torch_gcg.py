@@ -180,10 +180,13 @@ def test_options_not_ported_raise(stencil10):
             gcg_solve(op, None, GCGParams(nev=4, **kw))
     with pytest.raises(NotImplementedError, match="item 12"):
         gcg_solve(op, None, GCGParams(nev=4), mesh=object())
+    # multigrid and method="pas" run since they were ported
+    # (tests/test_torch_multigrid.py, tests/test_torch_pas.py)
     a = sps.identity(50, format="csr")
-    for kw in (dict(distribute=True), dict(multigrid=2), dict(method="pas")):
-        with pytest.raises(NotImplementedError):
-            gcge_tpu_torch.solve(a, nev=2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute=True)
+    with pytest.raises(ValueError, match="unknown method"):
+        gcge_tpu_torch.solve(a, nev=2, device="cpu", method="lobpcg")
     with pytest.raises(ValueError, match="exceeds"):
         GCGParams(nev=30).resolved(50)
 
@@ -256,10 +259,8 @@ def _laplacian_solve(**kw):
 # field: (values that run, (value, exception, message) that raise); the
 # values that run change nothing: gcge_tpu gives them this meaning off the TPU
 _FIELDS = {
-    "linear_solver": ([None], [(lambda *a: a[1], NotImplementedError,
-                                "item 4")]),
-    "linear_precond": ([None], [(lambda r: r, NotImplementedError,
-                                 "item 4")]),
+    "linear_solver": ([None], []),
+    "linear_precond": ([None], []),
     "checkpoint_every": ([0], [(5, NotImplementedError, "item 11")]),
     "rr_warm": (["auto", "off"], [("struct", NotImplementedError, "item 12"),
                                   ("warm", ValueError, "rr_warm")]),
@@ -280,13 +281,63 @@ _FIELDS = {
 }
 
 
+def _user_solver(block_pcg, params_cls, **cg):
+    """The user inner solver of ``tests/test_gcg.py``: a block CG of its
+    own budget, from either package."""
+    def solver(matvec, rhs, x0, active):
+        x, _ = block_pcg(matvec, rhs, x0, params_cls(**cg), active0=active)
+        return x
+    return solver
+
+
+def _matched_values(name):
+    """The values of ``linear_solver``/``linear_precond`` that change the
+    solve, for the port and for ``gcge_tpu``: a user block CG (budget 40,
+    rate 1e-3) and a diagonal preconditioner."""
+    from gcge_tpu.solvers.bpcg import BlockPCGParams as JCG
+    from gcge_tpu.solvers.bpcg import block_pcg as j_block_pcg
+    from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg
+
+    if name == "linear_solver":
+        cg = dict(max_iter=40, rate=1e-3, tol=1e-14)
+        return (_user_solver(block_pcg, BlockPCGParams, **cg),
+                _user_solver(j_block_pcg, JCG, **cg))
+    # a diagonal preconditioner that is not a multiple of the identity (a
+    # multiple would leave the CG's iterates as they are)
+    d = 0.5 + 0.25 * np.cos(np.arange(60))
+    return (lambda r: torch.as_tensor(d)[:, None] * r,
+            lambda r: jnp.asarray(d)[:, None] * r)
+
+
 @pytest.mark.parametrize("name", list(_FIELDS))
 def test_params_field_runs_or_raises(name):
     """Each of the eight fields the port took from ``gcge_tpu.GCGParams``:
     the accepted values construct and solve a small problem with the
     default's bits, on both loops; the others raise, a value not ported
-    naming its ROADMAP item, before the solve starts."""
+    naming its ROADMAP item, before the solve starts.  ``linear_solver``
+    and ``linear_precond`` (ported since) also run with a value that
+    changes the solve, and match ``gcge_tpu`` on the same starting block:
+    iterations within one, eigenvalues 1e-10, the fused loop the phased
+    loop's eigenvalues."""
     runs, raises = _FIELDS[name]
+    if name in ("linear_solver", "linear_precond"):
+        ours, theirs = _matched_values(name)
+        n = 60
+        a = sps.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                      [-1, 0, 1], format="csr").tocoo()
+        x0 = np.random.default_rng(3).uniform(-1, 1, (n, 6))
+        kw = dict(nev=3, block_size=3, max_iter=60, verbose=0)
+        jr = j_gcg_solve(j_make_operator(a.row, a.col, a.data, (n, n)), None,
+                         JParams(**kw, **{name: theirs}), x0=jnp.asarray(x0))
+        op = make_operator(a.row, a.col, a.data, (n, n), device="cpu")
+        phased = gcg_solve(op, None, GCGParams(**kw, **{name: ours}), x0=x0)
+        fused = gcg_solve(op, None, GCGParams(**kw, **{name: ours}, fuse=2),
+                          x0=x0)
+        assert abs(phased.num_iter - jr.num_iter) <= 1
+        _assert_parity(phased.eval, phased.nev_conv, None, jr.eval,
+                       jr.nev_conv, None, 3)
+        assert fused.num_iter == phased.num_iter
+        np.testing.assert_array_equal(fused.eval, phased.eval)
     base = _laplacian_solve()
     assert base.nev_conv >= 3
     for value in runs:
@@ -301,3 +352,28 @@ def test_params_field_runs_or_raises(name):
         with pytest.raises(exc, match=match):
             gcge_tpu_torch.solve(sps.identity(40, format="csr"), nev=2,
                                  device="cpu", verbose=0, **{name: value})
+
+
+@pytest.mark.parametrize("method", ["evp", "bgs", "mgs"])
+def test_orth_method_variants_match_jax(method):
+    """GCG with each in-block orthonormalization (``tests/test_gcg.py``'s
+    orth-method case, n=600, nev=5, block 3) against ``gcge_tpu`` from the
+    same starting block: converged, iterations within 2, eigenvalues 1e-10
+    of its and 1e-8 of the closed form; the fused loop the phased loop's
+    eigenvalues."""
+    n = 600
+    a = sps.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                  [-1, 0, 1], format="csr").tocoo() * (n + 1)
+    x0 = np.random.default_rng(4).uniform(-1, 1, (n, 10))
+    kw = dict(nev=5, block_size=3, verbose=0, orth_method=method)
+    jr = j_gcg_solve(j_make_operator(a.row, a.col, a.data, (n, n)), None,
+                     JParams(**kw), x0=jnp.asarray(x0))
+    op = make_operator(a.row, a.col, a.data, (n, n), device="cpu")
+    tr = gcg_solve(op, None, GCGParams(**kw), x0=x0)
+    _assert_parity(tr.eval, tr.nev_conv, tr.num_iter, jr.eval, jr.nev_conv,
+                   jr.num_iter, 5, equal_conv=False)
+    exact = (n + 1) * (2 - 2 * np.cos(np.arange(1, 6) * np.pi / (n + 1)))
+    np.testing.assert_allclose(tr.eval[:5], exact, rtol=1e-8)
+    fused = gcg_solve(op, None, GCGParams(**kw, fuse=4), x0=x0)
+    assert fused.num_iter == tr.num_iter
+    np.testing.assert_array_equal(fused.eval, tr.eval)
