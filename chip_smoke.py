@@ -6,9 +6,10 @@
 Nine kernels, four solves (the headline and the irregular problem, each by
 the phased and by the fused loop), the two kernel measurement scripts, the
 multilevel path on the cube FEM pair (GCG preconditioned by an AMG V-cycle,
-standard and generalized, and the PAS solver) and a check that a fused chunk
-never waits for the device outside ``eigh``.  Phases, each of which raises
-on failure:
+standard and generalized, and the PAS solver), a check that a fused chunk
+never waits for the device outside ``eigh``, kernels 1 and 2 on halo
+windows, the row-sharded solves on a one-rank NCCL mesh and the utils.
+Phases, each of which raises on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
    ``gcge_tpu_torch/ops/csrc`` and print the build time; check one 16 x 8 x 8
@@ -97,6 +98,28 @@ on failure:
     and ``X^T B X = I`` to 1e-10) and its 50 eigenvalues to 1e-9 of the plain
     solve; then kernel 6 at the coarse levels' own operands (rows past its
     tile budget), timed like the other rows.
+
+13. halo kernels — right after phase 2: kernels 1 and 2 on the halo windows
+    of the headline operator cut into 4 row blocks of 39,366 rows (hl = hr
+    = 2,971, zeros past the ends), contiguous windows of 10 columns (kernel
+    2 in the CG stage's (10, nw) / (nw, 10) layout), each against its plain
+    version and against the block's rows of the unsharded product, timed
+    beside the square product of the same rows; then halo (0, 0) against
+    the product on x between zero halos, bit for bit;
+14. distributed — a one-rank NCCL group (``parallel.multihost.bootstrap``
+    on ``tcp://127.0.0.1:<free port>``, destroyed after the phase): the
+    headline problem through ``gcg_solve(shard_operator(op, mesh),
+    mesh=mesh)`` by the phased and the fused loop, and the RCM-ordered
+    irregular problem through the sharded CSR operator by the phased loop,
+    each beside the undistributed solve of the same run: the same converged
+    count, eigenvalues within 1e-9, host residuals of 2e-8, kernels 1 and 2
+    (5 and 6) launched through the window; the fused one with the
+    undistributed fused solve's bits;
+15. utils — on the headline fused solve: a checkpoint every 5 iterations,
+    reloaded, and a resume from it in fewer iterations (under
+    ``profile_dir``, whose trace it checks); ``MemWatch``'s peak;
+    ``leak_check`` of a steady-state solve; ``python -m
+    gcge_tpu_torch.utils.cli -fem_nx 12`` in a subprocess.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; 10 iterations of
@@ -1577,6 +1600,301 @@ def profile_multilevel(torch, a, b):
                                         **PAS_KWARGS).sweeps))
 
 
+# --------------------------------------------------------------------------
+# the row-sharded path: kernels 1 and 2 on halo windows, a one-rank NCCL
+# mesh, and the utils
+# --------------------------------------------------------------------------
+
+HALO_BLOCKS = 4              # row blocks of the headline operator
+CLI_EXTRA = []               # more flags of the CLI run (none on a card)
+
+
+def phase_kernels_halo(torch, log, rows, cols, vals, n):
+    """Kernels 1 and 2 on the halo windows of the headline operator cut into
+    HALO_BLOCKS row blocks, as four ranks of a sharded DIA operator hold it:
+    each block's value rows, and its window of x (the rank's rows between
+    hl = -min(off) rows of the left neighbour and hr = max(off) of the
+    right one, zeros past the ends), contiguous (ln + hl + hr, 10) as the
+    sharded operator assembles it; kernel 2 at the CG stage's layout, (10,
+    nw) in shape and (nw, 10) in memory.  Each against its plain version
+    and against the block's rows of the unsharded product, timed beside the
+    square product (halo (0, 0)) of the same block's rows; then halo (0, 0)
+    against a zero-padded window, bit for bit."""
+    from gcge_tpu_torch import make_operator
+    from gcge_tpu_torch.ops import spmm
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    op = make_operator(rows, cols, vals, (n, n), device=dev)
+    offs = op.offsets_t
+    hl, hr = -min(op.offsets), max(op.offsets)
+    ln = n // HALO_BLOCKS
+    if ln * HALO_BLOCKS != n or hl > ln or hr > ln:
+        raise AssertionError("the headline operator does not split into "
+                             f"{HALO_BLOCKS} blocks with their halos")
+    x_full = torch.randn((n, BS), generator=gen, dtype=torch.float64,
+                         device=dev)
+    x_pad = torch.nn.functional.pad(x_full, (0, 0, hl, hr))
+    for dtype, key, tol in ((torch.float64, "dia_f64", 1e-14),
+                            (torch.float32, "dia_f32", 1e-5)):
+        item = torch.empty((), dtype=dtype).element_size()
+        values = op.values.to(dtype)
+        xp = x_pad.to(dtype)
+        transposed = dtype == torch.float32
+        xs = xp[hl:hl + n].contiguous()                      # (n, 10)
+        whole = spmm.dia_spmm(values, offs, xs.T if transposed else xs,
+                              transposed)
+        whole = whole.T if transposed else whole
+        exact = True
+        for b in range(HALO_BLOCKS):
+            r0 = b * ln
+            vb = values[:, r0:r0 + ln].contiguous()
+            win = xp[r0:r0 + ln + hl + hr].contiguous()     # (nw, 10)
+            sq = xp[hl + r0:hl + r0 + ln].contiguous()
+            if transposed:
+                win, sq = win.T, sq.T                        # (10, nw) views
+            nnz = int(torch.count_nonzero(vb))
+
+            def halo_kernel(vb=vb, win=win):
+                return spmm.dia_spmm(vb, offs, win, transposed, (hl, hr))
+
+            def square_kernel(vb=vb, sq=sq):
+                return spmm.dia_spmm(vb, offs, sq, transposed)
+
+            # the library call: torch.sparse.mm of the block's rows as a
+            # (ln, nw) CSR matrix over the window, in the (nw, 10) layout
+            i = torch.arange(ln, device=dev).repeat(len(op.offsets))
+            j = i + hl + offs.long().repeat_interleave(ln)
+            keep = vb.reshape(-1) != 0
+            lib = torch.sparse_coo_tensor(
+                torch.stack([i[keep], j[keep]]), vb.reshape(-1)[keep],
+                (ln, ln + hl + hr)).coalesce().to_sparse_csr()
+            win_nm = win.T.contiguous() if transposed else win
+
+            got = halo_kernel()
+            twice_equal(torch, halo_kernel, f"{key} halo block {b}")
+            rows_whole = whole[r0:r0 + ln]
+            got_n = got.T if transposed else got
+            exact = exact and torch.equal(got_n, rows_whole)
+            diff = float((got_n - rows_whole).abs().max())
+            scale = spmm.dia_spmm_reference(vb.abs(), offs, win.abs(),
+                                            transposed, (hl, hr)).max()
+            if not diff <= tol * float(scale):
+                raise AssertionError(f"{key} halo block {b}: {diff:.3e} off "
+                                     "the unsharded product's rows")
+            label = (f"{key} halo block {b} ({ln} rows, halo ({hl}, {hr})) "
+                     f"m={BS} strides {tuple(win.stride())}")
+            log.run(key, label, halo_kernel,
+                    lambda vb=vb, win=win: spmm.dia_spmm_reference(
+                        vb, offs, win, transposed, (hl, hr)),
+                    scale, tol,
+                    item * (vb.numel() + (2 * ln + hl + hr) * BS)
+                    + 4 * len(op.offsets), 2.0 * nnz * BS,
+                    library=lambda lib=lib, win_nm=win_nm: torch.sparse.mm(
+                        lib, win_nm))
+            halo_ms = log.last["ms"]
+            sq_scale = spmm.dia_spmm_reference(vb.abs(), offs, sq.abs(),
+                                               transposed).max()
+            log.run(key, f"{key} square block {b} ({ln} rows, halo (0, 0))",
+                    square_kernel,
+                    lambda vb=vb, sq=sq: spmm.dia_spmm_reference(
+                        vb, offs, sq, transposed), sq_scale, tol,
+                    item * (vb.numel() + 2 * ln * BS)
+                    + 4 * len(op.offsets), 2.0 * nnz * BS)
+            print(f"{key} block {b}: halo window {halo_ms:.4f} ms beside the "
+                  f"square product of the same rows {log.last['ms']:.4f} ms "
+                  f"({halo_ms / log.last['ms']:.2f} times)")
+        print(f"{key}: the {HALO_BLOCKS} halo blocks equal the unsharded "
+              f"product's rows {'bit for bit' if exact else 'to ' + str(tol)}")
+        # halo (0, 0) is the square product: its bits on x equal those of
+        # the window product on x between zero halos
+        xw = xp.clone()
+        xw[:hl] = 0
+        xw[hl + n:] = 0
+        if transposed:
+            xs, xw = xs.T, xw.T
+        square = spmm.dia_spmm(values, offs, xs, transposed)
+        window = spmm.dia_spmm(values, offs, xw, transposed, (hl, hr))
+        if not torch.equal(square, window):
+            raise AssertionError(f"{key}: halo (0, 0) is not the zero-padded "
+                                 "window's product")
+        print(f"{key}: halo (0, 0) at n={n} equals the product on x between "
+              f"zero halos ({hl}, {hr}) bit for bit")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_solve(torch, tag, a_op, a_csr, params, mesh):
+    """``gcg_solve`` of ``a_op`` without a mesh, then of
+    ``shard_operator(a_op, mesh)`` on the one-rank mesh, in one run: walls
+    side by side; the distributed solve's gates (the undistributed solve's
+    converged count, eigenvalues within 1e-9 of it, host residuals of 2e-8,
+    kernels 1/2 or 5/6 launched through the window).  Returns the
+    distributed solve's launches."""
+    from gcge_tpu_torch import gcg_solve
+    from gcge_tpu_torch.parallel import dist_ops, shard_operator
+    from gcge_tpu_torch.solvers import gcg
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = gcg_solve(a_op, None, params)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    sharded = shard_operator(a_op, mesh)
+    reset_counters()
+    dist_ops.WINDOWED.update({k: 0 for k in dist_ops.WINDOWED})
+    gcg.GRAPH_REPLAYS["cg_stage"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gcg_solve(sharded, None, params, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    windowed = dict(dist_ops.WINDOWED)
+    replays = gcg.GRAPH_REPLAYS["cg_stage"]
+    ev = res.eval[:NEV]
+    rel = float(np.max(np.abs(ev - plain.eval[:NEV]) / np.abs(plain.eval[:NEV])))
+    bits = np.array_equal(res.eval, plain.eval) and \
+        torch.equal(res.evec, plain.evec)
+    res_h = residuals(a_csr, ev, res.evec[:, :NEV].cpu().numpy())
+    print(f"{tag}: wall {wall:.3f} s on the one-rank mesh beside {wall_plain:.3f}"
+          f" s without one; {res.num_iter} iterations (without: "
+          f"{plain.num_iter}), nev_conv {res.nev_conv} (without: "
+          f"{plain.nev_conv}); eigenvalues vs the undistributed solve max rel "
+          f"diff {rel:.3e} (tol 1e-9), {'equal' if bits else 'not equal'} "
+          f"bits; host residuals max {res_h.max():.3e} (tol 2e-8); windowed "
+          f"products {windowed}; CG stage graph replays {replays}; launches "
+          f"{launches}")
+    if res.nev_conv < NEV or res.nev_conv != plain.nev_conv:
+        raise AssertionError(f"{tag}: nev_conv {res.nev_conv}, undistributed "
+                             f"{plain.nev_conv}")
+    if not rel <= 1e-9 or not res_h.max() <= 2e-8:
+        raise AssertionError(f"{tag}: eigenvalues or residuals off")
+    kind = "dia" if sharded.kind == "dia" else "csr"
+    idle = [k for k in (f"{kind}_f64", f"{kind}_f32") if windowed[k] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: no product through the window: {idle}")
+    return launches, replays, bits
+
+
+def phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm):
+    """The row-sharded path on a one-rank NCCL group (one card cannot hold
+    two NCCL ranks): the headline problem by the phased and the fused loop,
+    the irregular problem (RCM-ordered, the sharded CSR operator) by the
+    phased loop, each beside the undistributed solve of the same run.  At
+    one rank the all_reduce and broadcast are copies and the window holds
+    zeros past the ends, so the distributed fused solve (the CG stage
+    captured with its all_reduce, or eager where the card refuses) has the
+    bits of the undistributed fused solve (captured): the check that eager
+    and captured agree under the mesh."""
+    import torch.distributed as dist
+
+    from gcge_tpu_torch import CsrOperator, GCGParams, make_operator
+    from gcge_tpu_torch.parallel import bootstrap, row_mesh
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    bootstrap(f"tcp://127.0.0.1:{_free_port()}", 1, 0, DEVICE)
+    paths = {}
+    try:
+        mesh = row_mesh()
+        # the parameters solve() tunes on a card for this problem
+        tuned = dict(cg_auto_shift=True, cg_refine=2, cg_mixed=True,
+                     verbose=0)
+        op = make_operator(rows, cols, vals, (n, n), device=dev)
+        for fuse, tag in ((0, "distributed headline"),
+                          (HEADLINE_FUSE, "distributed fused headline")):
+            params = GCGParams(**dict(HEADLINE_KWARGS, fuse=fuse, **tuned))
+            launches, replays, bits = dist_solve(torch, tag, op, a_csr,
+                                                 params, mesh)
+            if fuse and not bits:
+                raise AssertionError("the one-rank fused solve does not have "
+                                     "the undistributed fused solve's bits")
+            paths[tag.replace(" ", "_")] = launches
+        coo = a_rcm.tocoo()
+        csr = CsrOperator.from_coo(coo.row, coo.col, coo.data, a_rcm.shape,
+                                   device=dev)
+        params = GCGParams(**dict(IRREGULAR_KWARGS, fuse=0, **dict(
+            tuned, cg_refine=IRREGULAR_KWARGS["cg_refine"])))
+        paths["distributed_irregular"], _, _ = dist_solve(
+            torch, "distributed irregular", csr, a_rcm, params, mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"distributed phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def phase_utils(torch, a_csr, rows, cols, vals, n):
+    """The utils on the headline fused solve: a checkpoint every 5
+    iterations, reloaded, and a resume from its Ritz vectors that needs
+    fewer iterations; ``profile_dir`` writes a trace; ``MemWatch`` prints
+    the peak; ``leak_check`` of a second solve finds no new bytes; and the
+    CLI module in a subprocess."""
+    import tempfile
+
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+    from gcge_tpu_torch.utils import checkpoint, meminfo
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    op = make_operator(rows, cols, vals, (n, n), device=dev)
+    params = GCGParams(**dict(HEADLINE_KWARGS, fuse=HEADLINE_FUSE,
+                              cg_auto_shift=True, cg_refine=2, cg_mixed=True,
+                              verbose=0))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "gcg_ck.npz")
+        with meminfo.MemWatch("headline fused solve with checkpoints",
+                              device=dev) as watch:
+            full = gcg_solve(op, None, GCGParams(**dict(
+                params.__dict__, checkpoint_path=ck, checkpoint_every=5)))
+        if watch.after.peak_bytes_in_use is None:
+            raise AssertionError("MemWatch read no allocator peak")
+        ev_ck, evec, conv_ck, meta = checkpoint.load_checkpoint(ck, dev)
+        trace_dir = os.path.join(tmp, "trace")
+        resumed = gcg_solve(op, None, GCGParams(**dict(
+            params.__dict__, profile_dir=trace_dir)), x0=evec[:, :NEV])
+        trace = os.path.join(trace_dir, "gcg_trace.json")
+        trace_mb = os.path.getsize(trace) / 2 ** 20
+        print(f"utils: checkpoint (every 5 iterations) of a {full.num_iter}"
+              f"-iteration solve: nev_conv {conv_ck}, {evec.shape[1]} Ritz "
+              f"vectors, params {len(meta)}; the resume from it: "
+              f"{resumed.num_iter} iterations, nev_conv {resumed.nev_conv}; "
+              f"its profile trace {trace_mb:.1f} MiB")
+        rel = float(np.max(np.abs(resumed.eval[:NEV] - full.eval[:NEV])
+                           / np.abs(full.eval[:NEV])))
+        if resumed.nev_conv < NEV or not resumed.num_iter < full.num_iter \
+                or not rel <= 1e-9 or trace_mb <= 0:
+            raise AssertionError(f"utils: the resume ({resumed.num_iter} "
+                                 f"iterations, eigenvalues {rel:.3e} off) or "
+                                 "the trace failed")
+
+    def run():
+        gcg_solve(op, None, params)
+
+    report = meminfo.leak_check(run, device=dev)
+    print(f"utils: leak_check of a steady-state fused headline solve: "
+          f"{report.new_arrays} new tensors, {report.new_bytes} new bytes")
+    t1 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "gcge_tpu_torch.utils.cli", "-fem_nx", "12",
+         "-gcge_print_conv", "0"] + CLI_EXTRA, cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    lams = [line for line in out.stdout.splitlines()
+            if line.strip().startswith("[")]
+    print(f"utils: python -m gcge_tpu_torch.utils.cli -fem_nx 12: exit "
+          f"{out.returncode}, {len(lams)} eigenvalues in "
+          f"{time.perf_counter() - t1:.1f} s, the first {lams[:3]}")
+    if out.returncode != 0 or not lams:
+        raise AssertionError(f"the CLI failed:\n{out.stderr[-2000:]}")
+    print(f"utils phase: {time.perf_counter() - t0:.1f} s")
+
+
 KERNELS = (  # key, source, the TPU kernel it replaces
     ("dia_f64", "gcge_tpu_torch/ops/csrc/dia_spmm.cu",
      "gcge_tpu/ops/spmm_pallas.py:207"),
@@ -1619,6 +1937,9 @@ def main(argv) -> int:
     a_csr = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
     paths = {}
     phase_kernels_headline(torch, log, rows, cols, vals, n)
+    t0 = time.perf_counter()
+    phase_kernels_halo(torch, log, rows, cols, vals, n)
+    print(f"halo kernel phase: {time.perf_counter() - t0:.1f} s")
     phase_kernels_probes(torch, log)
     paths["scripts"] = phase_scripts()
     paths["headline"], ev_headline = phase_headline(torch, log, a_csr, 0)
@@ -1632,6 +1953,8 @@ def main(argv) -> int:
     paths["fused_irregular"] = phase_irregular_fused(torch, log, a,
                                                      ev_irregular)
     phase_launch_floor(torch, log)
+    paths.update(phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm))
+    phase_utils(torch, a_csr, rows, cols, vals, n)
     t0 = time.perf_counter()
     fem_a, fem_b = build_fem(FEM_NX)
     paths["amg"], hier, _ = phase_amg(torch, log, fem_a, None)

@@ -5,7 +5,9 @@ prebuilt operator, packs it for the given ``device`` (DIA when the pattern is
 banded — optionally after RCM reordering — Hybrid or CSR otherwise), runs GCG
 (optionally preconditioned by an AMG V-cycle) or the multilevel PAS solver,
 and returns ``(eval, evec, nev_conv)`` in the caller's row order.  The device
-is always the caller's choice: there is no silent move to the CPU.
+is always the caller's choice: there is no silent move to the CPU.  With
+``distribute=True`` every rank of the default process group calls it and
+the solve is row-sharded over them (:mod:`gcge_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from gcge_tpu_torch.ops.operators import (DenseOperator, DiagOperator,
                                           DiaOperator, HybridOperator,
                                           IdentityOperator, LinearOperator,
                                           SparseOperator, make_operator)
+from gcge_tpu_torch.parallel import (gather_rows, pad_problem, row_mesh,
+                                     shard_operator)
 from gcge_tpu_torch.solvers import multigrid as mg
 from gcge_tpu_torch.solvers.gcg import GCGParams, gcg_solve
 from gcge_tpu_torch.solvers.pas import pas_solve
@@ -119,6 +123,25 @@ def _hierarchy(a, b, perm, max_levels: int, method: str, dtype, device):
                               dtype=dtype, device=device)
 
 
+def _distribution(distribute, multigrid, method: str, device):
+    """The row mesh of ``solve(distribute=...)`` over the default process
+    group, or None where the group has one rank (``gcge_tpu`` runs its plain
+    path on one device).  No initialized group raises: a distributed call
+    never goes on undistributed in silence."""
+    if distribute == "grid":
+        raise NotImplementedError("distribute='grid' (the 2-D mesh) is not "
+                                  "ported yet (ROADMAP Queue 1 item 12b)")
+    if distribute not in (True, "rows"):
+        raise ValueError(f"unknown distribute {distribute!r}")
+    if multigrid or method == "pas":
+        raise NotImplementedError("distribute with multigrid or method='pas' "
+                                  "(the distributed hierarchy, "
+                                  "dist_mg.shard_hierarchy) is not ported "
+                                  "yet (ROADMAP Queue 1 item 12b)")
+    mesh = row_mesh(device=device)
+    return None if mesh.world == 1 else mesh
+
+
 def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
           distribute: bool = False, multigrid: bool | int = False,
           method: str = "gcg", x0=None, params=None, pas_sweeps: int = 2,
@@ -142,16 +165,23 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
     correction, and ``pas_composite_rr`` for the composite Rayleigh-Ritz.
     ``params``: a prebuilt :class:`GCGParams`; otherwise one is assembled
     from ``nev`` and ``**kwargs``.
+    ``distribute``: ``True`` or ``'rows'`` row-shards the solve over the
+    ranks of the default process group (``torchrun``, or
+    :func:`gcge_tpu_torch.parallel.multihost.bootstrap`; NCCL with a card a
+    rank, gloo on the CPU); every rank calls ``solve`` with the same
+    arguments, the problem is padded to a multiple of the rank count
+    (:func:`~gcge_tpu_torch.parallel.pad_problem`) and every rank gets the
+    full eigenvectors.  Without an initialized group it raises; with one
+    rank it runs the plain path.
 
     Returns ``(eval, evec, nev_conv)``: numpy eigenvalues (ascending), the
     Ritz vectors as a ``(n, size_x)`` tensor on ``device``, and the
     converged count."""
-    if distribute:
-        raise NotImplementedError("distribute is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
     if method not in ("gcg", "pas"):
         raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
+    mesh = _distribution(distribute, multigrid, method, device) \
+        if distribute else None
     if params is None:
         for k, v in _tuned_defaults(device, method, a, b).items():
             kwargs.setdefault(k, v)
@@ -185,9 +215,18 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
                              linear_precond=mg.bamg_preconditioner(hier))
         a_op = _as_operator(a, params.dtype, device, perm)
         b_op = _as_operator(b, params.dtype, device, perm)
-        res = gcg_solve(a_op, b_op, params, x0=x0)
         n = a_op.shape[0]
+        if mesh is not None:
+            a_op, b_op, _ = pad_problem(a_op, b_op, mesh.world)
+            a_op, b_op = shard_operator(a_op, mesh), shard_operator(b_op, mesh)
+            if x0 is not None:
+                x0 = torch.as_tensor(x0)
+                x0 = torch.nn.functional.pad(
+                    x0, (0, 0, 0, a_op.shape[0] - x0.shape[0]))
+        res = gcg_solve(a_op, b_op, params, x0=x0, mesh=mesh)
     evec = res.evec
+    if mesh is not None:
+        evec = gather_rows(mesh, evec, n)
     if perm is not None:
         scattered = torch.empty_like(evec)
         scattered[torch.from_numpy(perm).to(evec.device)] = evec

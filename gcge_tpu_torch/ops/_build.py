@@ -33,10 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # argument types of each C entry point, in order
 SIGNATURES = {
-    "gcge_dia_spmm_f64": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _P),
-    "gcge_dia_spmm_f32": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _P),
+    "gcge_dia_spmm_f64": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _P),
+    "gcge_dia_spmm_f32": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _P),
     "gcge_tall_gram_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P, _P, _P),
     "gcge_tall_expand_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1,13 +1,18 @@
 // DIA sparse matrix times multivector on Hopper (kernels 1 and 2 of the port).
 //
-//   y[i, j] = sum_d values[d, i] * x[i + off_d, j]     (0 <= i + off_d < n)
+//   y[i, j] = sum_d values[d, i] * x[hl + i + off_d, j]
+//                                           (0 <= hl + i + off_d < nx)
 //
-// x and y are logical (n, m) matrices given by 2-D strides, so the same entry
-// points serve the row-major (n, m) layout of DiaOperator.matvec and the
-// transposed (m, n) layout of matvec_t, views included, without a copy.  In
+// x is a logical (nx, m) matrix, nx = n + hl + hr, and y a logical (n, m)
+// one, both given by 2-D strides, so the same entry points serve the
+// row-major (n, m) layout of DiaOperator.matvec and the transposed (m, n)
+// layout of matvec_t, views included, without a copy.  hl = hr = 0 is the
+// square product; otherwise x is a halo window, a rank's rows between hl rows
+// of its left neighbour and hr of its right one (parallel/dist_ops.py), the
+// contract of the TPU kernels' `hl` (spmm_pallas.py:68-94, :207-234).  In
 // both kernels the sum runs in T, in the order of the offsets, as both TPU
-// paths do, one fused multiply-add a term, terms outside [0, n) skipped, with
-// no atomics: two launches on the same inputs give the same bits.
+// paths do, one fused multiply-add a term, terms outside [0, nx) skipped,
+// with no atomics: two launches on the same inputs give the same bits.
 //
 // Kernel 1, dia_spmm_f64_staged: replaces gcge_tpu/ops/spmm_pallas.py:
 //   _dia_spmm_t_df64 (f64 quality from f32 hi/lo planes, because the TPU has
@@ -65,7 +70,9 @@
 //     shared memory, and no load waits inside the multiply-adds.  The loop
 //     over a run's terms checks no bounds where every row of the block and
 //     every term lies inside the matrix, all but the blocks at its ends.
-//   * Rows outside [0, n) are never read and their terms are skipped.
+//   * Rows of x outside [0, nx) are never read and their terms are skipped.
+//     The halo window moves the base of a run's window by hl rows and its
+//     bounds to [0, nx); with hl = hr = 0 the code is the square product's.
 //   What holds kernel 1 at the solve's operand (found on the H100 by
 //   leaving parts out): the window copies, x staged once a run, nine times
 //   a call for the 27-point stencil, from L2; they cost more than the value
@@ -179,8 +186,9 @@ __device__ __forceinline__ int window_shift(int64_t w0, int64_t m) {
 }
 
 // Issue the copies of the window of rows [w0, w0 + rows) and columns
-// [c0, c0 + mt) into `s`, row a at s + a * ld (f32 flat: see window_shift).
-// Rows outside [0, n) are not copied.
+// [c0, c0 + mt) of x (n rows here: the caller passes nx) into `s`, row a at
+// s + a * ld (f32 flat: see window_shift).  Rows outside [0, n) are not
+// copied.
 __device__ __forceinline__ void stage_window(float* s, const float* x,
                                              int64_t n, int64_t m,
                                              int64_t xs_i, int64_t xs_j,
@@ -343,9 +351,9 @@ constexpr bool kTilesAdjacent = sizeof(T) == 8;
 template <typename T, int VEC>
 __device__ __forceinline__ void dia_spmm_staged(
     const T* __restrict__ values, const int* __restrict__ offsets, int ndiag,
-    int64_t n, int64_t m, const T* __restrict__ x, int64_t xs_i, int64_t xs_j,
-    T* __restrict__ y, int64_t ys_i, int64_t ys_j, int col_tile, int ld,
-    int copy16, int vec16, int row_fast, T* smem) {
+    int64_t n, int64_t m, const T* __restrict__ x, int64_t hl, int64_t nx,
+    int64_t xs_i, int64_t xs_j, T* __restrict__ y, int64_t ys_i, int64_t ys_j,
+    int col_tile, int ld, int copy16, int vec16, int row_fast, T* smem) {
   const int ntiles = (int)((m + col_tile - 1) / col_tile);
   const int tile =
       kTilesAdjacent<T> ? (int)(blockIdx.x % ntiles) : (int)blockIdx.y;
@@ -387,8 +395,9 @@ __device__ __forceinline__ void dia_spmm_staged(
     if (d_issue < ndiag) {
       const int k = run_length(offsets, ndiag, d_issue);
       T* s = smem + stage * slot;
-      stage_window(s, x, n, m, xs_i, xs_j, i0 + __ldg(offsets + d_issue),
-                   kRows + k - 1, c0, mt, mld, copy16);
+      stage_window(s, x, nx, m, xs_i, xs_j,
+                   hl + i0 + __ldg(offsets + d_issue), kRows + k - 1, c0, mt,
+                   mld, copy16);
       stage_values<T>(s + win, values, n, d_issue, k, i0, vec16);
       d_issue += k;
     }
@@ -403,11 +412,12 @@ __device__ __forceinline__ void dia_spmm_staged(
     __syncthreads();
     const int k = run_length(offsets, ndiag, d0);
     const int o = __ldg(offsets + d0);
-    const T* s = smem + stage * slot + (flat ? window_shift(i0 + o, m) : 0);
+    const T* s =
+        smem + stage * slot + (flat ? window_shift(hl + i0 + o, m) : 0);
     const T* sv = smem + stage * slot + win;
-    // inside the matrix, every row's every term is in range: no checks
-    const bool inside = rows == kRows && i0 + o >= 0 &&
-                        i0 + o + kRows + k - 1 <= n;
+    // inside x, every row's every term is in range: no checks
+    const bool inside = rows == kRows && hl + i0 + o >= 0 &&
+                        hl + i0 + o + kRows + k - 1 <= nx;
     if (inside) {
       for (int e = 0; e < k; ++e) {
 #pragma unroll
@@ -420,8 +430,8 @@ __device__ __forceinline__ void dia_spmm_staged(
       for (int e = 0; e < k; ++e) {
 #pragma unroll
         for (int kk = 0; kk < kItems; ++kk) {
-          const int64_t c = i0 + a_k[kk] + o + e;
-          if (kk < groups && a_k[kk] < rows && c >= 0 && c < n)
+          const int64_t c = hl + i0 + a_k[kk] + o + e;
+          if (kk < groups && a_k[kk] < rows && c >= 0 && c < nx)
             fma_vec<VEC>(acc[kk], sv[e * kRows + a_k[kk]],
                          s + e * mld + xo_k[kk]);
         }
@@ -444,33 +454,36 @@ template <int VEC>
 __global__ void __launch_bounds__(kRows)
     dia_spmm_f64_staged(const double* __restrict__ values,
                         const int* __restrict__ offsets, int ndiag, int64_t n,
-                        int64_t m, const double* __restrict__ x, int64_t xs_i,
-                        int64_t xs_j, double* __restrict__ y, int64_t ys_i,
-                        int64_t ys_j, int col_tile, int ld, int copy16,
-                        int vec16, int row_fast) {
+                        int64_t m, const double* __restrict__ x, int64_t hl,
+                        int64_t nx, int64_t xs_i, int64_t xs_j,
+                        double* __restrict__ y, int64_t ys_i, int64_t ys_j,
+                        int col_tile, int ld, int copy16, int vec16,
+                        int row_fast) {
   extern __shared__ __align__(16) double smem_d[];
-  dia_spmm_staged<double, VEC>(values, offsets, ndiag, n, m, x, xs_i, xs_j, y,
-                               ys_i, ys_j, col_tile, ld, copy16, vec16,
-                               row_fast, smem_d);
+  dia_spmm_staged<double, VEC>(values, offsets, ndiag, n, m, x, hl, nx, xs_i,
+                               xs_j, y, ys_i, ys_j, col_tile, ld, copy16,
+                               vec16, row_fast, smem_d);
 }
 
 template <int VEC>
 __global__ void __launch_bounds__(kRows)
     dia_spmm_f32_staged(const float* __restrict__ values,
                         const int* __restrict__ offsets, int ndiag, int64_t n,
-                        int64_t m, const float* __restrict__ x, int64_t xs_i,
-                        int64_t xs_j, float* __restrict__ y, int64_t ys_i,
-                        int64_t ys_j, int col_tile, int ld, int copy16,
-                        int vec16, int row_fast) {
+                        int64_t m, const float* __restrict__ x, int64_t hl,
+                        int64_t nx, int64_t xs_i, int64_t xs_j,
+                        float* __restrict__ y, int64_t ys_i, int64_t ys_j,
+                        int col_tile, int ld, int copy16, int vec16,
+                        int row_fast) {
   extern __shared__ __align__(16) float smem_f[];
-  dia_spmm_staged<float, VEC>(values, offsets, ndiag, n, m, x, xs_i, xs_j, y,
-                              ys_i, ys_j, col_tile, ld, copy16, vec16,
-                              row_fast, smem_f);
+  dia_spmm_staged<float, VEC>(values, offsets, ndiag, n, m, x, hl, nx, xs_i,
+                              xs_j, y, ys_i, ys_j, col_tile, ld, copy16,
+                              vec16, row_fast, smem_f);
 }
 
 template <typename T, int VEC>
 int launch_staged(const T* values, const int* offsets, int ndiag, int64_t n,
-                  int64_t m, const T* x, int64_t xs_i, int64_t xs_j, T* y,
+                  int64_t m, const T* x, int64_t hl, int64_t nx, int64_t xs_i,
+                  int64_t xs_j, T* y,
                   int64_t ys_i, int64_t ys_j, int col_tile, int copy16,
                   int vec16, int row_fast, cudaStream_t stream) {
   const int64_t row_blocks = (n + kRows - 1) / kRows;
@@ -486,12 +499,12 @@ int launch_staged(const T* values, const int* offsets, int ndiag, int64_t n,
   const size_t smem = kStages * sizeof(T) * stage_elems<T>(ld);
   if constexpr (sizeof(T) == 8)
     dia_spmm_f64_staged<VEC><<<grid, kRows, smem, stream>>>(
-        values, offsets, ndiag, n, m, x, xs_i, xs_j, y, ys_i, ys_j, col_tile,
-        ld, copy16, vec16, row_fast);
+        values, offsets, ndiag, n, m, x, hl, nx, xs_i, xs_j, y, ys_i, ys_j,
+        col_tile, ld, copy16, vec16, row_fast);
   else
     dia_spmm_f32_staged<VEC><<<grid, kRows, smem, stream>>>(
-        values, offsets, ndiag, n, m, x, xs_i, xs_j, y, ys_i, ys_j, col_tile,
-        ld, copy16, vec16, row_fast);
+        values, offsets, ndiag, n, m, x, hl, nx, xs_i, xs_j, y, ys_i, ys_j,
+        col_tile, ld, copy16, vec16, row_fast);
   return (int)cudaGetLastError();
 }
 
@@ -507,7 +520,9 @@ bool bad_plan(int64_t m, int64_t vec, int64_t col_tile, int64_t row_fast) {
 
 }  // namespace
 
-// Kernel 1 (f64) and kernel 2 (f32).  vec: elements a thread reads from a
+// Kernel 1 (f64) and kernel 2 (f32).  hl, nx: the halo window (x has nx =
+// n + hl + hr rows; hl = 0, nx = n: the square product).  vec: elements a
+// thread reads from a
 // window and writes to y at once (f64: 2 or 1; f32: 4, 2 or 1); col_tile:
 // columns a block holds, at most kItems vec; copy16: the window's 16-byte
 // copy (f32: one flat range; f64: 16-byte-aligned row segments, see
@@ -516,35 +531,37 @@ bool bad_plan(int64_t m, int64_t vec, int64_t col_tile, int64_t row_fast) {
 // spmm.dia_plan's.
 extern "C" int gcge_dia_spmm_f64(const void* values, const void* offsets,
                                  int64_t ndiag, int64_t n, int64_t m,
-                                 const void* x, int64_t xs_i, int64_t xs_j,
+                                 const void* x, int64_t hl, int64_t nx,
+                                 int64_t xs_i, int64_t xs_j,
                                  void* y, int64_t ys_i, int64_t ys_j,
                                  int64_t vec, int64_t col_tile, int64_t copy16,
                                  int64_t vec16, int64_t row_fast,
                                  void* stream) {
-  if (bad_plan<double>(m, vec, col_tile, row_fast))
+  if (bad_plan<double>(m, vec, col_tile, row_fast) || hl < 0 || nx < n + hl)
     return (int)cudaErrorInvalidValue;
   const auto fn = vec == 2 ? launch_staged<double, 2>
                            : launch_staged<double, 1>;
   return fn((const double*)values, (const int*)offsets, (int)ndiag, n, m,
-            (const double*)x, xs_i, xs_j, (double*)y, ys_i, ys_j,
+            (const double*)x, hl, nx, xs_i, xs_j, (double*)y, ys_i, ys_j,
             (int)col_tile, (int)copy16, (int)vec16, (int)row_fast,
             (cudaStream_t)stream);
 }
 
 extern "C" int gcge_dia_spmm_f32(const void* values, const void* offsets,
                                  int64_t ndiag, int64_t n, int64_t m,
-                                 const void* x, int64_t xs_i, int64_t xs_j,
+                                 const void* x, int64_t hl, int64_t nx,
+                                 int64_t xs_i, int64_t xs_j,
                                  void* y, int64_t ys_i, int64_t ys_j,
                                  int64_t vec, int64_t col_tile, int64_t copy16,
                                  int64_t vec16, int64_t row_fast,
                                  void* stream) {
-  if (bad_plan<float>(m, vec, col_tile, row_fast))
+  if (bad_plan<float>(m, vec, col_tile, row_fast) || hl < 0 || nx < n + hl)
     return (int)cudaErrorInvalidValue;
   const auto fn = vec == 4   ? launch_staged<float, 4>
                   : vec == 2 ? launch_staged<float, 2>
                              : launch_staged<float, 1>;
   return fn((const float*)values, (const int*)offsets, (int)ndiag, n, m,
-            (const float*)x, xs_i, xs_j, (float*)y, ys_i, ys_j,
+            (const float*)x, hl, nx, xs_i, xs_j, (float*)y, ys_i, ys_j,
             (int)col_tile, (int)copy16, (int)vec16, (int)row_fast,
             (cudaStream_t)stream);
 }

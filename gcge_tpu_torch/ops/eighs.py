@@ -73,9 +73,16 @@ def check_backend(backend: str) -> None:
     raise ValueError(f"unknown eigh backend {backend!r}")
 
 
-def eigh(h: torch.Tensor, backend: str = "auto"
+def eigh(h: torch.Tensor, backend: str = "auto", mesh=None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric eigendecomposition, ascending: :func:`safe_eigh` for the
-    backends :func:`check_backend` accepts."""
+    backends :func:`check_backend` accepts.  Under a row mesh every rank
+    solves its (identical) ``h`` and then takes rank 0's ``(w, u)``, one
+    ``m x m`` broadcast, so that the ranks can never take different
+    branches on eigenvalues that differ in the last bit."""
     check_backend(backend)
-    return safe_eigh(h)
+    w, u = safe_eigh(h)
+    if mesh is None:
+        return w, u
+    wu = mesh.broadcast(torch.cat([w[None, :], u]))
+    return wu[0], wu[1:]

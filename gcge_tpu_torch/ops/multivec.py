@@ -2,6 +2,9 @@
 
 A multivector is a tensor of shape ``(n, m)`` whose columns are the vectors.
 Each function is one or two tensor expressions on the operands' device.
+Under a row mesh (:class:`gcge_tpu_torch.parallel.RowMesh`, passed as
+``mesh``) each rank holds its rows of the multivectors, and a contraction
+over rows is the local one followed by :func:`psum`.
 """
 
 from __future__ import annotations
@@ -17,9 +20,15 @@ GRAM_CHUNK = 256
 GRAM_PART_BYTES = 256 * 2**20
 
 
-def col_dots(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def psum(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``mesh`` (one ``all_reduce``); ``t``
+    itself without a mesh."""
+    return t if mesh is None else mesh.psum(t)
+
+
+def col_dots(x: torch.Tensor, y: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-column dots ``sum(x * y, axis=0)`` — the 'D' inner product."""
-    return (x * y).sum(dim=0)
+    return psum((x * y).sum(dim=0), mesh)
 
 
 def gram(x: torch.Tensor, y: torch.Tensor, chunk: int = GRAM_CHUNK
@@ -47,12 +56,12 @@ def gram(x: torch.Tensor, y: torch.Tensor, chunk: int = GRAM_CHUNK
     return acc
 
 
-def block_inner(x: torch.Tensor, y: torch.Tensor, mode: str = "N"
-                ) -> torch.Tensor:
+def block_inner(x: torch.Tensor, y: torch.Tensor, mode: str = "N",
+                mesh=None) -> torch.Tensor:
     """'N': ``x^T y``; 'S': the same, symmetrized; 'D': column dots."""
     if mode == "D":
-        return col_dots(x, y)
-    g = gram(x, y)
+        return col_dots(x, y, mesh)
+    g = psum(gram(x, y), mesh)
     if mode == "S":
         g = 0.5 * (g + g.T)
     return g

@@ -19,9 +19,11 @@ on the host and sorted by (row, column).
   of the TPU's one-hot mask probe (kernel 7, ``csrc/mask_probe.cu``).
 
 Not carried over, because they describe the TPU layout and not the function:
-``pack_onehot``, ``pack_onehot_stats``, ``regroup_pairs``,
-``pack_onehot_sharded``, the mask-mode knob, the bf16 planes, the Dekker
-products and the integer slices.
+``pack_onehot``, ``pack_onehot_stats``, ``regroup_pairs``, the mask-mode
+knob, the bf16 planes, the Dekker products and the integer slices.  The
+counterpart of ``pack_onehot_sharded`` (a rank's rows re-indexed into its
+halo window) is :func:`gcge_tpu_torch.parallel.dist_ops.window_csr`: a
+:class:`CsrOperator` with more columns than rows, on the same kernels.
 """
 
 from __future__ import annotations

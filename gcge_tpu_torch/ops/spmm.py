@@ -17,8 +17,11 @@ stage runs on operands of one order.
 
 The TPU kernels tile rows into lanes, zero-pad x by one tile per call and cap
 the offsets at the tile width; none of that applies here.  The halo window
-``(hl, hr)`` of the TPU entry points serves row-sharded operators, which the
-port does not have yet: only ``halo=(0, 0)`` is accepted.
+``(hl, hr)`` of the TPU entry points is kept: ``x`` then has ``n + hl + hr``
+rows (a rank's rows between ``hl`` rows of its left neighbour and ``hr`` of
+its right one, :mod:`gcge_tpu_torch.parallel.dist_ops`), row ``i`` of ``y``
+reads ``x[hl + i + off_d]``, and only reads outside ``[0, n + hl + hr)`` are
+zero.  ``halo=(0, 0)`` is the square product.
 """
 
 from __future__ import annotations
@@ -122,21 +125,24 @@ def dia_plan(m: int, xs_i: int, xs_j: int, x_ptr16: int, ys_i: int,
 
 
 def dia_spmm_reference(values: torch.Tensor, offsets: torch.Tensor,
-                       x: torch.Tensor, transposed: bool = False
-                       ) -> torch.Tensor:
+                       x: torch.Tensor, transposed: bool = False,
+                       halo: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Plain PyTorch DIA SpMM: one shifted multiply-add per diagonal, in the
-    order of the offsets, on the logical ``(n, m)`` view of ``x``; the
-    result in the memory order of ``x``, as :func:`dia_spmm` returns it."""
+    order of the offsets, on the logical ``(n + hl + hr, m)`` view of ``x``
+    (row ``i`` of the result reads row ``hl + i + off`` of it); the result,
+    ``(n, m)`` or ``(m, n)``, in the memory order of ``x``, as
+    :func:`dia_spmm` returns it."""
     xn = x.T if transposed else x
+    hl = halo[0]
     n = values.shape[1]
+    nx = xn.shape[0]
     y = torch.zeros((n, xn.shape[1]), dtype=x.dtype, device=x.device)
     for d, off in enumerate(offsets.tolist()):
-        if off >= n or -off >= n:
-            continue
-        if off >= 0:
-            y[:n - off] += values[d, :n - off, None] * xn[off:]
-        else:
-            y[-off:] += values[d, -off:, None] * xn[:n + off]
+        # the rows i whose read hl + i + off lies in [0, nx)
+        lo, hi = max(0, -(hl + off)), min(n, nx - hl - off)
+        if lo < hi:
+            y[lo:hi] += values[d, lo:hi, None] * \
+                xn[hl + off + lo:hl + off + hi]
     return in_order_of(y.T if transposed else y, x)
 
 
@@ -145,23 +151,27 @@ def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
              ) -> torch.Tensor:
     """``A x`` for DIA ``values`` (ndiag, n) and int32 ``offsets`` (ndiag,).
 
-    ``x`` is ``(n, m)``, or ``(m, n)`` when ``transposed``, with any strides.
-    The result has the shape of ``x``, is freshly allocated and lies in the
-    memory order of ``x``: ``torch.empty_like(x)`` for a dense ``x``, else
-    contiguous in the logical layout (:func:`empty_in_order_of`)."""
-    if tuple(halo) != (0, 0):
-        raise NotImplementedError("DIA halo windows serve row-sharded "
-                                  "operators (ROADMAP Queue 1 item 12)")
+    ``x`` is ``(n + hl + hr, m)``, or ``(m, n + hl + hr)`` when
+    ``transposed``, with any strides; ``halo=(hl, hr)`` (see the module's
+    docstring).  The result is ``(n, m)`` or ``(m, n)``, freshly allocated,
+    in the memory order of ``x``: like ``torch.empty_like(x)`` for a dense
+    ``x``, else contiguous in the logical layout
+    (:func:`empty_in_order_of`)."""
+    hl, hr = (int(h) for h in halo)
     ndiag, n = values.shape
-    if x.dim() != 2 or (x.shape[1] if transposed else x.shape[0]) != n:
+    if hl < 0 or hr < 0:
+        raise ValueError(f"dia_spmm: negative halo {tuple(halo)}")
+    nx = n + hl + hr
+    if x.dim() != 2 or (x.shape[1] if transposed else x.shape[0]) != nx:
         raise ValueError(f"x of shape {tuple(x.shape)} does not match a DIA "
-                         f"operator of {n} rows (transposed={transposed})")
+                         f"operator of {n} rows and halo {(hl, hr)} "
+                         f"(transposed={transposed})")
     if offsets.shape != (ndiag,):
         raise ValueError(f"{offsets.shape[0]} offsets for {ndiag} diagonals")
     if values.device != x.device or offsets.device != x.device:
         raise ValueError("dia_spmm: values, offsets and x must share a device")
     if x.device.type == "cpu":
-        return dia_spmm_reference(values, offsets, x, transposed)
+        return dia_spmm_reference(values, offsets, x, transposed, (hl, hr))
     if x.device.type != "cuda":
         raise ValueError(f"dia_spmm: unsupported device {x.device}")
     if x.dtype not in (torch.float64, torch.float32) or values.dtype != x.dtype:
@@ -172,7 +182,7 @@ def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
     if not values.is_contiguous():
         raise ValueError("dia_spmm: values must be contiguous")
     m = x.shape[0] if transposed else x.shape[1]
-    y = empty_in_order_of(x, x.shape)
+    y = empty_in_order_of(x, (m, n) if transposed else (n, m))
     if n * m == 0:
         return y.zero_()
     # strides of the logical (n, m) views of x and y
@@ -193,7 +203,8 @@ def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(_build.lib(), entry)(
             values.data_ptr(), offsets.data_ptr(), ndiag, n, m, x.data_ptr(),
-            xs_i, xs_j, y.data_ptr(), ys_i, ys_j, plan.vec, plan.col_tile,
+            hl, nx, xs_i, xs_j, y.data_ptr(), ys_i, ys_j, plan.vec,
+            plan.col_tile,
             int(plan.flat or plan.rows16), int(vec16), int(plan.row_fast),
             stream)
     _build.check(entry, err)

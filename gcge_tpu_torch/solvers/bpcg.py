@@ -11,6 +11,11 @@ and reads nothing back: a step on which no column is active changes none of
 residuals equal the early-exit form's, and ``niters`` is a 0-d tensor that
 counts the steps on which a column was active.  The fused GCG iteration and
 a CUDA graph over a CG stage need this form.
+
+Under a row mesh (``mesh``) each rank holds its rows of ``b`` and ``x``, the
+matvec is the rank's rows of the sharded product, and every column dot
+(``r^T z``, ``p^T w``, ``r^T r``) is summed over the ranks, so that every
+rank takes the same early exit.
 """
 
 from __future__ import annotations
@@ -38,14 +43,15 @@ class BlockPCGInfo:
 
 
 def _pcg(matvec, b, x0, params, active0, norm_b, precond, axis: int,
-         fixed: bool = False):
+         fixed: bool = False, mesh=None):
     """Block PCG over columns (``axis=0`` sums: (n, m) layout) or rows
     (``axis=1`` sums: (m, n) layout)."""
     m = b.shape[1 - axis]
     dtype, device = b.dtype, b.device
 
     def dots(x, y):
-        return (x * y).sum(dim=axis)
+        d = (x * y).sum(dim=axis)
+        return d if mesh is None else mesh.psum(d)
 
     def bc(v):                  # broadcast a per-vector (m,) quantity
         return v[None, :] if axis == 0 else v[:, None]
@@ -105,27 +111,28 @@ def block_pcg(matvec, b: torch.Tensor, x0: torch.Tensor,
               params: BlockPCGParams = BlockPCGParams(),
               active0: torch.Tensor | None = None,
               norm_b: torch.Tensor | None = None, precond=None,
-              fixed: bool = False):
+              fixed: bool = False, mesh=None):
     """Solve ``op @ x = b`` column by column; ``b, x0`` are ``(n, m)``.
 
     ``active0``: ``(m,)`` bool mask, columns False are never touched.
     ``norm_b``: per-column norms for ``tol_type='user'``.  ``precond``:
     multivector preconditioner ``R -> M^{-1} R``.  ``fixed``: run all
-    ``max_iter`` steps and read nothing back to the host.  Returns
+    ``max_iter`` steps and read nothing back to the host.  ``mesh``: the row
+    mesh whose ranks hold the rows of ``b`` and ``x0``.  Returns
     ``(x, BlockPCGInfo)``."""
     return _pcg(matvec, b, x0, params, active0, norm_b, precond, axis=0,
-                fixed=fixed)
+                fixed=fixed, mesh=mesh)
 
 
 def block_pcg_t(matvec_t, bt: torch.Tensor, x0t: torch.Tensor,
                 params: BlockPCGParams = BlockPCGParams(),
                 active0: torch.Tensor | None = None,
                 norm_b: torch.Tensor | None = None, precond=None,
-                fixed: bool = False):
+                fixed: bool = False, mesh=None):
     """:func:`block_pcg` in the transposed ``(m, n)`` layout — the layout of
     :meth:`DiaOperator.matvec_t` and of the mixed-precision inner CG."""
     return _pcg(matvec_t, bt, x0t, params, active0, norm_b, precond, axis=1,
-                fixed=fixed)
+                fixed=fixed, mesh=mesh)
 
 
 def pcg(matvec, b: torch.Tensor, x0: torch.Tensor, max_iter: int = 50,

@@ -31,10 +31,25 @@ every f64 application of a DIA operator (kernel 1) or a CSR operator
 (kernel 6), the f32 inner CG of the mixed branch (kernels 2 and 5), the tall
 Grams (kernel 3) and the tall recombinations (kernel 4).  A Hybrid operator
 runs both SpMM pairs.
+
+Under a row mesh (``mesh``, :class:`gcge_tpu_torch.parallel.RowMesh`; the
+operators from :func:`gcge_tpu_torch.parallel.shard_operator`) every rank
+holds its rows of the basis, the Ritz vectors and the CG's vectors.  Each
+contraction over rows (the Grams of the Rayleigh-Ritz steps and of the
+orthonormalizations, the column dots of the residual check and of the CG) is
+the local product followed by one ``all_reduce``, so the projected problem
+is the same on every rank; its eigenpairs are rank 0's, broadcast
+(:func:`gcge_tpu_torch.ops.eighs.eigh`), and every host decision (converged
+count, restart, stop, the inner CG's early exit) is taken from reduced or
+broadcast values, the fused loop's one read a chunk included.  The random
+start is the rank's rows of one global draw, so a distributed solve starts
+where the undistributed one does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Optional
@@ -44,11 +59,14 @@ import torch
 
 from gcge_tpu_torch.ops import onehot, spmm
 from gcge_tpu_torch.ops.eighs import check_backend, eigh
-from gcge_tpu_torch.ops.multivec import col_dots, set_random
+from gcge_tpu_torch.ops.multivec import col_dots, psum, set_random
 from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import (DiagOperator, DiaOperator,
                                           HybridOperator, SparseOperator)
 from gcge_tpu_torch.ops.osgemm import tall_expand, tall_gram
+from gcge_tpu_torch.parallel import dist_ops
+from gcge_tpu_torch.parallel.dist_ops import RowShardedOperator
+from gcge_tpu_torch.parallel.mesh import RowMesh, gather_rows
 from gcge_tpu_torch.solvers.bpcg import (BlockPCGParams, block_pcg,
                                          block_pcg_t)
 from gcge_tpu_torch.solvers.orth import orth_block_against, orth_within
@@ -108,15 +126,18 @@ class GCGParams:
     # 'auto', 'on', 'off': accepted and ignored (the hot swap works around
     # the TPU's compile time)
     fuse_hotswap: str = "auto"
-    # not ported yet; setting them raises
+    # save the Ritz pairs to checkpoint_path every checkpoint_every completed
+    # iterations (the fused loop: after a chunk that completes them); resume
+    # by passing the saved evec as x0 (utils.checkpoint)
     checkpoint_path: Any = None
     checkpoint_every: int = 0
+    # write a torch.profiler Chrome trace of the solve into this directory
     profile_dir: Any = None
     # backend of the projected eigensolve (ops.eighs.eigh): 'auto' or
     # 'device'; the TPU's backends raise
     rr_backend: str = "auto"
     # 'auto' and 'off': a cold eigh in every Rayleigh-Ritz step, as
-    # gcge_tpu off its TPU newton path; 'struct' raises
+    # gcge_tpu off its TPU newton path; 'struct' raises (item 12b)
     rr_warm: str = "auto"
 
     def resolved(self, n: int) -> "GCGParams":
@@ -141,7 +162,8 @@ class GCGParams:
 @dataclass
 class GCGResult:
     eval: np.ndarray            # (size_x,) Ritz values, ascending
-    evec: torch.Tensor          # (n, size_x) Ritz vectors
+    evec: torch.Tensor          # (n, size_x) Ritz vectors (under a mesh:
+                                # the rank's rows)
     nev_conv: int
     num_iter: int
     res_norms: np.ndarray       # last residual window (diagnostic)
@@ -158,14 +180,15 @@ def _matvec(op, x):
     return x if op is None else op.matvec(x)
 
 
-def _initial_rr(a_op, v, size_x: int, bs: int, rr_backend: str = "auto"):
+def _initial_rr(a_op, v, size_x: int, bs: int, rr_backend: str = "auto",
+                mesh=None):
     """First Rayleigh-Ritz on V = [X]: H = X^T A X, eigh, Ritz vectors
     written into the X slots of ``v``."""
     m = size_x + 2 * bs
     x = v[:, :size_x]
-    h_xx = tall_gram(x, a_op.matvec(x))
+    h_xx = psum(tall_gram(x, a_op.matvec(x)), mesh)
     h_xx = 0.5 * (h_xx + h_xx.T)
-    w, c = eigh(h_xx, rr_backend)
+    w, c = eigh(h_xx, rr_backend, mesh)
     ss_eval = torch.cat([w, w[-1:].expand(m - size_x)])
     ss_evec = torch.eye(m, dtype=v.dtype, device=v.device)
     ss_evec[:size_x, :size_x] = c
@@ -176,7 +199,7 @@ def _initial_rr(a_op, v, size_x: int, bs: int, rr_backend: str = "auto"):
     return ss_eval, ss_evec, h, ritz, v
 
 
-def _residual_norms(a_op, b_op, ritz, ss_eval, c0, cw: int):
+def _residual_norms(a_op, b_op, ritz, ss_eval, c0, cw: int, mesh=None):
     """Residual 2-norms of the Ritz window ``[c0, c0+cw)``.  ``c0`` is an int
     (the window is a view) or a 0-d tensor on the device (a gather)."""
     if torch.is_tensor(c0):
@@ -187,7 +210,7 @@ def _residual_norms(a_op, b_op, ritz, ss_eval, c0, cw: int):
         cols = ritz[:, c0:c0 + cw]
         lam = ss_eval[c0:c0 + cw]
     r = a_op.matvec(cols) - lam[None, :] * _matvec(b_op, cols)
-    return torch.sqrt(col_dots(r, r))
+    return torch.sqrt(col_dots(r, r, mesh))
 
 
 def _compute_p(v, ss_evec, h, act_idx, act_cnt, size_x: int, bs: int,
@@ -216,7 +239,15 @@ def _f32_apply(a_op):
     transposed)``: DIA and CSR run the transposed ``(m, n)`` layout (kernels
     2 and 5 on the card) on ``(n, m)`` memory, the order of ``r.T.float()``,
     and return their products in it; Hybrid and ELL run the ``(n, m)``
-    layout.  ``(None, False)`` for an operator without an f32 form."""
+    layout.  ``(None, False)`` for an operator without an f32 form.  A
+    row-sharded operator runs its f32 form on its window in the same
+    layouts."""
+    if isinstance(a_op, RowShardedOperator):
+        if a_op.kind in ("dia", "csr"):
+            return a_op.astype(torch.float32).matvec_t, True
+        if a_op.kind in ("hybrid", "ell"):
+            return a_op.astype(torch.float32).matvec, False
+        return None, False
     if isinstance(a_op, CsrOperator):     # dispatches on the dtype of x
         return a_op.matvec_t, True
     if isinstance(a_op, DiaOperator):
@@ -235,9 +266,10 @@ def _f32_apply(a_op):
 
 # replays of the captured CG stage since the last reset.  A replay launches
 # the stage's kernels without passing through their wrappers, so it adds the
-# calls each wrapper got during capture to that wrapper's launch count
+# calls each wrapper got during capture to that wrapper's launch count (and
+# a sharded operator's windowed products to dist_ops.WINDOWED)
 GRAPH_REPLAYS = {"cg_stage": 0}
-_STAGE_COUNTERS = (spmm.LAUNCHES, onehot.LAUNCHES)
+_STAGE_COUNTERS = (spmm.LAUNCHES, onehot.LAUNCHES, dist_ops.WINDOWED)
 
 
 def _stage_counts():
@@ -257,20 +289,32 @@ class _MixedStage:
     (residual, column mask and ``sigma`` in; correction and step count out)
     and every call is three small copies and one replay: shapes ``(bs, n)``
     do not change when the basis grows.  A capture that fails raises; there
-    is no eager retreat on a card."""
+    is no eager retreat on a card, except under a row mesh: there the stage
+    also holds the CG's ``all_reduce`` and the window's point-to-point
+    exchange, and whether NCCL lets a capture hold them depends on its
+    version, so a refused capture leaves the stage eager (``capture_error``
+    says why).  The same kernels run either way."""
 
     def __init__(self, a_op, b_op, cg: BlockPCGParams, bs: int, fixed: bool,
-                 capture: bool, precond=None):
+                 capture: bool, precond=None, mesh=None):
         self.apply32, self.transposed = _f32_apply(a_op)
-        self.cg, self.fixed = cg, fixed
+        self.cg, self.fixed, self.mesh = cg, fixed, mesh
         self.precond, self.dtype = precond, a_op.dtype
+        self.capture_error = None
         self.b32 = None
         if b_op is not None:
             b32 = b_op.d.float()
             self.b32 = b32[None, :] if self.transposed else b32[:, None]
         self.graph = None
         if capture and self.apply32 is not None:
-            self._capture(a_op.shape[0], bs, a_op.device)
+            n = a_op.shape[0] if mesh is None else mesh.block(a_op.shape[0])[1]
+            try:
+                self._capture(n, bs, a_op.device)
+            except RuntimeError as exc:
+                if mesh is None:
+                    raise
+                torch.cuda.synchronize(a_op.device)
+                self.graph, self.capture_error = None, str(exc)
 
     def _pcg(self, r32, colmask, sigma):
         b32 = self.b32
@@ -288,7 +332,8 @@ class _MixedStage:
                     return self.precond(r.to(self.dtype)).float()
         pcg = block_pcg_t if self.transposed else block_pcg
         d, info = pcg(mv32, r32, torch.zeros_like(r32), self.cg,
-                      active0=colmask, precond=precond32, fixed=self.fixed)
+                      active0=colmask, precond=precond32, fixed=self.fixed,
+                      mesh=self.mesh)
         return d, info.niters
 
     def _capture(self, n: int, bs: int, device):
@@ -367,7 +412,8 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
                zero_tol: float, passes: int, cg_order: int = 1,
                mixed: bool = False, refine: int = 2,
                orth_method: str = "evp", stage: Optional[_MixedStage] = None,
-               fixed: bool = False, linear_solver=None, precond=None):
+               fixed: bool = False, linear_solver=None, precond=None,
+               mesh=None):
     """Inverse-power correction block W: for the active window solve
     ``(A + sigma B) w = (lambda + sigma) B x`` from ``x``, then
     B-orthonormalize W against [X | P] and within (rank-revealing) into the
@@ -376,7 +422,8 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
     no f32 form), which carries its own preconditioner; ``fixed`` makes
     every CG run its whole step budget.  ``linear_solver(shifted, rhs, x,
     colmask)`` replaces the block CG (zero steps and residuals reported);
-    ``precond`` preconditions the f64 block CGs."""
+    ``precond`` preconditions the f64 block CGs.  Under a row mesh the
+    user functions get the rank's rows."""
     colmask = torch.arange(bs, device=v.device) < act_cnt
     fmask = colmask.to(v.dtype)
     xact = ritz[:, act_idx] * fmask[None, :]
@@ -397,18 +444,18 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
         else:
             # no f32 operator for this A (dense, diagonal, user): plain f64
             w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
-                                precond=precond, fixed=fixed)
+                                precond=precond, fixed=fixed, mesh=mesh)
             w = w * fmask[None, :]
             niters = info.niters
         rfin = (rhs - shifted(w)) * fmask[None, :]
-        final_res = torch.sqrt(col_dots(rfin, rfin))
+        final_res = torch.sqrt(col_dots(rfin, rfin, mesh))
     elif cg_order == 2:
         half = max(bs // 2, 1)
         hmask = colmask & (torch.arange(bs, device=v.device) < half)
         w1, info1 = block_pcg(shifted, rhs, xact, cg, active0=hmask,
-                              precond=precond, fixed=fixed)
+                              precond=precond, fixed=fixed, mesh=mesh)
         w2, info2 = block_pcg(shifted, rhs, w1, cg, active0=hmask,
-                              precond=precond, fixed=fixed)
+                              precond=precond, fixed=fixed, mesh=mesh)
         hf = hmask.to(v.dtype)[None, :]
         w = torch.cat([(w1 * hf)[:, :half], (w2 * hf)[:, :half]], dim=1)
         w = torch.nn.functional.pad(w, (0, bs - w.shape[1]))[:, :bs]
@@ -416,19 +463,20 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
         final_res = info2.final_res
     else:
         w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
-                            precond=precond, fixed=fixed)
+                            precond=precond, fixed=fixed, mesh=mesh)
         w = w * fmask[None, :]
         niters, final_res = info.niters, info.final_res
     q = v[:, :size_x + bs]
     bmv = None if b_op is None else b_op.matvec
     w, w_cnt = orth_block_against(w, q, bmv, zero_tol=zero_tol, passes=passes,
-                                  method=orth_method, precision="auto")
+                                  method=orth_method, precision="auto",
+                                  mesh=mesh)
     v[:, size_x + bs:] = w
     return v, w_cnt, niters, final_res
 
 
 def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
-                   bs: int, rr_backend: str = "auto"):
+                   bs: int, rr_backend: str = "auto", mesh=None):
     """Assemble the projected matrix and solve the small eigenproblem:
     X block diag(lambda), X-P block 0, P block from the recurrence, the W
     coupling ``V^T A W`` the only large A-application; invalid slots padded
@@ -437,7 +485,8 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     m = size_x + 2 * bs
     dev, dt = v.device, v.dtype
     ar = torch.arange(bs, device=dev)
-    h_vw = tall_gram(v, a_op.matvec(v[:, size_x + bs:]))        # (m, bs)
+    h_vw = psum(tall_gram(v, a_op.matvec(v[:, size_x + bs:])),   # (m, bs)
+                mesh)
     h_vw = h_vw * (ar < w_cnt).to(dt)[None, :]
 
     h = torch.zeros((m, m), dtype=dt, device=dev)
@@ -454,7 +503,7 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     fvalid = valid.to(dt)
     h = h * fvalid[None, :] * fvalid[:, None]
     gersh = h.abs().sum(dim=1).max() + 1.0
-    w, c = eigh(h + torch.diag((1.0 - fvalid) * gersh), rr_backend)
+    w, c = eigh(h + torch.diag((1.0 - fvalid) * gersh), rr_backend, mesh)
     act_tot = size_x + p_cnt + w_cnt
     # a gather, not ``w[act_tot - 1]``: indexing by a 0-d tensor reads it
     # back to the host
@@ -627,7 +676,7 @@ class _FusedState:
 
 def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
                 size_x: int, bs: int, cg: BlockPCGParams, p: GCGParams,
-                stage: Optional[_MixedStage]) -> _FusedState:
+                stage: Optional[_MixedStage], mesh=None) -> _FusedState:
     """One whole GCG iteration on device tensors: convergence check, P from
     the previous active set, X, W with the new one, Rayleigh-Ritz.  Once
     ``nev_conv >= nev_target`` or two stalls hold, at entry or after this
@@ -649,7 +698,8 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
         h_pp = torch.zeros((bs, bs), dtype=dt, device=dev)
     else:
         c0 = torch.clamp(st.nev_conv, max=size_x - cw)
-        res_new = _residual_norms(a_op, b_op, st.ritz, st.ss_eval, c0, cw)
+        res_new = _residual_norms(a_op, b_op, st.ritz, st.ss_eval, c0, cw,
+                                  mesh)
         nev_new, act_idx, act_cnt = _check_convergence_traced(
             res_new, st.ss_eval, c0, st.nev_conv - c0, st.nev_conv, size_x,
             bs, p.tol_abs, p.tol_rel, p.gap_min, p.multi_max)
@@ -676,10 +726,10 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
         a_op, b_op, v, st.ritz, st.ss_eval, act_idx, act_cnt, sigma, size_x,
         bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order, p.cg_mixed,
         p.cg_refine, p.orth_method, stage=stage, fixed=True,
-        linear_solver=p.linear_solver, precond=p.linear_precond)
+        linear_solver=p.linear_solver, precond=p.linear_precond, mesh=mesh)
     ss_eval, ss_evec, h, ritz = _rayleigh_ritz(a_op, v, h_pp, st.ss_eval,
                                                p_cnt, w_cnt, size_x, bs,
-                                               p.rr_backend)
+                                               p.rr_backend, mesh)
 
     def keep(new, old):
         return torch.where(go, new, old)
@@ -698,7 +748,7 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
 def _gcg_chunk(a_op, b_op, st: _FusedState, first: bool, steps: int,
                nev_target: int, size_x: int, bs: int, cg: BlockPCGParams,
                p: GCGParams, stage: Optional[_MixedStage],
-               last: bool = False) -> _FusedState:
+               last: bool = False, mesh=None) -> _FusedState:
     """``steps`` fused iterations, launched without reading solver state back:
     the counterpart of ``gcge_tpu``'s one ``lax.while_loop``.  PyTorch has no
     loop on the device, so every step is launched and those after the stopping
@@ -708,11 +758,11 @@ def _gcg_chunk(a_op, b_op, st: _FusedState, first: bool, steps: int,
     (a step checks only at its start)."""
     for step in range(steps):
         st = _fused_step(a_op, b_op, st, first and step == 0, nev_target,
-                         size_x, bs, cg, p, stage)
+                         size_x, bs, cg, p, stage, mesh)
     if last:
         cw = st.res.shape[0]
         c0 = torch.clamp(st.nev_conv, max=size_x - cw)
-        res = _residual_norms(a_op, b_op, st.ritz, st.ss_eval, c0, cw)
+        res = _residual_norms(a_op, b_op, st.ritz, st.ss_eval, c0, cw, mesh)
         nev_conv, _, _ = _check_convergence_traced(
             res, st.ss_eval, c0, st.nev_conv - c0, st.nev_conv, size_x, bs,
             p.tol_abs, p.tol_rel, p.gap_min, p.multi_max)
@@ -724,11 +774,14 @@ def _gcg_chunk(a_op, b_op, st: _FusedState, first: bool, steps: int,
 
 
 def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
-               ss_eval, ss_evec, h, size_x: int, nev_target: int):
+               ss_eval, ss_evec, h, size_x: int, nev_target: int, mesh=None,
+               checkpoint=None, verbose: int = 0):
     """The host loop over fused chunks: one read per chunk, then restart
     growth, the stall stop and the iteration budget, as the phased loop has
-    them.  Returns ``(ss_eval, ritz, size_x, nev_conv, total_iter, res_h,
-    history)``."""
+    them.  Under a row mesh the read is rank 0's, broadcast, so that no rank
+    leaves the loop while another waits in a collective.  ``checkpoint(
+    total_iter, ritz, ss_eval, nev_conv)`` runs after every chunk.  Returns
+    ``(ss_eval, ritz, size_x, nev_conv, total_iter, res_h, history)``."""
     bs, nev0 = p.block_size, p.nev
     dev, dt = v.device, v.dtype
 
@@ -755,14 +808,20 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
         steps = min(p.fuse, iter_budget - num_iter)
         st = _gcg_chunk(a_op, b_op, st, num_iter == 0, steps, nev_target,
                         size_x, bs, cg, p, stage,
-                        last=num_iter + steps >= iter_budget)
+                        last=num_iter + steps >= iter_budget, mesh=mesh)
         # the chunk's one read: three counts and the residual window
         back = torch.cat([torch.stack([st.nev_conv, st.num_iter,
-                                       st.stall]).to(dt), st.res]).cpu()
+                                       st.stall]).to(dt), st.res])
+        if mesh is not None:
+            back = mesh.broadcast(back)
+        back = back.cpu()
         nev_conv, num_iter, stall = (int(x) for x in back[:3])
         res_h = back[3:].numpy()
         history.append((num_iter, nev_conv))
-        if p.verbose:
+        if checkpoint is not None:
+            checkpoint(num_iter + (p.max_iter - iter_budget), st.ritz,
+                       st.ss_eval, nev_conv)
+        if verbose:
             print(f"{num_iter}\t{nev_conv}\t(res window max "
                   f"{res_h.max():.4e})")
         if nev_conv >= nev_target:
@@ -776,12 +835,12 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
             st = fresh_state(*grown, nev_conv)
             iter_budget -= num_iter
             num_iter = 0
-            if p.verbose:
+            if verbose:
                 print(f"GCG restart: sizeX -> {size_x}, "
                       f"target -> {nev_target}")
             continue
         if stall >= 2:
-            if p.verbose:
+            if verbose:
                 print("GCG: subspace stagnated (P and W deflated); stopping")
             break
     total_iter = num_iter + (p.max_iter - iter_budget)
@@ -793,29 +852,45 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
 # --------------------------------------------------------------------------
 
 
-def _init_fill_orth(b_op, x, zero_tol: float, passes: int, orth_method: str):
+def _init_fill_orth(b_op, x, zero_tol: float, passes: int, orth_method: str,
+                    mesh=None):
     """One InitializeX trial: B-orthonormalize the block."""
     bmv = None if b_op is None else b_op.matvec
     return orth_within(x, bmv, zero_tol=zero_tol, passes=passes,
-                       method=orth_method, precision="auto")
+                       method=orth_method, precision="auto", mesh=mesh)
+
+
+def _local_rows(x, mesh):
+    """The rank's rows of a global ``(n, k)`` block (``x`` without a
+    mesh)."""
+    if mesh is None:
+        return x
+    r0, ln = mesh.block(x.shape[0])
+    return x[r0:r0 + ln].contiguous()
 
 
 def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
-            passes, orth_method: str = "evp"):
+            passes, orth_method: str = "evp", mesh=None):
     """InitializeX: keep user vectors, fill with random, B-orthonormalize;
-    re-randomize dependent columns until the block has full rank."""
+    re-randomize dependent columns until the block has full rank.  Under a
+    mesh ``x0`` holds the rank's rows and each random block is the rank's
+    rows of one global draw."""
+    def draw(cols):
+        return _local_rows(set_random(generator, (n, cols), dtype), mesh)
+
     if x0 is not None:
         k0 = x0.shape[1]
-        pad = set_random(generator, (n, size_x - k0), dtype)
+        pad = draw(size_x - k0)
         x = torch.cat([x0.to(dtype), pad], dim=1)
     else:
-        x = set_random(generator, (n, size_x), dtype)
+        x = draw(size_x)
     for _ in range(5):
-        x, rank = _init_fill_orth(b_op, x, zero_tol, passes, orth_method)
+        x, rank = _init_fill_orth(b_op, x, zero_tol, passes, orth_method,
+                                  mesh)
         r = int(rank)
         if r == size_x:
             return x
-        x[:, r:] = set_random(generator, (n, size_x - r), dtype)
+        x[:, r:] = draw(size_x - r)
     raise RuntimeError("InitializeX: could not build a full-rank "
                        "B-orthonormal block")
 
@@ -823,17 +898,13 @@ def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
 def _not_ported(params: GCGParams, mesh) -> None:
     """Raise for what the port does not run: a value not ported yet names
     its ROADMAP item; a value that exists for the TPU only says so."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (distribution) is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
-    for name in ("checkpoint_path", "profile_dir", "checkpoint_every"):
-        if getattr(params, name):
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                      f"Queue 1 item 11)")
+    if mesh is not None and not isinstance(mesh, RowMesh):
+        raise TypeError(f"mesh must be a gcge_tpu_torch.parallel.RowMesh "
+                        f"(row_mesh()), got {type(mesh).__name__}")
     if params.rr_warm == "struct":
         raise NotImplementedError("rr_warm='struct' (the structural warm "
                                   "start of the spectrum-sliced eigh) is not "
-                                  "ported yet (ROADMAP Queue 1 item 12)")
+                                  "ported yet (ROADMAP Queue 1 item 12b)")
     if params.rr_warm not in ("auto", "off"):
         raise ValueError(f"unknown rr_warm {params.rr_warm!r}")
     check_backend(params.rr_backend)
@@ -849,10 +920,56 @@ def _not_ported(params: GCGParams, mesh) -> None:
             raise ValueError(f"unknown {name} {value!r}")
 
 
+def _checkpointer(p: GCGParams, timers, mesh):
+    """``save(total_iter, ritz, ss_eval, nev_conv)``: writes the Ritz pairs
+    to ``p.checkpoint_path`` once ``p.checkpoint_every`` iterations have
+    completed since the last write (``gcge_tpu``'s rule); under a mesh
+    every rank gathers the rows and rank 0 writes.  None without a path."""
+    if not p.checkpoint_path or p.checkpoint_every <= 0:
+        return None
+    from gcge_tpu_torch.utils.checkpoint import save_checkpoint
+
+    last = [0]
+
+    def save(total_iter, ritz, ss_eval, nev_conv):
+        if total_iter - last[0] < p.checkpoint_every:
+            return
+        last[0] = total_iter
+        evec = ritz if mesh is None else gather_rows(mesh, ritz)
+        if mesh is None or mesh.rank == 0:
+            save_checkpoint(p.checkpoint_path, GCGResult(
+                eval=ss_eval[:ritz.shape[1]].cpu().numpy(), evec=evec,
+                nev_conv=int(nev_conv), num_iter=int(total_iter),
+                res_norms=np.zeros(0), timers=dict(timers)), p)
+    return save
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir, device: torch.device, mesh):
+    """A ``torch.profiler`` run around the solve (the host's activity, and
+    the card's where the solve runs on one), written as a Chrome trace into
+    ``profile_dir`` (``gcg_trace.json``; under a mesh one file a rank):
+    the counterpart of ``jax.profiler.start_trace``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    name = "gcg_trace.json" if mesh is None else \
+        f"gcg_trace_rank{mesh.rank}.json"
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, name))
+
+
 def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
               x0: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              mesh=None) -> GCGResult:
+              mesh: Optional[RowMesh] = None) -> GCGResult:
     """Solve ``A x = lambda B x`` for the ``params.nev`` smallest eigenpairs
     on the operators' device, by the phased loop or, with ``params.fuse >
     0``, by the fused one (chunks of ``fuse`` iterations without a host read;
@@ -861,10 +978,23 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
 
     ``x0``: optional ``(n, k)`` starting vectors (numpy or tensor); the rest
     of the block is drawn from ``generator`` (default: seed 0 on the
-    device)."""
+    device).  ``mesh``: a row mesh (:func:`gcge_tpu_torch.parallel.row_mesh`)
+    with operators from :func:`gcge_tpu_torch.parallel.shard_operator`; every
+    rank of it calls ``gcg_solve`` with the same arguments, ``x0`` global,
+    and gets its rows of the Ritz vectors in ``evec``.  ``params.profile_dir``
+    writes a Chrome trace of the solve, ``params.checkpoint_path`` the Ritz
+    pairs every ``params.checkpoint_every`` iterations."""
     _not_ported(params, mesh)
+    with _profiled(params.profile_dir, a_op.device, mesh):
+        return _gcg_solve(a_op, b_op, params, x0, generator, mesh)
+
+
+def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
+               ) -> GCGResult:
     n = a_op.shape[0]
     p = params.resolved(n)
+    # under a mesh, rank 0 prints
+    verbose = p.verbose if mesh is None or mesh.rank == 0 else 0
     bs, nev0 = p.block_size, p.nev
     size_x = p.nev_init
     dtype = p.dtype
@@ -885,7 +1015,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         # run as one captured graph
         stage = _MixedStage(a_op, b_op, stage_cg, bs, fixed=fused,
                             capture=fused and device.type == "cuda",
-                            precond=p.linear_precond)
+                            precond=p.linear_precond, mesh=mesh)
         if stage.apply32 is None:
             stage = None
     timers = {k: 0.0 for k in ("initX", "checkconv", "compP", "compX",
@@ -893,6 +1023,9 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
                                "total")}
     # building the f32 operator and, on a card, capturing the stage's graph
     timers["stage"] = time.perf_counter() - t_start
+    if verbose and stage is not None and stage.capture_error:
+        print(f"GCG: the card refused to capture the CG stage under the "
+              f"mesh; it runs eager ({stage.capture_error})")
 
     def sync():
         if device.type == "cuda":
@@ -907,27 +1040,29 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
 
     # ---- InitializeX + first RR -----------------------------------------
     if x0 is not None:
-        x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+        x0 = _local_rows(torch.as_tensor(x0, dtype=dtype, device=device),
+                         mesh)
     x = timed("initX", _init_x, b_op, x0, size_x, n, dtype, generator,
-              p.orth_zero_tol, p.orth_passes, p.orth_method)
+              p.orth_zero_tol, p.orth_passes, p.orth_method, mesh)
     m = size_x + 2 * bs
-    v = torch.zeros((n, m), dtype=dtype, device=device)
+    v = torch.zeros((x.shape[0], m), dtype=dtype, device=device)
     v[:, :size_x] = x
     ss_eval, ss_evec, h, ritz, v = timed("compRR", _initial_rr, a_op, v,
-                                         size_x, bs, p.rr_backend)
+                                         size_x, bs, p.rr_backend, mesh)
+    checkpoint = _checkpointer(p, timers, mesh)
 
     nev_target = nev0 if size_x >= p.nev_max else min(2 * bs, nev0)
-    if p.verbose:
+    if verbose:
         print(f"GCG: n={n} nev={nev0} bs={bs} sizeX={size_x} "
               f"nevMax={p.nev_max}")
         print("numIter\tnevConv")
     if fused:
         ss_eval, ritz, size_x, nev_conv, total_iter, res_h, history = \
             _run_fused(a_op, b_op, p, cg, stage, v, ritz, ss_eval, ss_evec,
-                       h, size_x, nev_target)
+                       h, size_x, nev_target, mesh, checkpoint, verbose)
         sync()
         timers["total"] = time.perf_counter() - t_start
-        if p.verbose:
+        if verbose:
             print(f"GCG: {total_iter} iterations in {len(history)} fused "
                   f"chunks, nevConv={nev_conv}, {timers['total']:.3f} s "
                   f"(CG stage set-up {timers['stage']:.3f} s, initX "
@@ -954,18 +1089,21 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             c0_eff = min(c0, size_x - cw)
             scan_from = c0 - c0_eff
             res = timed("checkconv", _residual_norms, a_op, b_op, ritz,
-                        ss_eval, c0_eff, cw)
+                        ss_eval, c0_eff, cw, mesh)
             res_h = res.cpu().numpy()
             ss_eval_h = ss_eval.cpu().numpy()
             nev_conv, act_idx, act_cnt = _check_convergence_host(
                 res_h, ss_eval_h, c0_eff, scan_from, nev_conv, size_x, bs,
                 p.tol_abs, p.tol_rel, p.gap_min, p.multi_max)
-            if p.verbose:
+            if verbose:
                 first_unconv = nev_conv if nev_conv < size_x else size_x - 1
                 print(f"{num_iter}\t{nev_conv}\t"
                       f"[{first_unconv}] {ss_eval_h[first_unconv]:.14e} "
                       f"(res window max {res_h.max():.4e})")
             history.append((num_iter, nev_conv))
+            if checkpoint is not None:
+                checkpoint(num_iter + (p.max_iter - iter_budget), ritz,
+                           ss_eval, nev_conv)
         else:
             ss_eval_h = ss_eval.cpu().numpy()
             act_idx = np.minimum(np.arange(nev_conv, nev_conv + bs),
@@ -987,7 +1125,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             act_idx = np.minimum(np.arange(nev_conv, nev_conv + bs),
                                  size_x - 1)
             act_cnt = bs
-            if p.verbose:
+            if verbose:
                 print(f"GCG restart: sizeX -> {size_x}, "
                       f"target -> {nev_target}")
 
@@ -1022,7 +1160,8 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
             torch.as_tensor(act_idx, device=device), act_cnt, sigma,
             size_x, bs, cg, p.orth_zero_tol, p.orth_passes, p.cg_order,
             p.cg_mixed, p.cg_refine, p.orth_method, stage=stage,
-            linear_solver=p.linear_solver, precond=p.linear_precond)
+            linear_solver=p.linear_solver, precond=p.linear_precond,
+            mesh=mesh)
         sync()
         timers["compW"] += time.perf_counter() - t0
         timers["linsol"] += time.perf_counter() - t0
@@ -1032,10 +1171,10 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         # ---- RayleighRitz + RitzVec ---------------------------------------
         ss_eval, ss_evec, h, ritz = timed(
             "compRR", _rayleigh_ritz, a_op, v, h_pp, ss_eval, p_cnt, w_cnt,
-            size_x, bs, p.rr_backend)
+            size_x, bs, p.rr_backend, mesh)
 
         p_cnt_h, w_cnt_h = int(p_cnt), int(w_cnt)
-        if p.verbose >= 2:
+        if verbose >= 2:
             print(f"  dbg: p_cnt={p_cnt_h} w_cnt={w_cnt_h} "
                   f"cg_iters={cg_iters} sigma={sigma:.3e} "
                   f"cg_res_max={float(cg_res.max()):.3e} "
@@ -1045,7 +1184,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
         if p_cnt_h == 0 and w_cnt_h == 0:
             stall += 1
             if stall >= 2:
-                if p.verbose:
+                if verbose:
                     print("GCG: subspace stagnated (P and W deflated); "
                           "stopping")
                 num_iter += 1
@@ -1056,7 +1195,7 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
 
     timers["total"] = time.perf_counter() - t_start
     total_iter = num_iter + (p.max_iter - iter_budget)
-    if p.verbose:
+    if verbose:
         keys = ("checkconv", "compP", "compRR", "compRV", "compW", "compX",
                 "initX")
         tt = max(timers["total"], 1e-12)

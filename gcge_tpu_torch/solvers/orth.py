@@ -13,7 +13,10 @@ the card, where ``gcge_tpu`` takes its sliced GEMMs on the TPU), ``'f64'``
 through the plain :func:`gcge_tpu_torch.ops.multivec.gram` and ``@`` (as
 ``gcge_tpu`` does for the small P-coefficient block).  On the CPU both are
 the same functions.  The small eigenproblems go through
-:func:`gcge_tpu_torch.ops.eighs.safe_eigh`.
+:func:`gcge_tpu_torch.ops.eighs.safe_eigh`.  Under a row mesh (``mesh``)
+the tall blocks are each rank's rows and every Gram and column dot is summed
+over the ranks (:func:`gcge_tpu_torch.ops.multivec.psum`); the small
+problems are then the same on every rank.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from gcge_tpu_torch.ops import osgemm
 from gcge_tpu_torch.ops.eighs import safe_eigh
-from gcge_tpu_torch.ops.multivec import col_dots, gram
+from gcge_tpu_torch.ops.multivec import col_dots, gram, psum
 
 # precisions the port accepts; both compute in f64: 'auto' on kernels 3/4,
 # 'f64' on plain products
@@ -35,9 +38,11 @@ def _check_precision(precision: str) -> None:
                          f"in f64 and accepts {PRECISIONS}")
 
 
-def _gram_p(a, b, precision: str):
-    """Tall Gram ``a^T b``: kernel 3 ('auto') or the plain chunked Gram."""
-    return osgemm.tall_gram(a, b) if precision == "auto" else gram(a, b)
+def _gram_p(a, b, precision: str, mesh=None):
+    """Tall Gram ``a^T b``: kernel 3 ('auto') or the plain chunked Gram,
+    summed over the ranks of ``mesh``."""
+    return psum(osgemm.tall_gram(a, b) if precision == "auto" else gram(a, b),
+                mesh)
 
 
 def _expand_p(a, c, precision: str):
@@ -51,19 +56,19 @@ def _rel_floor(dtype: torch.dtype) -> float:
 
 
 def orth_against(x, q, b_matvec=None, passes: int = 2,
-                 precision: str = "f64"):
+                 precision: str = "f64", mesh=None):
     """``x <- x - q (q^T B x)``, ``passes`` times, for a B-orthonormal
     ``q``.  Zero (masked) columns of either block are no-ops."""
     _check_precision(precision)
     for _ in range(passes):
         bx = x if b_matvec is None else b_matvec(x)
-        coef = _gram_p(q, bx, precision)
+        coef = _gram_p(q, bx, precision, mesh)
         x = x - _expand_p(q, coef, precision)
     return x
 
 
 def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
-               ref_scale2=None, precision: str = "f64"):
+               ref_scale2=None, precision: str = "f64", mesh=None):
     """B-orthonormalize the columns of ``x`` with rank deflation.
 
     Per pass: ``G = x^T B x``, ``w, u = eigh(G)``, recombine
@@ -77,7 +82,7 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
     rank = None
     for i in range(passes):
         bx = x if b_matvec is None else b_matvec(x)
-        g = _gram_p(x, bx, precision)
+        g = _gram_p(x, bx, precision, mesh)
         g = 0.5 * (g + g.T)
         w, u = safe_eigh(g)
         w = w.flip(0)
@@ -100,21 +105,22 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
         rank = cnt if rank is None else torch.minimum(rank, cnt)
     if rank is None:
         rank = torch.full((), x.shape[1], dtype=torch.int64, device=x.device)
-    return _ns_polish(x, b_matvec, precision), rank
+    return _ns_polish(x, b_matvec, precision, mesh), rank
 
 
-def _ns_polish(x, b_matvec=None, precision: str = "f64"):
+def _ns_polish(x, b_matvec=None, precision: str = "f64", mesh=None):
     """One Newton-Schulz step ``x <- x (3I - x^T B x)/2``; zero columns stay
     zero."""
     bx = x if b_matvec is None else b_matvec(x)
-    g = _gram_p(x, bx, precision)
+    g = _gram_p(x, bx, precision, mesh)
     m = x.shape[1]
     eye = torch.eye(m, dtype=x.dtype, device=x.device)
     return _expand_p(x, 1.5 * eye - 0.5 * g, precision)
 
 
 def orth_within(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
-                ref_scale2=None, method: str = "evp", precision: str = "f64"):
+                ref_scale2=None, method: str = "evp", precision: str = "f64",
+                mesh=None):
     """In-block B-orthonormalization: ``method='evp'`` (:func:`orth_block`),
     ``'bgs'`` (:func:`bgs_orth`) or ``'mgs'`` (:func:`mgs_orth`).  bgs and
     mgs zero dependent columns in place; here the zero columns are moved to
@@ -122,23 +128,26 @@ def orth_within(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
     columns to be the first ones.  Returns ``(x, rank)``."""
     if method == "evp":
         return orth_block(x, b_matvec, zero_tol=zero_tol, passes=passes,
-                          ref_scale2=ref_scale2, precision=precision)
+                          ref_scale2=ref_scale2, precision=precision,
+                          mesh=mesh)
     if method == "bgs":
         x, rank = bgs_orth(x, b_matvec, zero_tol=zero_tol, passes=passes,
-                           ref_scale2=ref_scale2, precision=precision)
+                           ref_scale2=ref_scale2, precision=precision,
+                           mesh=mesh)
     elif method == "mgs":
         _check_precision(precision)
-        x, rank = mgs_orth(x, b_matvec, zero_tol=zero_tol * zero_tol)
+        x, rank = mgs_orth(x, b_matvec, zero_tol=zero_tol * zero_tol,
+                           mesh=mesh)
     else:
         raise ValueError(f"unknown orth method {method!r}")
-    zero = (col_dots(x, x) == 0).to(torch.int8)
+    zero = (col_dots(x, x, mesh) == 0).to(torch.int8)
     order = torch.sort(zero, stable=True).indices
     return x.index_select(1, order), rank
 
 
 def orth_block_against(x, q, b_matvec=None, zero_tol: float = 1e-13,
                        passes: int = 2, ref_scale2=None, method: str = "evp",
-                       precision: str = "auto"):
+                       precision: str = "auto", mesh=None):
     """Orthonormalize ``x`` against ``q`` and within itself, ``passes``
     times, then project once more.  The deflation scale is the entry-time
     largest column norm, so a direction that is small because most of ``x``
@@ -146,21 +155,24 @@ def orth_block_against(x, q, b_matvec=None, zero_tol: float = 1e-13,
     _check_precision(precision)
     if ref_scale2 is None:
         bx = x if b_matvec is None else b_matvec(x)
-        ref_scale2 = torch.clamp(col_dots(x, bx).max(), min=1e-300)
+        ref_scale2 = torch.clamp(col_dots(x, bx, mesh).max(), min=1e-300)
     rank = torch.full((), x.shape[1], dtype=torch.int64, device=x.device)
     for i in range(passes):
-        x = orth_against(x, q, b_matvec, passes=1, precision=precision)
+        x = orth_against(x, q, b_matvec, passes=1, precision=precision,
+                         mesh=mesh)
         x, r = orth_within(x, b_matvec, zero_tol=zero_tol, passes=1,
                            ref_scale2=ref_scale2 if i == 0 else None,
-                           method=method, precision=precision)
+                           method=method, precision=precision, mesh=mesh)
         rank = torch.minimum(rank, r)
     # the last within-block recombination can re-amplify span(q) leakage of
     # near-floor directions; one more projection removes it
-    return orth_against(x, q, b_matvec, passes=1, precision=precision), rank
+    return orth_against(x, q, b_matvec, passes=1, precision=precision,
+                        mesh=mesh), rank
 
 
 def bgs_orth(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
-             leaf: int = 16, ref_scale2=None, precision: str = "auto"):
+             leaf: int = 16, ref_scale2=None, precision: str = "auto",
+             mesh=None):
     """Binary-split B-orthonormalization (the reference's
     ``BinaryGramSchmidt``): orthonormalize the left half, project it out of
     the right half, recurse into the right half; blocks of at most ``leaf``
@@ -173,26 +185,29 @@ def bgs_orth(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
     _check_precision(precision)
     if ref_scale2 is None:
         bx = x if b_matvec is None else b_matvec(x)
-        ref_scale2 = torch.clamp(col_dots(x, bx).max(), min=1e-30)
+        ref_scale2 = torch.clamp(col_dots(x, bx, mesh).max(), min=1e-30)
     m = x.shape[1]
     if m <= leaf:
         return orth_block(x, b_matvec, zero_tol=zero_tol, passes=passes,
-                          ref_scale2=ref_scale2, precision=precision)
+                          ref_scale2=ref_scale2, precision=precision,
+                          mesh=mesh)
     half = m // 2
     left, lrank = bgs_orth(x[:, :half], b_matvec, zero_tol, passes, leaf,
-                           ref_scale2, precision)
+                           ref_scale2, precision, mesh)
     right = orth_against(x[:, half:], left, b_matvec, passes=passes,
-                         precision=precision)
+                         precision=precision, mesh=mesh)
     right, rrank = bgs_orth(right, b_matvec, zero_tol, passes, leaf,
-                            ref_scale2, precision)
+                            ref_scale2, precision, mesh)
     # the right half's recombinations can re-grow left components at
     # rounding level: one more projection, then a Newton-Schulz polish
-    right = orth_against(right, left, b_matvec, passes=1, precision=precision)
-    right = _ns_polish(right, b_matvec, precision)
+    right = orth_against(right, left, b_matvec, passes=1, precision=precision,
+                         mesh=mesh)
+    right = _ns_polish(right, b_matvec, precision, mesh)
     return torch.cat([left, right], dim=1), lrank + rrank
 
 
-def mgs_orth(x, b_matvec=None, zero_tol: float = 1e-14, reorth: int = 1):
+def mgs_orth(x, b_matvec=None, zero_tol: float = 1e-14, reorth: int = 1,
+             mesh=None):
     """Column-wise modified Gram-Schmidt with deflation (the reference's
     ``OrthSelf``), a test oracle: a column whose B-norm squared is at most
     ``zero_tol`` after ``1 + reorth`` sweeps of projections is zeroed in
@@ -207,8 +222,8 @@ def mgs_orth(x, b_matvec=None, zero_tol: float = 1e-14, reorth: int = 1):
         v = x[:, k]
         for _ in range(1 + reorth):
             for q in cols:
-                v = v - q * (q @ bmv(v))
-        nrm2 = v @ bmv(v)
+                v = v - q * psum(q @ bmv(v), mesh)
+        nrm2 = psum(v @ bmv(v), mesh)
         ok = nrm2 > zero_tol
         v = v * torch.where(ok, torch.rsqrt(torch.where(ok, nrm2, 1.0)), 0.0)
         cols.append(v)

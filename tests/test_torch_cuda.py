@@ -909,3 +909,100 @@ def test_csr_kernel_on_rectangular_transfers(cuda, m):
                 assert (got - ref).abs().max() <= 1e-14 * scale
                 assert torch.equal(got, onehot.csr_spmm(
                     op.rowptr, op.colidx, op.values, x, transposed, op.plan))
+
+
+# ---------------------------------------------------------------------------
+# the halo window of kernels 1 and 2, and a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+def _halo_operand(layout, n, hl, hr, m, dtype, device, seed):
+    """x of a windowed product: ``n + hl + hr`` rows in ``layout``."""
+    return _operand(layout, n + hl + hr, m, dtype, device, seed)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14),
+                                       (torch.float32, 1e-6)])
+@pytest.mark.parametrize("m", [1, 10, 16])
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("halo", [(111, 111), (0, 111), (120, 3)])
+def test_dia_halo_kernel_matches_plain(cuda, dtype, tol, m, layout, halo):
+    """Kernels 1 and 2 on a halo window (the 27-point stencil at nx=12,
+    offsets up to 157 apart; a window of a rank's rows between its
+    neighbours' halos) against the plain version: within tol of
+    max |A||x|, equal bits across two launches, ``(n, m)`` or ``(m, n)`` in
+    the memory order of x."""
+    rows, cols, vals, n = _laplacian_27(12)
+    op = make_operator(rows, cols, vals, (n, n), dtype=dtype, device=cuda)
+    x, transposed = _halo_operand(layout, n, *halo, m, dtype, cuda, 3)
+    got = spmm.dia_spmm(op.values, op.offsets_t, x, transposed, halo)
+    again = spmm.dia_spmm(op.values, op.offsets_t, x, transposed, halo)
+    assert torch.equal(got, again)
+    assert got.shape == ((m, n) if transposed else (n, m))
+    assert got.stride() == spmm.empty_in_order_of(x, got.shape).stride()
+    ref = spmm.dia_spmm_reference(op.values, op.offsets_t, x, transposed,
+                                  halo)
+    scale = spmm.dia_spmm_reference(op.values.abs(), op.offsets_t, x.abs(),
+                                    transposed, halo).max()
+    assert float((got - ref).abs().max()) <= tol * float(scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_dia_zero_halo_keeps_the_square_bits(cuda, dtype, layout):
+    """``halo=(0, 0)`` is the square product: its bits equal those of the
+    same product on x between zero halos (the window path adds exact
+    zeros where the square one skips a term)."""
+    rows, cols, vals, n = _laplacian_27(12)
+    op = make_operator(rows, cols, vals, (n, n), dtype=dtype, device=cuda)
+    x, transposed = _operand(layout, n, 10, dtype, cuda, 4)
+    hl = hr = 157
+    xn = x.T if transposed else x
+    w = torch.nn.functional.pad(xn, (0, 0, hl, hr))
+    square = spmm.dia_spmm(op.values, op.offsets_t, x, transposed)
+    window = spmm.dia_spmm(op.values, op.offsets_t,
+                           w.T if transposed else w, transposed, (hl, hr))
+    assert torch.equal(square, window)
+
+
+def test_one_rank_nccl_mesh_matches_no_mesh(cuda):
+    """A one-rank NCCL group on the card: the sharded DIA (halo window,
+    kernels 1 and 2, the CG's all_reduce inside the captured stage) and CSR
+    (kernels 5 and 6 on the window) solves equal the solves without a mesh
+    bit for bit, on the fused and the phased loop."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gcge_tpu_torch import GCGParams, gcg_solve
+    from gcge_tpu_torch.parallel import (dist_ops, row_mesh,
+                                         shard_operator)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = row_mesh()
+        rows, cols, vals, n = _laplacian_27(12)
+        dia = make_operator(rows, cols, vals, (n, n), device=cuda)
+        a, _ = _irregular_csr(3000, seed=4)
+        sym = (a + a.T + sps.identity(3000) * 40.0).tocoo()
+        csr = onehot.CsrOperator.from_coo(sym.row, sym.col, sym.data,
+                                          sym.shape, device=cuda)
+        kw = dict(nev=6, block_size=3, max_iter=80, cg_mixed=True,
+                  cg_auto_shift=True, verbose=0)
+        for op, fuse in ((dia, 4), (dia, 0), (csr, 0), (csr, 4)):
+            p = GCGParams(fuse=fuse, **kw)
+            plain = gcg_solve(op, None, p)
+            dist_ops.WINDOWED.update({k: 0 for k in dist_ops.WINDOWED})
+            sharded = gcg_solve(shard_operator(op, mesh), None, p, mesh=mesh)
+            assert np.array_equal(plain.eval, sharded.eval)
+            assert torch.equal(plain.evec, sharded.evec)
+            assert plain.num_iter == sharded.num_iter
+            kind = "dia" if op is dia else "csr"
+            assert dist_ops.WINDOWED[f"{kind}_f64"] > 0
+            assert dist_ops.WINDOWED[f"{kind}_f32"] > 0
+    finally:
+        dist.destroy_process_group()

@@ -172,18 +172,22 @@ def test_resolved_matches_jax(nev, block_size, nev_max):
 
 
 def test_options_not_ported_raise(stencil10):
+    """What is not ported raises before the solve starts, naming its ROADMAP
+    item (checkpoint_path, profile_dir, mesh and distribute run since they
+    were ported: tests/test_torch_utils.py, tests/test_torch_dist.py)."""
     rows, cols, vals, n, _ = stencil10
     op = make_operator(rows, cols, vals, (n, n), device="cpu")
-    for kw, item in ((dict(checkpoint_path="x"), "item 11"),
-                     (dict(profile_dir="x"), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            gcg_solve(op, None, GCGParams(nev=4, **kw))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        gcg_solve(op, None, GCGParams(nev=4, rr_warm="struct"))
+    with pytest.raises(TypeError, match="RowMesh"):
         gcg_solve(op, None, GCGParams(nev=4), mesh=object())
     # multigrid and method="pas" run since they were ported
     # (tests/test_torch_multigrid.py, tests/test_torch_pas.py)
     a = sps.identity(50, format="csr")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute="grid")
+    # no process group: a distributed solve never runs undistributed
+    with pytest.raises(RuntimeError, match="process group"):
         gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute=True)
     with pytest.raises(ValueError, match="unknown method"):
         gcge_tpu_torch.solve(a, nev=2, device="cpu", method="lobpcg")
@@ -261,7 +265,9 @@ def _laplacian_solve(**kw):
 _FIELDS = {
     "linear_solver": ([None], []),
     "linear_precond": ([None], []),
-    "checkpoint_every": ([0], [(5, NotImplementedError, "item 11")]),
+    # without checkpoint_path, checkpoint_every writes nothing (gcge_tpu's
+    # rule); tests/test_torch_utils.py runs it with a path
+    "checkpoint_every": ([0, 5], []),
     "rr_warm": (["auto", "off"], [("struct", NotImplementedError, "item 12"),
                                   ("warm", ValueError, "rr_warm")]),
     "rr_backend": (["auto", "device"],

@@ -99,8 +99,11 @@ def test_dia_strided_views_match_contiguous(dia12):
 def test_dia_wrapper_rejects_what_the_kernel_does_not_take(dia12):
     n = dia12.shape[0]
     x = torch.zeros((n, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="halo"):
+    # a halo window needs n + hl + hr rows of x
+    with pytest.raises(ValueError, match="halo"):
         spmm.dia_spmm(dia12.values, dia12.offsets_t, x, halo=(1, 0))
+    with pytest.raises(ValueError, match="negative halo"):
+        spmm.dia_spmm(dia12.values, dia12.offsets_t, x, halo=(-1, 1))
     with pytest.raises(ValueError, match="does not match"):
         spmm.dia_spmm(dia12.values, dia12.offsets_t, x, transposed=True)
     with pytest.raises(ValueError, match="does not match"):
