@@ -8,8 +8,9 @@ the phased and by the fused loop), the two kernel measurement scripts, the
 multilevel path on the cube FEM pair (GCG preconditioned by an AMG V-cycle,
 standard and generalized, and the PAS solver), a check that a fused chunk
 never waits for the device outside ``eigh``, kernels 1 and 2 on halo
-windows, the row-sharded solves on a one-rank NCCL mesh and the utils.
-Phases, each of which raises on failure:
+windows, the row-sharded solves on a one-rank NCCL mesh, the utils, and the
+distributed multilevel path (AMG and PAS on a sharded hierarchy) on a
+one-rank NCCL mesh.  Phases, each of which raises on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
    ``gcge_tpu_torch/ops/csrc`` and print the build time; check one 16 x 8 x 8
@@ -119,7 +120,22 @@ Phases, each of which raises on failure:
     reloaded, and a resume from it in fewer iterations (under
     ``profile_dir``, whose trace it checks); ``MemWatch``'s peak;
     ``leak_check`` of a steady-state solve; ``python -m
-    gcge_tpu_torch.utils.cli -fem_nx 12`` in a subprocess.
+    gcge_tpu_torch.utils.cli -fem_nx 12`` in a subprocess;
+16. distributed multilevel — on a one-rank NCCL group each, right after
+    the phase whose hierarchy it shards (no host set-up is paid twice):
+    after phase 12's AMG standard solve, ``gcg_solve`` of the sharded
+    operator with the parameters ``solve`` tunes on a card and
+    ``linear_precond=bamg_preconditioner(shard_hierarchy(hier, mesh))``;
+    after the PAS solve, ``pas_solve(shard_hierarchy(hier, mesh))`` with
+    ``solve``'s PAS knobs.  Each against the undistributed solve of this
+    run: the same iterations (sweeps by level) and converged count,
+    eigenvalues within 1e-9, the host residuals of phase 12, kernel 1
+    through level 0's window and both sharded transfers
+    (``dist_ops.TRANSFERS``) launched; the AMG one also with the V-cycle in
+    the captured f32 stage's graph, or the stage eager with the card's
+    reason printed.  Each prints whether it has the undistributed solve's
+    bits.  Then kernel 6 at the rank-local P rows and P^T columns of level
+    0, timed like the other rows.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; 10 iterations of
@@ -141,6 +157,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -1323,7 +1340,7 @@ def phase_amg(torch, log, a, b):
     """``solve(A, B, nev=50, multigrid=True)`` (B None: standard) against a
     plain ``solve(A, B, nev=50)`` on the same pair, both with ``solve``'s
     defaults on a card.  Returns ``(launches, hierarchy, the plain solve's
-    eigenvalues)``."""
+    eigenvalues, the multigrid solve's GCGResult)``."""
     import gcge_tpu_torch
     from gcge_tpu_torch.solvers import gcg
 
@@ -1377,19 +1394,19 @@ def phase_amg(torch, log, a, b):
             raise AssertionError(f"{tag}: the V-cycle is not in the graph")
     elif cap.stages:
         raise AssertionError(f"{tag}: a non-diagonal B built an f32 stage")
-    return launches, hier, ev_plain
+    return launches, hier, ev_plain, res
 
 
 def phase_pas(torch, a, b, ev_plain):
     """``solve(A, B, nev=50, method="pas")``, then ``pas_solve(...,
     composite_rr=True)`` on the hierarchy that solve built, each against the
     plain generalized solve's eigenvalues ``ev_plain``.  Returns the
-    launches of both."""
+    launches of both, the hierarchy and the first solve's PASResult."""
     import gcge_tpu_torch
     from gcge_tpu_torch.solvers.pas import pas_solve
 
     out = {}
-    hier = None
+    hier = first = None
     for tag in ("PAS", "PAS composite"):
         reset_counters()
         t0 = time.perf_counter()
@@ -1418,32 +1435,39 @@ def phase_pas(torch, a, b, ev_plain):
         if idle:
             raise AssertionError(f"{tag}: kernels not launched: {idle}")
         out[tag] = launches
-    return out["PAS"], out["PAS composite"]
+        if first is None:
+            first = res
+    return out["PAS"], out["PAS composite"], hier, first
 
 
 def kernels_amg_levels(torch, log, hier):
     """Kernel 6 at the operands the V-cycle hands the CSR levels and the
     transfers (an ``(n, 10)`` block), against its plain version and beside
     ``torch.sparse.mm``; rows past the tile budget run as serial chains."""
-    import scipy.sparse as sps
-
     from gcge_tpu_torch.ops import onehot
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     for i, lv in enumerate(hier.levels):
         for what, op in (("A", lv.a_op), ("P", lv.p_op), ("R", lv.r_op)):
-            if not isinstance(op, onehot.CsrOperator):
-                continue
-            a_csr = sps.csr_matrix((op.values.cpu().numpy(),
-                                    op.colidx.cpu().numpy(),
-                                    op.rowptr.cpu().numpy()), shape=op.shape)
-            lengths = np.diff(a_csr.indptr)
-            past = int((lengths > onehot.CSR_BUDGET).sum())
-            csr_rows(torch, log, "csr_f64", op, op.values, a_csr,
-                     [f"(n, {BS})"], 1e-14, gen,
-                     f" AMG level {i} {what} {op.shape} ({a_csr.nnz} "
-                     f"entries, rows up to {lengths.max()}, {past} past the "
-                     f"budget of {onehot.CSR_BUDGET})")
+            if isinstance(op, onehot.CsrOperator):
+                csr_operator_row(torch, log, op, f"AMG level {i} {what}", gen)
+
+
+def csr_operator_row(torch, log, op, what, gen):
+    """Kernel 6 on the CSR operator ``op`` at an ``(n, 10)`` block (n its
+    columns), against its plain version and beside ``torch.sparse.mm``."""
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.ops import onehot
+
+    a_csr = sps.csr_matrix((op.values.cpu().numpy(), op.colidx.cpu().numpy(),
+                            op.rowptr.cpu().numpy()), shape=op.shape)
+    lengths = np.diff(a_csr.indptr)
+    past = int((lengths > onehot.CSR_BUDGET).sum())
+    csr_rows(torch, log, "csr_f64", op, op.values, a_csr, [f"(n, {BS})"],
+             1e-14, gen, f" {what} {op.shape} ({a_csr.nnz} entries, rows up "
+             f"to {lengths.max()}, {past} past the budget of "
+             f"{onehot.CSR_BUDGET})")
 
 
 def sync_check_amg(torch, a, hier):
@@ -1830,6 +1854,156 @@ def phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm):
     return paths
 
 
+@contextlib.contextmanager
+def one_rank_mesh():
+    """The row mesh of a one-rank NCCL group (``bootstrap`` on a free
+    localhost port), destroyed on exit."""
+    import torch.distributed as dist
+
+    from gcge_tpu_torch.parallel import bootstrap, row_mesh
+
+    bootstrap(f"tcp://127.0.0.1:{_free_port()}", 1, 0, DEVICE)
+    try:
+        yield row_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_counters() -> dict:
+    """The sharded operators' windowed products and the sharded transfers
+    since the last :func:`reset_dist_counters`."""
+    from gcge_tpu_torch.parallel import dist_ops
+
+    return {**dist_ops.WINDOWED, **dist_ops.TRANSFERS}
+
+
+def reset_dist_counters():
+    from gcge_tpu_torch.parallel import dist_ops
+
+    for counters in (dist_ops.WINDOWED, dist_ops.TRANSFERS):
+        for key in counters:
+            counters[key] = 0
+
+
+def multilevel_path_gates(tag, counted):
+    """Kernel 1 through level 0's window and both sharded transfers ran."""
+    idle = [k for k in ("dia_f64", "prolong", "restrict") if counted[k] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: not run on the sharded level 0: {idle}")
+
+
+def phase_distributed_amg(torch, log, a, hier, amg):
+    """The AMG standard solve on a one-rank NCCL mesh: ``gcg_solve`` of the
+    sharded operator with the parameters ``solve`` tunes on a card and the
+    V-cycle of ``shard_hierarchy(hier, mesh)`` as ``linear_precond``,
+    against the undistributed AMG solve ``amg`` of this run (the same
+    hierarchy): the same iterations and converged count, eigenvalues within
+    1e-9, host residuals of 2e-8, kernel 1 through the window, both sharded
+    transfers, the V-cycle inside the captured f32 stage's graph (or the
+    stage eager, with the card's reason printed).  Then kernel 6 at the
+    two operands the sharded level 0 adds.  Returns the launches."""
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+    from gcge_tpu_torch.api import _tuned_defaults
+    from gcge_tpu_torch.parallel import shard_hierarchy, shard_operator
+    from gcge_tpu_torch.solvers import gcg
+    from gcge_tpu_torch.solvers.multigrid import bamg_preconditioner
+
+    tag = "distributed AMG standard"
+    coo = a.tocoo()
+    op = make_operator(coo.row, coo.col, coo.data, coo.shape, device=DEVICE)
+    tuned = _tuned_defaults(torch.device(DEVICE), "gcg", a, None)
+    with one_rank_mesh() as mesh:
+        hd = shard_hierarchy(hier, mesh)
+        params = GCGParams(nev=NEV, verbose=0, **tuned,
+                           linear_precond=bamg_preconditioner(hd))
+        sharded = shard_operator(op, mesh)
+        reset_counters()
+        reset_dist_counters()
+        gcg.GRAPH_REPLAYS["cg_stage"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Captured() as cap:
+            res = gcg_solve(sharded, None, params, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, counted = read_counters(), dist_counters()
+        stage, = cap.stages
+        bits = np.array_equal(res.eval, amg.eval) and \
+            torch.equal(res.evec, amg.evec)
+        print(f"{tag}: wall {wall:.3f} s on the one-rank mesh (the "
+              f"hierarchy of the AMG standard phase, sharded), "
+              f"{res.num_iter} iterations (undistributed {amg.num_iter}), "
+              f"nev_conv {res.nev_conv} (undistributed {amg.nev_conv}), "
+              f"{'equal' if bits else 'not equal'} bits to the undistributed"
+              f" solve; windowed products and transfers {counted}; CG stage "
+              f"graph replays {gcg.GRAPH_REPLAYS['cg_stage']}; launches "
+              f"{launches}")
+        if res.num_iter != amg.num_iter or res.nev_conv < NEV or \
+                res.nev_conv != amg.nev_conv:
+            raise AssertionError(f"{tag}: {res.num_iter} iterations and "
+                                 f"nev_conv {res.nev_conv}, undistributed "
+                                 f"{amg.num_iter} and {amg.nev_conv}")
+        fem_gates(tag, a, None, res.eval, res.evec, NEV, amg.eval)
+        multilevel_path_gates(tag, counted)
+        if stage.graph is None:
+            print(f"{tag}: the f32 CG stage runs eager under the mesh; the "
+                  f"card refused its capture: {stage.capture_error}")
+        else:
+            in_graph = {k: v for counts in stage._launches
+                        for k, v in counts.items() if v}
+            print(f"{tag}: the captured f32 CG stage launches {in_graph} a "
+                  f"replay")
+            if not all(in_graph.get(k) for k in ("dia_f64", "csr_f64",
+                                                  "prolong", "restrict")):
+                raise AssertionError(f"{tag}: the sharded V-cycle is not in "
+                                     "the graph")
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        lv0 = hd.levels[0]
+        csr_operator_row(torch, log, lv0.p_op.local,
+                         "distributed level 0 rank-local P rows", gen)
+        csr_operator_row(torch, log, lv0.r_op.local,
+                         "distributed level 0 rank-local P^T columns", gen)
+    return launches
+
+
+def phase_distributed_pas(torch, a, b, hier, pas):
+    """``pas_solve`` of ``shard_hierarchy(hier, mesh)`` on a one-rank NCCL
+    mesh with ``solve``'s PAS knobs, against the undistributed PAS solve
+    ``pas`` of this run (the same hierarchy): the same sweeps by level and
+    converged count, eigenvalues within 1e-9 and host residuals of 2e-8
+    (``fem_gates``), kernel 1 through the window and both sharded
+    transfers.  Returns the launches."""
+    from gcge_tpu_torch.parallel import shard_hierarchy
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    tag = "distributed PAS"
+    with one_rank_mesh() as mesh:
+        hd = shard_hierarchy(hier, mesh)
+        reset_counters()
+        reset_dist_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pas_solve(hd, NEV, tol_rel=1e-8, verbose=0, **PAS_KWARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, counted = read_counters(), dist_counters()
+    bits = np.array_equal(res.eval, pas.eval) and \
+        torch.equal(res.evec, pas.evec)
+    print(f"{tag}: wall {wall:.3f} s on the one-rank mesh (the hierarchy of "
+          f"the PAS phase, sharded), sweeps by level {res.sweeps} "
+          f"(undistributed {pas.sweeps}), nev_conv {res.nev_conv} "
+          f"(undistributed {pas.nev_conv}), {'equal' if bits else 'not equal'}"
+          f" bits to the undistributed solve; windowed products and "
+          f"transfers {counted}; launches {launches}")
+    if res.sweeps != pas.sweeps or res.nev_conv != pas.nev_conv:
+        raise AssertionError(f"{tag}: sweeps {res.sweeps} and nev_conv "
+                             f"{res.nev_conv}, undistributed {pas.sweeps} and "
+                             f"{pas.nev_conv}")
+    fem_gates(tag, a, b, res.eval, res.evec, res.nev_conv, pas.eval)
+    multilevel_path_gates(tag, counted)
+    return launches
+
+
 def phase_utils(torch, a_csr, rows, cols, vals, n):
     """The utils on the headline fused solve: a checkpoint every 5
     iterations, reloaded, and a resume from its Ritz vectors that needs
@@ -1957,21 +2131,31 @@ def main(argv) -> int:
     phase_utils(torch, a_csr, rows, cols, vals, n)
     t0 = time.perf_counter()
     fem_a, fem_b = build_fem(FEM_NX)
-    paths["amg"], hier, _ = phase_amg(torch, log, fem_a, None)
+    paths["amg"], hier, _, amg = phase_amg(torch, log, fem_a, None)
     print(f"AMG standard phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sync_check_amg(torch, fem_a, hier)
     kernels_amg_levels(torch, log, hier)
-    del hier
     print(f"AMG sync check and kernel 6 rows: {time.perf_counter() - t0:.1f} "
           f"s")
     t0 = time.perf_counter()
-    paths["amg_generalized"], _, ev_gen = phase_amg(torch, log, fem_a, fem_b)
+    paths["distributed_amg"] = phase_distributed_amg(torch, log, fem_a, hier,
+                                                     amg)
+    del hier, amg
+    print(f"distributed AMG phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["amg_generalized"], _, ev_gen, _ = phase_amg(torch, log, fem_a,
+                                                       fem_b)
     print(f"AMG generalized phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    paths["pas"], paths["pas_composite"] = phase_pas(torch, fem_a, fem_b,
-                                                     ev_gen)
+    paths["pas"], paths["pas_composite"], hier, pas = phase_pas(
+        torch, fem_a, fem_b, ev_gen)
     print(f"PAS phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["distributed_pas"] = phase_distributed_pas(torch, fem_a, fem_b,
+                                                     hier, pas)
+    del hier, pas
+    print(f"distributed PAS phase: {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         phase_profile(torch, op, a_csr)
         profile_multilevel(torch, fem_a, fem_b)

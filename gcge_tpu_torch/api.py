@@ -7,7 +7,10 @@ banded — optionally after RCM reordering — Hybrid or CSR otherwise), runs GC
 and returns ``(eval, evec, nev_conv)`` in the caller's row order.  The device
 is always the caller's choice: there is no silent move to the CPU.  With
 ``distribute=True`` every rank of the default process group calls it and
-the solve is row-sharded over them (:mod:`gcge_tpu_torch.parallel`).
+the solve is row-sharded over them (:mod:`gcge_tpu_torch.parallel`); the
+AMG hierarchy of ``multigrid`` and ``method="pas"`` has its finest level
+sharded and its coarser levels replicated
+(:func:`~gcge_tpu_torch.parallel.shard_hierarchy`).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from gcge_tpu_torch.ops.operators import (DenseOperator, DiagOperator,
                                           IdentityOperator, LinearOperator,
                                           SparseOperator, make_operator)
 from gcge_tpu_torch.parallel import (gather_rows, pad_problem, row_mesh,
-                                     shard_operator)
+                                     shard_hierarchy, shard_operator)
 from gcge_tpu_torch.solvers import multigrid as mg
 from gcge_tpu_torch.solvers.gcg import GCGParams, gcg_solve
 from gcge_tpu_torch.solvers.pas import pas_solve
@@ -123,7 +126,7 @@ def _hierarchy(a, b, perm, max_levels: int, method: str, dtype, device):
                               dtype=dtype, device=device)
 
 
-def _distribution(distribute, multigrid, method: str, device):
+def _distribution(distribute, device):
     """The row mesh of ``solve(distribute=...)`` over the default process
     group, or None where the group has one rank (``gcge_tpu`` runs its plain
     path on one device).  No initialized group raises: a distributed call
@@ -133,11 +136,6 @@ def _distribution(distribute, multigrid, method: str, device):
                                   "ported yet (ROADMAP Queue 1 item 12b)")
     if distribute not in (True, "rows"):
         raise ValueError(f"unknown distribute {distribute!r}")
-    if multigrid or method == "pas":
-        raise NotImplementedError("distribute with multigrid or method='pas' "
-                                  "(the distributed hierarchy, "
-                                  "dist_mg.shard_hierarchy) is not ported "
-                                  "yet (ROADMAP Queue 1 item 12b)")
     mesh = row_mesh(device=device)
     return None if mesh.world == 1 else mesh
 
@@ -171,8 +169,11 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
     rank, gloo on the CPU); every rank calls ``solve`` with the same
     arguments, the problem is padded to a multiple of the rank count
     (:func:`~gcge_tpu_torch.parallel.pad_problem`) and every rank gets the
-    full eigenvectors.  Without an initialized group it raises; with one
-    rank it runs the plain path.
+    full eigenvectors.  With ``multigrid`` or ``method="pas"`` every rank
+    builds the hierarchy of the unpadded matrix and shards its finest
+    level, whose rows must then be a multiple of the rank count
+    (``ValueError`` otherwise: the hierarchy is not padded).  Without an
+    initialized group it raises; with one rank it runs the plain path.
 
     Returns ``(eval, evec, nev_conv)``: numpy eigenvalues (ascending), the
     Ritz vectors as a ``(n, size_x)`` tensor on ``device``, and the
@@ -180,8 +181,7 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
     if method not in ("gcg", "pas"):
         raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
-    mesh = _distribution(distribute, multigrid, method, device) \
-        if distribute else None
+    mesh = _distribution(distribute, device) if distribute else None
     if params is None:
         for k, v in _tuned_defaults(device, method, a, b).items():
             kwargs.setdefault(k, v)
@@ -198,10 +198,17 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
             x0 = torch.as_tensor(x0)[torch.from_numpy(perm)]
     hier = None
     if multigrid or method == "pas":
+        if mesh is not None and sps.issparse(a) and a.shape[0] % mesh.world:
+            raise ValueError(f"the hierarchy's finest level has {a.shape[0]}"
+                             f" rows, which do not split over {mesh.world} "
+                             f"ranks: with multigrid or method='pas' the "
+                             f"rows must be a multiple of the rank count")
         max_levels = multigrid if isinstance(multigrid, int) and \
             multigrid > 1 else 4
         hier = _hierarchy(a, b, perm, max_levels, method, params.dtype,
                           device)
+        if mesh is not None:
+            hier = shard_hierarchy(hier, mesh)
     if method == "pas":
         res = pas_solve(hier, params.nev, tol_rel=params.tol_rel,
                         verbose=params.verbose, sweeps_per_level=pas_sweeps,

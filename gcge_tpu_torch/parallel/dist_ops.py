@@ -49,6 +49,9 @@ from gcge_tpu_torch.parallel.mesh import RowMesh
 # window, by kernel: the windowed path's share of ops.spmm.LAUNCHES and
 # ops.onehot.LAUNCHES
 WINDOWED = {"dia_f64": 0, "dia_f32": 0, "csr_f64": 0, "csr_f32": 0}
+# products of the sharded AMG transfers on a card (``dist_mg``), one kernel-6
+# launch each: their share of ops.onehot.LAUNCHES["csr_f64"]
+TRANSFERS = {"prolong": 0, "restrict": 0}
 
 
 def halo_window(mesh: RowMesh, xn: torch.Tensor, hl: int, hr: int,

@@ -14,19 +14,22 @@ operator from its block without any rank ever holding the global matrix:
   value rows;
 * :func:`csr_from_host_blocks` — the sharded CSR operator from a rank's rows
   (the counterpart of ``ell_from_host_blocks``): the band, which sets the
-  halo window, is the maximum over the ranks.
-
-``hybrid_row_mesh`` (a host-major device order) is ROADMAP Queue 1 item 12b.
+  halo window, is the maximum over the ranks;
+* :func:`hybrid_row_mesh` — the row mesh, checked to be in host-major
+  order.
 """
 
 from __future__ import annotations
+
+import socket
+from typing import Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from gcge_tpu_torch.parallel.dist_ops import window_csr, window_dia
-from gcge_tpu_torch.parallel.mesh import RowMesh, backend_for
+from gcge_tpu_torch.parallel.mesh import RowMesh, backend_for, row_mesh
 
 
 def bootstrap(init_method: str | None = None, world_size: int | None = None,
@@ -54,10 +57,32 @@ def bootstrap(init_method: str | None = None, world_size: int | None = None,
     return dist.get_rank(), dist.get_world_size()
 
 
-def hybrid_row_mesh(*args, **kwargs):
-    """The host-major row mesh of ``gcge_tpu`` is not ported yet."""
-    raise NotImplementedError("hybrid_row_mesh is not ported yet (ROADMAP "
-                              "Queue 1 item 12b)")
+def check_host_major(hosts: Sequence[str]) -> None:
+    """Raise ``ValueError`` unless the ranks of each host are contiguous in
+    ``hosts`` (the host of each rank, in rank order)."""
+    seen = set()
+    for prev, host in zip([None] + list(hosts), hosts):
+        if host != prev:
+            if host in seen:
+                raise ValueError(f"the ranks are not in host-major order: "
+                                 f"{list(hosts)}")
+            seen.add(host)
+
+
+def hybrid_row_mesh(group=None, device=None) -> RowMesh:
+    """The row mesh over ``group`` (:func:`row_mesh`), checked to be in
+    host-major order: each host's ranks are contiguous, so neighbouring row
+    blocks exchange their halos inside a host and cross hosts once at each
+    host boundary.  ``gcge_tpu`` orders its devices so; with one process a
+    card the order is the ranks', which ``torchrun`` numbers host by host
+    (and ``torch.distributed.new_group`` sorts), so the port checks it:
+    one ``all_gather_object`` of the host names, ``ValueError`` where a
+    host's ranks are not contiguous."""
+    mesh = row_mesh(group, device)
+    hosts = [None] * mesh.world
+    dist.all_gather_object(hosts, socket.gethostname(), group=mesh.group)
+    check_host_major(hosts)
+    return mesh
 
 
 def _n_global(mesh: RowMesh, ln: int, n_global: int | None) -> int:

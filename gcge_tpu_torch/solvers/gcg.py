@@ -136,8 +136,10 @@ class GCGParams:
     # backend of the projected eigensolve (ops.eighs.eigh): 'auto' or
     # 'device'; the TPU's backends raise
     rr_backend: str = "auto"
-    # 'auto' and 'off': a cold eigh in every Rayleigh-Ritz step, as
-    # gcge_tpu off its TPU newton path; 'struct' raises (item 12b)
+    # 'auto', 'struct' and 'off': a cold eigh in every Rayleigh-Ritz step.
+    # gcge_tpu's warm start ('auto' and 'struct') seeds its Newton eigh
+    # backend, which exists for the TPU's emulated f64 and is not ported;
+    # off that backend it, too, runs a cold eigh
     rr_warm: str = "auto"
 
     def resolved(self, n: int) -> "GCGParams":
@@ -267,9 +269,11 @@ def _f32_apply(a_op):
 # replays of the captured CG stage since the last reset.  A replay launches
 # the stage's kernels without passing through their wrappers, so it adds the
 # calls each wrapper got during capture to that wrapper's launch count (and
-# a sharded operator's windowed products to dist_ops.WINDOWED)
+# a sharded operator's windowed products to dist_ops.WINDOWED, a sharded
+# hierarchy's transfers to dist_ops.TRANSFERS)
 GRAPH_REPLAYS = {"cg_stage": 0}
-_STAGE_COUNTERS = (spmm.LAUNCHES, onehot.LAUNCHES, dist_ops.WINDOWED)
+_STAGE_COUNTERS = (spmm.LAUNCHES, onehot.LAUNCHES, dist_ops.WINDOWED,
+                   dist_ops.TRANSFERS)
 
 
 def _stage_counts():
@@ -896,16 +900,12 @@ def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
 
 
 def _not_ported(params: GCGParams, mesh) -> None:
-    """Raise for what the port does not run: a value not ported yet names
-    its ROADMAP item; a value that exists for the TPU only says so."""
+    """Raise for what the port does not run: a value that exists for the
+    TPU only says so."""
     if mesh is not None and not isinstance(mesh, RowMesh):
         raise TypeError(f"mesh must be a gcge_tpu_torch.parallel.RowMesh "
                         f"(row_mesh()), got {type(mesh).__name__}")
-    if params.rr_warm == "struct":
-        raise NotImplementedError("rr_warm='struct' (the structural warm "
-                                  "start of the spectrum-sliced eigh) is not "
-                                  "ported yet (ROADMAP Queue 1 item 12b)")
-    if params.rr_warm not in ("auto", "off"):
+    if params.rr_warm not in ("auto", "struct", "off"):
         raise ValueError(f"unknown rr_warm {params.rr_warm!r}")
     check_backend(params.rr_backend)
     if params.fuse_hotswap not in ("auto", "on", "off"):

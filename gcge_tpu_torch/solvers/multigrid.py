@@ -18,13 +18,19 @@ level's solve and the CG smoother) runs its whole step budget
 (``block_pcg(fixed=True)``): it gives the early-exit form's ``x`` and reads
 nothing back to the host, so a V-cycle can be captured in a CUDA graph with
 the f32 CG stage of GCG's mixed inner solve.
+
+A hierarchy sharded over a row mesh (``parallel.dist_mg.shard_hierarchy``)
+carries the mesh: level 0, and only level 0, holds the rank's rows, so its
+smoother CG, its coarsest-level CG where it is the coarsest, and
+:func:`bamg_solve`'s residual norms sum their column dots over the ranks.
+The replicated coarse levels run no collective.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sps
@@ -34,6 +40,9 @@ from gcge_tpu_torch.ops.multivec import col_dots
 from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import make_operator
 from gcge_tpu_torch.solvers.bpcg import BlockPCGParams, block_pcg
+
+if TYPE_CHECKING:
+    from gcge_tpu_torch.parallel.mesh import RowMesh
 
 
 @dataclass
@@ -50,10 +59,23 @@ class MGLevel:
 class MGHierarchy:
     """``levels[0]`` is the finest (the original operator), ``levels[-1]``
     the coarsest.  ``setup``: host seconds of each level's set-up, as dicts
-    (``aggregate``, ``galerkin``, ``place``), level 0 first."""
+    (``aggregate``, ``galerkin``, ``place``), level 0 first.  ``mesh``: the
+    row mesh over which level 0 is sharded (None: nothing is sharded)."""
 
     levels: list[MGLevel] = field(default_factory=list)
     setup: list[dict] = field(default_factory=list)
+    mesh: Optional["RowMesh"] = None
+
+    def mesh_at(self, level: int):
+        """The mesh of ``level``'s vectors: ``mesh`` on level 0, else None
+        (the coarser levels are replicated)."""
+        return self.mesh if level == 0 else None
+
+    def sub(self, level: int) -> "MGHierarchy":
+        """The hierarchy from ``level`` down, with the mesh where it starts
+        at level 0."""
+        return MGHierarchy(levels=self.levels[level:],
+                           mesh=self.mesh_at(level))
 
     @property
     def num_levels(self):
@@ -217,12 +239,12 @@ def chebyshev_smooth(a_matvec, dinv, b, x, lam_max: float, k: int,
     return x + d
 
 
-def _smooth(lv, b, x, iters, rate, tol, smoother):
+def _smooth(lv, b, x, iters, rate, tol, smoother, mesh=None):
     if smoother == "chebyshev" and lv.dinv is not None and lv.lam_max:
         return chebyshev_smooth(lv.a_op.matvec, lv.dinv, b, x, lv.lam_max,
                                 iters)
     params = BlockPCGParams(max_iter=iters, rate=rate, tol=tol, tol_type="abs")
-    x, _ = block_pcg(lv.a_op.matvec, b, x, params, fixed=True)
+    x, _ = block_pcg(lv.a_op.matvec, b, x, params, fixed=True, mesh=mesh)
     return x
 
 
@@ -232,13 +254,14 @@ def _vcycle(hier, level, b, x, smooth_iters, coarse_iters, rate, tol,
     recurse, prolong the correction, smooth; the coarsest level solves by
     ``coarse_iters`` CG steps."""
     lv = hier.levels[level]
+    mesh = hier.mesh_at(level)
     if level + 1 == hier.num_levels:
         params = BlockPCGParams(max_iter=coarse_iters, rate=rate, tol=tol,
                                 tol_type="abs")
-        x, _ = block_pcg(lv.a_op.matvec, b, x, params, fixed=True)
+        x, _ = block_pcg(lv.a_op.matvec, b, x, params, fixed=True, mesh=mesh)
         return x
     iters = smooth_iters[min(level, len(smooth_iters) - 1)]
-    x = _smooth(lv, b, x, iters, rate, tol, smoother)
+    x = _smooth(lv, b, x, iters, rate, tol, smoother, mesh)
     r = b - lv.a_op.matvec(x)
     r_c = lv.r_op.matvec(r)
     e_c = torch.zeros((r_c.shape[0], r_c.shape[1]), dtype=r_c.dtype,
@@ -246,7 +269,7 @@ def _vcycle(hier, level, b, x, smooth_iters, coarse_iters, rate, tol,
     e_c = _vcycle(hier, level + 1, r_c, e_c, smooth_iters, coarse_iters, rate,
                   tol, smoother)
     x = x + lv.p_op.matvec(e_c)
-    return _smooth(lv, b, x, iters, rate, tol, smoother)
+    return _smooth(lv, b, x, iters, rate, tol, smoother, mesh)
 
 
 def bamg_solve(hier: MGHierarchy, b: torch.Tensor,
@@ -257,18 +280,20 @@ def bamg_solve(hier: MGHierarchy, b: torch.Tensor,
                smoother: str = "cg"):
     """Block AMG: V-cycles until the largest column's relative residual is
     below ``rtol``, reading it back to the host once a cycle.
-    ``smoother``: ``'cg'`` (block-CG smoothing) or ``'chebyshev'``.  Returns
+    ``smoother``: ``'cg'`` (block-CG smoothing) or ``'chebyshev'``.  On a
+    sharded hierarchy ``b``, ``x0`` and ``x`` are the rank's rows.  Returns
     ``(x, cycles, rel_res)``."""
     a_op = hier.levels[level].a_op
+    mesh = hier.mesh_at(level)
     x = torch.zeros_like(b) if x0 is None else x0
-    nb = torch.clamp(torch.sqrt(col_dots(b, b)), min=1e-300)
-    sub = MGHierarchy(levels=hier.levels[level:])
+    nb = torch.clamp(torch.sqrt(col_dots(b, b, mesh)), min=1e-300)
+    sub = hier.sub(level)
     si = tuple(smooth_iters)
     it, rel = 0, None
     for it in range(1, max_cycles + 1):
         x = _vcycle(sub, 0, b, x, si, coarse_iters, rate, tol, smoother)
         r = b - a_op.matvec(x)
-        rel = torch.sqrt(col_dots(r, r)) / nb
+        rel = torch.sqrt(col_dots(r, r, mesh)) / nb
         if float(rel.max()) < rtol:
             break
     return x, it, rel

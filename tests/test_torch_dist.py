@@ -12,9 +12,13 @@ collective fails the checks it did not finish instead of hanging the suite.
 Tolerances: the stitched sharded products equal ``gcge_tpu``'s to 1e-13 of
 their largest entry (the same sums in another order); the solves, as in
 ``tests/test_torch_gcg.py``, have eigenvalues within 1e-10 relative, the
-same converged count and iteration counts within 2; the f32 products of the
+same converged count and iteration counts within 2; PAS, as in
+``tests/test_torch_pas.py``, eigenvalues within 1e-9 relative, the same
+converged count and the same sweeps by level; the f32 products of the
 windowed path, and a solve on a one-rank mesh, equal the undistributed
-port's bit for bit (the same operations on the same values).
+port's bit for bit (the same operations on the same values).  The
+replicated coarse levels of a sharded AMG hierarchy give every rank the
+same bits.
 """
 
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+import gcge_tpu
 import torch_dist_worker as w
 from gcge_tpu.ops.operators import DenseOperator as JDense
 from gcge_tpu.ops.operators import DiagOperator as JDiag
@@ -34,15 +39,18 @@ from gcge_tpu.ops.spmm_pallas import (_window_matvec_t, dia_spmm_pallas_t,
 from gcge_tpu.parallel import pad_problem as j_pad_problem
 from gcge_tpu.parallel import row_mesh as j_row_mesh
 from gcge_tpu.parallel import shard_operator as j_shard_operator
+from gcge_tpu.parallel import shard_hierarchy as j_shard_hierarchy
 from gcge_tpu.parallel import shard_rows as j_shard_rows
+from gcge_tpu.solvers import multigrid as jmg
+from gcge_tpu.solvers import pas as jpas
 from gcge_tpu.solvers.gcg import GCGParams as JParams
 from gcge_tpu.solvers.gcg import gcg_solve as j_gcg_solve
 import gcge_tpu_torch
 from gcge_tpu_torch import (CsrOperator, DiagOperator, DiaOperator,
                             HybridOperator)
 from gcge_tpu_torch.ops import spmm
-from gcge_tpu_torch.parallel import (grid_mesh, hybrid_row_mesh, pad_problem,
-                                     row_mesh)
+from gcge_tpu_torch.parallel import (check_host_major, grid_mesh,
+                                     hybrid_row_mesh, pad_problem, row_mesh)
 from gcge_tpu_torch.solvers.gcg import _f32_apply
 
 torch.set_num_threads(2)
@@ -170,21 +178,22 @@ def test_pad_problem_matches_jax():
 
 
 def test_distribution_needs_a_process_group():
-    """No initialized group: ``row_mesh`` and ``solve(distribute=True)``
+    """No initialized group: ``row_mesh``, ``hybrid_row_mesh`` and
+    ``solve(distribute=True)``, with ``multigrid`` and ``method="pas"`` too,
     raise (nothing runs undistributed in silence); what waits for item 12b
-    names it."""
+    (the 2-D mesh) names it."""
     a = sps.identity(40, format="csr")
-    with pytest.raises(RuntimeError, match="process group"):
-        row_mesh()
-    with pytest.raises(RuntimeError, match="process group"):
-        gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute=True)
-    for kw in (dict(distribute="grid"), dict(distribute=True, multigrid=3),
-               dict(distribute=True, method="pas")):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            gcge_tpu_torch.solve(a, nev=2, device="cpu", **kw)
-    for fn in (grid_mesh, hybrid_row_mesh):
-        with pytest.raises(NotImplementedError, match="item 12b"):
+    for fn in (row_mesh, hybrid_row_mesh):
+        with pytest.raises(RuntimeError, match="process group"):
             fn()
+    for kw in (dict(), dict(multigrid=3), dict(method="pas")):
+        with pytest.raises(RuntimeError, match="process group"):
+            gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute=True,
+                                 **kw)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute="grid")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        grid_mesh()
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +265,84 @@ def jax_solves():
     return out
 
 
+def _jax_pas(run, composite=False):
+    """``run()``, a call of gcge_tpu that reaches its ``pas_solve``: its
+    return value, the ``PASResult`` and the sweeps by level (finest last).
+    gcge_tpu's result does not count its sweeps, so the function that runs
+    them is wrapped for the call: the fused loop of a level (its third
+    output is the count) or, for the composite Rayleigh-Ritz, which it runs
+    sweep by sweep, the sweep."""
+    counts, results = [], []
+    name = "_pas_sweep" if composite else "_pas_sweeps_fused"
+    sweep, pas_solve = getattr(jpas, name), jpas.pas_solve
+
+    def counted(*args, **kwargs):
+        out = sweep(*args, **kwargs)
+        n = args[1].shape[0]
+        if not composite:
+            counts.append([n, int(out[2])])
+        elif counts and counts[-1][0] == n:
+            counts[-1][1] += 1
+        else:
+            counts.append([n, 1])
+        return out
+
+    def recorded(*args, **kwargs):
+        results.append(pas_solve(*args, **kwargs))
+        return results[-1]
+
+    setattr(jpas, name, counted)
+    jpas.pas_solve = recorded
+    try:
+        out = run()
+    finally:
+        setattr(jpas, name, sweep)
+        jpas.pas_solve = pas_solve
+    return out, results[0], [c for _, c in counts]
+
+
 @pytest.fixture(scope="module")
-def four(ranks, jax_matvecs, jax_solves):
+def jax_mg():
+    """gcge_tpu's distributed multilevel results on the 1-D Laplacian of
+    ``tests/test_dist.py``: on row_mesh(4) the transfers' products,
+    bamg_solve's cycles, GCG with the V-cycle preconditioner and the
+    composite PAS; the plain PAS through ``gcge_tpu.solve(distribute=True,
+    method="pas")`` on its 8 devices, the same ``pas_solve`` call on the
+    same hierarchy, which is also the reference of the two-rank
+    ``lap_pas`` case."""
+    mesh = j_row_mesh(4)
+    n = w.MG_N
+    rows, cols, vals = w.lap_coo(n)
+    hier = jmg.build_hierarchy(rows, cols, vals, n, max_levels=w.MG_LEVELS)
+    hd = j_shard_hierarchy(hier, mesh)
+    lv0 = hd.levels[0]
+    n_c = hier.levels[1].a_op.shape[0]
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    b = a @ w.block(n, 4, 42)
+    out = {
+        "prolong": np.asarray(lv0.p_op.matvec(jnp.asarray(w.block(n_c, 3,
+                                                                  8)))),
+        "restrict": np.asarray(lv0.r_op.matvec(j_shard_rows(
+            mesh, jnp.asarray(w.block(n, 3, 9))))),
+        "cg_cycles": jmg.bamg_solve(hd, j_shard_rows(mesh, jnp.asarray(b)),
+                                    max_cycles=25, rtol=1e-10)[1],
+        "x_true": w.block(n, 4, 42),
+    }
+    params = JParams(verbose=0, linear_precond=jmg.bamg_preconditioner(hd),
+                     **w.MG_GCG)
+    out["gcg"] = j_gcg_solve(
+        j_shard_operator(JDia.from_coo(rows, cols, vals, (n, n)), mesh),
+        None, params, x0=jnp.asarray(w.x0_for(n, w.MG_GCG_X0)), mesh=mesh)
+    out["lap_pas"], *out["plain"] = _jax_pas(lambda: gcge_tpu.solve(
+        a, None, distribute=True, verbose=0, **w.API_MG["lap_pas"][1]))
+    _, *out["composite"] = _jax_pas(lambda: jpas.pas_solve(
+        hd, w.PAS_NEV, verbose=0, **w.PAS_CASES["composite"]),
+        composite=True)
+    return out
+
+
+@pytest.fixture(scope="module")
+def four(ranks, jax_matvecs, jax_solves, jax_mg):
     """The four-rank group's results (joined after gcge_tpu's products and
     solves, which this process computes while the ranks run)."""
     return joined(ranks, "four")
@@ -391,3 +476,193 @@ def test_bootstrap_and_host_blocks_two_ranks(two):
         assert np.abs(got - y).max() <= 1e-13 * np.abs(y).max()
     assert parts[0]["csr_halo"] == (1, 1, False)
     assert codes == [0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the distributed multilevel path over four ranks against gcge_tpu's
+# ---------------------------------------------------------------------------
+
+
+def test_sharded_transfers_match_jax(jax_mg, four):
+    """``ProlongOperator`` (the rank's rows of P against the replicated
+    coarse block, stitched) and ``RestrictOperator`` (the rank's columns of
+    P^T, then one psum: the same in every rank) against gcge_tpu's
+    products on the same blocks; level 0 alone carries the mesh."""
+    out, _ = four
+    parts = w.result(out, "four", "mg_transfers")
+    p_ref, r_ref = jax_mg["prolong"], jax_mg["restrict"]
+    got = _stitch([p["prolong"] for p in parts], w.MG_N)
+    assert np.abs(got - p_ref).max() <= 1e-13 * np.abs(p_ref).max()
+    for p in parts:
+        assert np.abs(p["restrict"] - r_ref).max() <= \
+            1e-13 * np.abs(r_ref).max()
+        np.testing.assert_array_equal(p["restrict"], parts[0]["restrict"])
+    n_c = r_ref.shape[0]
+    assert parts[0]["types"] == ("ProlongOperator", "RestrictOperator")
+    assert parts[0]["shapes"] == ((w.MG_N, n_c), (n_c, w.MG_N),
+                                  (w.MG_N // 4, n_c), (n_c, w.MG_N // 4))
+    assert parts[0]["mesh_levels"] == [True] + [False] * (w.MG_LEVELS - 1)
+
+
+def test_coarse_correction_same_bits_on_every_rank(four):
+    """The replicated coarse levels' V-cycle from one restricted residual:
+    every rank computes the same bits, with no collective."""
+    out, _ = four
+    parts = w.result(out, "four", "mg_transfers")
+    for p in parts[1:]:
+        np.testing.assert_array_equal(p["coarse_correction"],
+                                      parts[0]["coarse_correction"])
+    assert np.abs(parts[0]["coarse_correction"]).max() > 0
+
+
+@pytest.mark.parametrize("smoother", ["cg", "chebyshev"])
+def test_distributed_bamg_solve_matches_jax(jax_mg, four, smoother):
+    """``bamg_solve`` on the sharded hierarchy (``tests/test_dist.py``'s
+    case): relative residual below 1e-10, x within 1e-7 (CG smoother) or
+    1e-6 (Chebyshev) of x_true; with the CG smoother, the cycles of
+    gcge_tpu's distributed solve and of the port's undistributed one."""
+    out, _ = four
+    parts = w.result(out, "four", "mg_transfers")
+    runs = [p[smoother] for p in parts]
+    x = _stitch([r["x"] for r in runs], w.MG_N)
+    for r in runs:
+        assert r["rel"] < 1e-10
+        assert r["cycles"] == runs[0]["cycles"]
+    atol = 1e-7 if smoother == "cg" else 1e-6
+    np.testing.assert_allclose(x, jax_mg["x_true"], atol=atol)
+    if smoother == "cg":
+        assert runs[0]["cycles"] == jax_mg["cg_cycles"] == \
+            parts[0]["cg_undistributed_cycles"]
+
+
+def test_distributed_gcg_with_bamg_preconditioner_matches_jax(jax_mg, four):
+    """GCG on the sharded DIA operator with ``bamg_preconditioner`` of the
+    sharded hierarchy (``tests/test_dist.py``'s case, nev=5, block 3,
+    ``cg_max_iter=8``) against gcge_tpu's on its mesh: eigenvalues 1e-10,
+    the same converged count, iterations within 2."""
+    out, _ = four
+    parts = w.result(out, "four", "mg_gcg")
+    jr = jax_mg["gcg"]
+    nev = w.MG_GCG["nev"]
+    for p in parts:
+        np.testing.assert_array_equal(p["eval"], parts[0]["eval"])
+        assert p["kind"] == "dia"
+    res = parts[0]
+    assert res["nev_conv"] >= nev and res["nev_conv"] == jr.nev_conv
+    ev_j = np.asarray(jr.eval)[:nev]
+    assert np.max(np.abs(res["eval"][:nev] - ev_j) / np.abs(ev_j)) <= 1e-10
+    assert abs(res["num_iter"] - jr.num_iter) <= 2
+
+
+@pytest.mark.parametrize("name", list(w.PAS_CASES))
+def test_distributed_pas_matches_jax(jax_mg, four, name):
+    """``pas_solve`` on the sharded hierarchy, explicit span and composite
+    Rayleigh-Ritz, against gcge_tpu's on its mesh: the same sweeps by level
+    and converged count, eigenvalues within 1e-9; every rank holds the same
+    eigenvalues and levels' histories, bit for bit, and its rows of the
+    eigenvectors."""
+    out, _ = four
+    parts = [p[name] for p in w.result(out, "four", "pas")]
+    jres, j_sweeps = jax_mg[name]
+    res = parts[0]
+    for p in parts[1:]:
+        np.testing.assert_array_equal(p["eval"], res["eval"])
+        assert p["sweeps"] == res["sweeps"]
+        for (lv, lam), (lv0, lam0) in zip(p["history"], res["history"]):
+            assert lv == lv0
+            np.testing.assert_array_equal(lam, lam0)
+    assert res["sweeps"] == j_sweeps
+    assert res["nev_conv"] == jres.nev_conv >= w.PAS_NEV
+    np.testing.assert_allclose(res["eval"], np.asarray(jres.eval), rtol=1e-9)
+    assert [lv for lv, _ in res["history"]] == \
+        [lv for lv, _ in jres.level_history]
+    assert res["evec"].shape == (w.MG_N // 4, w.PAS_NEV)
+
+
+@pytest.mark.parametrize("name", ["amg", "plain", "composite"])
+def test_one_rank_hierarchy_equals_no_mesh_bit_for_bit(four, name):
+    """On a one-rank mesh the sharded hierarchy is the undistributed one:
+    its P rows and P^T columns are the whole transfers and its collectives
+    are copies, so GCG with the V-cycle and PAS give the same bits."""
+    out, _ = four
+    got = w.result(out, "four", "mg_one_rank")[0]
+    assert got[name] is True
+
+
+def test_hybrid_row_mesh_four_ranks(four):
+    """``hybrid_row_mesh`` on four ranks of one host is ``row_mesh``: the
+    same rank, world and peers."""
+    out, _ = four
+    for rank, p in enumerate(w.result(out, "four", "hybrid_mesh")):
+        assert p["hybrid"] == p["row"] == (rank, 4, (0, 1, 2, 3))
+
+
+def test_check_host_major():
+    """The host-order check accepts host-major rank orders and names one
+    that is not."""
+    for hosts in (["a"], ["a", "a", "b", "b"], ["b", "a", "a", "c"]):
+        check_host_major(hosts)
+    for hosts in (["a", "b", "a"], ["a", "a", "b", "b", "a"]):
+        with pytest.raises(ValueError, match="host-major"):
+            check_host_major(hosts)
+
+
+# ---------------------------------------------------------------------------
+# two ranks: the distributed multilevel frontend
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_api(jax_mg):
+    """``gcge_tpu.solve(distribute=True)`` of each one-call case on its
+    8-device mesh (``lap_pas``: :func:`jax_mg`'s)."""
+    out = {"lap_pas": jax_mg["lap_pas"]}
+    for name, (matrix, kw, k) in w.API_MG.items():
+        if name in out:
+            continue
+        a, b = w.api_matrices(matrix)
+        x0 = None if k is None else jnp.asarray(w.x0_for(a.shape[0], k))
+        out[name] = gcge_tpu.solve(a, b, distribute=True, verbose=0, x0=x0,
+                                   **kw)
+    return out
+
+
+@pytest.mark.parametrize("name", list(w.API_MG))
+def test_solve_distributed_multilevel_matches_jax(jax_api, two, name):
+    """``solve(distribute=True)`` on two ranks with ``multigrid=3`` (GCG
+    preconditioned by the sharded V-cycle) and ``method="pas"`` (two
+    levels), on the cube FEM pair at nx=9 (n=512, with B), and PAS on the
+    1-D Laplacian at n=512
+    (``tests/test_api.py``'s distributed PAS case), against
+    ``gcge_tpu.solve`` with the same arguments: eigenvalues within 1e-10
+    (GCG) or 1e-9 (PAS), the same converged count; both ranks hold the same
+    full eigenvectors."""
+    out, _ = two
+    parts = [p[name] for p in w.result(out, "two", "mg_api")]
+    ev_j, _, conv_j = jax_api[name]
+    matrix, kw, _ = w.API_MG[name]
+    nev = kw["nev"]
+    res = parts[0]
+    np.testing.assert_array_equal(parts[1]["eval"], res["eval"])
+    np.testing.assert_array_equal(parts[1]["evec"], res["evec"])
+    assert res["nev_conv"] == conv_j
+    assert res["nev_conv"] >= (2 if name == "fem_pas" else nev)
+    ev_j = np.asarray(ev_j)[:nev]
+    tol = 1e-9 if kw.get("method") == "pas" else 1e-10
+    assert np.max(np.abs(res["eval"][:nev] - ev_j) / np.abs(ev_j)) <= tol
+    assert res["evec"].shape[0] == 512
+
+
+def test_distributed_hierarchy_needs_divisible_rows(two):
+    """n=511 on two ranks: ``solve(distribute=True)`` with ``multigrid``
+    and with ``method="pas"`` raises ``ValueError``, since the hierarchy's
+    finest level is not padded.  gcge_tpu shards its hierarchy only where
+    the rows divide its devices (``gcge_tpu/api.py:266-275``): otherwise
+    its GCG gets an unsharded preconditioner of n rows for residuals of the
+    padded n, a shape error, and its PAS runs the unsharded hierarchy
+    undistributed, in silence."""
+    out, _ = two
+    for p in w.result(out, "two", "divisibility"):
+        for name in ("multigrid", "pas"):
+            assert p[name] is not None and "multiple of the rank count" in \
+                p[name]

@@ -174,11 +174,14 @@ def test_resolved_matches_jax(nev, block_size, nev_max):
 def test_options_not_ported_raise(stencil10):
     """What is not ported raises before the solve starts, naming its ROADMAP
     item (checkpoint_path, profile_dir, mesh and distribute run since they
-    were ported: tests/test_torch_utils.py, tests/test_torch_dist.py)."""
+    were ported: tests/test_torch_utils.py, tests/test_torch_dist.py;
+    rr_warm='struct' solves: test_rr_warm_struct_matches_auto_and_jax)."""
     rows, cols, vals, n, _ = stencil10
     op = make_operator(rows, cols, vals, (n, n), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        gcg_solve(op, None, GCGParams(nev=4, rr_warm="struct"))
+    res = gcg_solve(op, None, GCGParams(nev=4, rr_warm="struct", verbose=0))
+    assert res.nev_conv >= 4
+    with pytest.raises(ValueError, match="rr_warm"):
+        gcg_solve(op, None, GCGParams(nev=4, rr_warm="newton"))
     with pytest.raises(TypeError, match="RowMesh"):
         gcg_solve(op, None, GCGParams(nev=4), mesh=object())
     # multigrid and method="pas" run since they were ported
@@ -193,6 +196,27 @@ def test_options_not_ported_raise(stencil10):
         gcge_tpu_torch.solve(a, nev=2, device="cpu", method="lobpcg")
     with pytest.raises(ValueError, match="exceeds"):
         GCGParams(nev=30).resolved(50)
+
+
+def test_rr_warm_struct_matches_auto_and_jax(stencil10):
+    """``rr_warm='struct'`` is ``'auto'`` in the port (the warm start seeds
+    only gcge_tpu's Newton eigh backend, which is not ported): the same
+    bits; and gcge_tpu's ``'struct'`` solve, which off its TPU Newton path
+    runs the cold eigh too, to the parity tolerances."""
+    rows, cols, vals, n, x0 = stencil10
+    op = make_operator(rows, cols, vals, (n, n), device="cpu")
+    kw = dict(nev=6, block_size=3, verbose=0)
+    auto, struct = (gcg_solve(op, None, GCGParams(rr_warm=warm, **kw),
+                              x0=x0[:, :12]) for warm in ("auto", "struct"))
+    np.testing.assert_array_equal(auto.eval, struct.eval)
+    assert torch.equal(auto.evec, struct.evec)
+    assert (auto.num_iter, auto.nev_conv) == (struct.num_iter,
+                                              struct.nev_conv)
+    jr = j_gcg_solve(j_make_operator(rows, cols, vals, (n, n)), None,
+                     JParams(rr_warm="struct", **kw),
+                     x0=jnp.asarray(x0[:, :12]))
+    _assert_parity(struct.eval, struct.nev_conv, struct.num_iter,
+                   jr.eval, jr.nev_conv, jr.num_iter, 6)
 
 
 def test_eigsh_cpu():
@@ -268,8 +292,7 @@ _FIELDS = {
     # without checkpoint_path, checkpoint_every writes nothing (gcge_tpu's
     # rule); tests/test_torch_utils.py runs it with a path
     "checkpoint_every": ([0, 5], []),
-    "rr_warm": (["auto", "off"], [("struct", NotImplementedError, "item 12"),
-                                  ("warm", ValueError, "rr_warm")]),
+    "rr_warm": (["auto", "struct", "off"], [("warm", ValueError, "rr_warm")]),
     "rr_backend": (["auto", "device"],
                    [("jacobi", NotImplementedError, "TPU"),
                     ("newton", NotImplementedError, "TPU"),
@@ -319,8 +342,8 @@ def _matched_values(name):
 def test_params_field_runs_or_raises(name):
     """Each of the eight fields the port took from ``gcge_tpu.GCGParams``:
     the accepted values construct and solve a small problem with the
-    default's bits, on both loops; the others raise, a value not ported
-    naming its ROADMAP item, before the solve starts.  ``linear_solver``
+    default's bits, on both loops; the others raise, a value for the TPU
+    only saying so, before the solve starts.  ``linear_solver``
     and ``linear_precond`` (ported since) also run with a value that
     changes the solve, and match ``gcge_tpu`` on the same starting block:
     iterations within one, eigenvalues 1e-10, the fused loop the phased

@@ -147,6 +147,57 @@ def x0_for(n: int, cols: int) -> np.ndarray:
     return np.random.default_rng(11).uniform(-1, 1, (n, cols))
 
 
+# the distributed multilevel cases: the 1-D Laplacian with three levels
+# (``tests/test_dist.py``'s), its coarse and fine blocks for the transfers,
+# the right-hand side of bamg_solve (A x_true, x_true of the rng(42) of
+# ``tests/conftest.py``), the PAS cases and the GCG case
+MG_N, MG_LEVELS = 512, 3
+MG_GCG = dict(nev=5, block_size=3, cg_max_iter=8, tol_rel=1e-9)
+MG_GCG_X0 = 10
+PAS_CASES = {
+    "plain": dict(final_sweeps=10, bamg_cycles=6, tol_rel=1e-7),
+    "composite": dict(final_sweeps=10, bamg_cycles=6, tol_rel=1e-7,
+                      composite_rr=True),
+}
+PAS_NEV = 4
+# the one-call cases on two ranks: (matrix, solve keywords, x0 columns);
+# lap_pas runs the "plain" case of PAS_CASES
+API_MG = {
+    "fem_amg": ("fem9", dict(nev=4, block_size=2, multigrid=3), 8),
+    "fem_pas": ("fem9", dict(nev=4, multigrid=2, method="pas",
+                             pas_final_sweeps=10, pas_cycles=6,
+                             tol_rel=1e-7), None),
+    "lap_pas": ("lap512", dict(nev=PAS_NEV, multigrid=MG_LEVELS,
+                               method="pas", pas_final_sweeps=10,
+                               pas_cycles=6, tol_rel=1e-7), None),
+}
+
+
+def lap_coo(n: int):
+    """The 1-D Laplacian of :func:`laplacian_1d` in row-major order, as
+    ``np.nonzero`` of the dense matrix gives it."""
+    import scipy.sparse as sps
+
+    rows, cols, vals, _ = laplacian_1d(n)
+    c = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr().tocoo()
+    return c.row, c.col, c.data
+
+
+def api_matrices(name: str):
+    """``(A, B or None)`` of a one-call case, scipy CSR."""
+    import scipy.sparse as sps
+
+    if name == "fem9":
+        from gcge_tpu_torch.io.fem import cube_fem_laplacian
+
+        rows, cols, av, bv, n = cube_fem_laplacian(9)
+        return (sps.coo_matrix((av, (rows, cols)), shape=(n, n)).tocsr(),
+                sps.coo_matrix((bv, (rows, cols)), shape=(n, n)).tocsr())
+    rows, cols, vals = lap_coo(MG_N)
+    return sps.coo_matrix((vals, (rows, cols)), shape=(MG_N, MG_N)).tocsr(), \
+        None
+
+
 # ---------------------------------------------------------------------------
 # tasks (run in the ranks)
 # ---------------------------------------------------------------------------
@@ -319,10 +370,188 @@ def task_host_blocks(mesh):
             "x_type": type(x).__name__}
 
 
+def _mg_hierarchy(mesh):
+    """The 1-D Laplacian's hierarchy, undistributed and sharded."""
+    from gcge_tpu_torch.parallel import shard_hierarchy
+    from gcge_tpu_torch.solvers.multigrid import build_hierarchy
+
+    rows, cols, vals = lap_coo(MG_N)
+    hier = build_hierarchy(rows, cols, vals, MG_N, max_levels=MG_LEVELS,
+                           device="cpu")
+    return hier, shard_hierarchy(hier, mesh)
+
+
+def task_mg_transfers(mesh):
+    """The sharded transfers' products on fixed blocks, the coarse
+    correction of one restricted residual (replicated levels only), and
+    ``bamg_solve`` with the CG and the Chebyshev smoother on the sharded
+    hierarchy, beside the undistributed cycle count."""
+    import scipy.sparse as sps
+    import torch
+
+    from gcge_tpu_torch.parallel import shard_rows
+    from gcge_tpu_torch.solvers.multigrid import _vcycle, bamg_solve
+
+    hier, hd = _mg_hierarchy(mesh)
+    lv0 = hd.levels[0]
+    n_c = lv0.p_op.shape[1]
+    out = {"types": (type(lv0.p_op).__name__, type(lv0.r_op).__name__),
+           "shapes": (lv0.p_op.shape, lv0.r_op.shape,
+                      lv0.p_op.local.shape, lv0.r_op.local.shape),
+           "mesh_levels": [hd.mesh_at(i) is not None
+                           for i in range(hd.num_levels)]}
+    out["prolong"] = lv0.p_op.matvec(torch.as_tensor(block(n_c, 3, 8))) \
+        .numpy()
+    fine = shard_rows(mesh, torch.as_tensor(block(MG_N, 3, 9)))
+    r_c = lv0.r_op.matvec(fine)
+    out["restrict"] = r_c.numpy()
+    e_c = _vcycle(hd.sub(1), 0, r_c, torch.zeros_like(r_c), (4, 4, 4, 4),
+                  100, 1e-16, 1e-13)
+    out["coarse_correction"] = e_c.numpy()
+    rows, cols, vals = lap_coo(MG_N)
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(MG_N, MG_N)).tocsr()
+    b = torch.as_tensor(a @ block(MG_N, 4, 42))
+    for smoother, cycles in (("cg", 25), ("chebyshev", 30)):
+        x, it, rel = bamg_solve(hd, shard_rows(mesh, b), max_cycles=cycles,
+                                rtol=1e-10, smoother=smoother)
+        out[smoother] = {"x": x.numpy(), "cycles": it,
+                         "rel": float(rel.max())}
+    _, it0, _ = bamg_solve(hier, b, max_cycles=25, rtol=1e-10)
+    out["cg_undistributed_cycles"] = it0
+    return out
+
+
+def task_mg_gcg(mesh):
+    """GCG on the sharded DIA operator with ``bamg_preconditioner`` of the
+    sharded hierarchy as ``linear_precond``."""
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+    from gcge_tpu_torch.parallel import shard_operator
+    from gcge_tpu_torch.solvers.multigrid import bamg_preconditioner
+
+    _, hd = _mg_hierarchy(mesh)
+    rows, cols, vals = lap_coo(MG_N)
+    op = make_operator(rows, cols, vals, (MG_N, MG_N), device="cpu")
+    params = GCGParams(verbose=0, linear_precond=bamg_preconditioner(hd),
+                       **MG_GCG)
+    res = gcg_solve(shard_operator(op, mesh), None, params,
+                    x0=x0_for(MG_N, MG_GCG_X0), mesh=mesh)
+    return {"eval": res.eval, "nev_conv": res.nev_conv,
+            "num_iter": res.num_iter, "kind": shard_operator(op, mesh).kind}
+
+
+def task_pas(mesh):
+    """``pas_solve`` on the sharded hierarchy, plain and composite: each
+    rank's eigenvalues, levels' histories, sweeps, count and rows."""
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    _, hd = _mg_hierarchy(mesh)
+    out = {}
+    for name, kw in PAS_CASES.items():
+        res = pas_solve(hd, PAS_NEV, verbose=0, **kw)
+        out[name] = {"eval": res.eval, "nev_conv": res.nev_conv,
+                     "sweeps": res.sweeps, "history": res.level_history,
+                     "evec": res.evec.numpy()}
+    return out
+
+
+def task_mg_one_rank(mesh):
+    """On a one-rank subgroup of rank 0: the sharded hierarchy gives the
+    undistributed one's bits, in GCG with the V-cycle preconditioner and in
+    ``pas_solve`` (plain and composite)."""
+    import torch
+    import torch.distributed as dist
+
+    from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
+    from gcge_tpu_torch.parallel import (row_mesh, shard_hierarchy,
+                                         shard_operator)
+    from gcge_tpu_torch.solvers.multigrid import (bamg_preconditioner,
+                                                  build_hierarchy)
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    sub = dist.new_group([0])     # every rank takes part in new_group
+    if mesh.rank != 0:
+        return {}
+    one = row_mesh(sub, device="cpu")
+    rows, cols, vals = lap_coo(MG_N)
+    hier = build_hierarchy(rows, cols, vals, MG_N, max_levels=MG_LEVELS,
+                           device="cpu")
+    hd = shard_hierarchy(hier, one)
+    op = make_operator(rows, cols, vals, (MG_N, MG_N), device="cpu")
+    x0 = x0_for(MG_N, MG_GCG_X0)
+    runs = [gcg_solve(op, None, GCGParams(
+        verbose=0, linear_precond=bamg_preconditioner(hier), **MG_GCG),
+        x0=x0),
+        gcg_solve(shard_operator(op, one), None, GCGParams(
+            verbose=0, linear_precond=bamg_preconditioner(hd), **MG_GCG),
+            x0=x0, mesh=one)]
+    out = {"amg": (np.array_equal(runs[0].eval, runs[1].eval)
+                   and torch.equal(runs[0].evec, runs[1].evec)
+                   and runs[0].num_iter == runs[1].num_iter
+                   and runs[0].nev_conv == runs[1].nev_conv)}
+    for name, kw in PAS_CASES.items():
+        plain, sharded = (pas_solve(h, PAS_NEV, verbose=0, **kw)
+                          for h in (hier, hd))
+        out[name] = (np.array_equal(plain.eval, sharded.eval)
+                     and torch.equal(plain.evec, sharded.evec)
+                     and plain.sweeps == sharded.sweeps
+                     and plain.nev_conv == sharded.nev_conv)
+    return out
+
+
+def task_hybrid_mesh(mesh):
+    """``hybrid_row_mesh`` against ``row_mesh``: rank, world, peers."""
+    from gcge_tpu_torch.parallel import hybrid_row_mesh, row_mesh
+
+    hm, rm = hybrid_row_mesh(device="cpu"), row_mesh(device="cpu")
+    return {"hybrid": (hm.rank, hm.world, hm.peers),
+            "row": (rm.rank, rm.world, rm.peers)}
+
+
+def task_mg_api(mesh):
+    """``solve(distribute=True)`` with ``multigrid`` and ``method="pas"``
+    (:data:`API_MG`): eigenvalues, count and the full eigenvectors."""
+    import gcge_tpu_torch
+
+    out = {}
+    for name, (matrix, kw, k) in API_MG.items():
+        a, b = api_matrices(matrix)
+        x0 = None if k is None else x0_for(a.shape[0], k)
+        ev, evec, conv = gcge_tpu_torch.solve(
+            a, b, device="cpu", distribute=True, verbose=0, x0=x0, **kw)
+        out[name] = {"eval": ev, "nev_conv": conv, "evec": evec.numpy()}
+    return out
+
+
+def task_divisibility(mesh):
+    """``solve(distribute=True)`` of the 1-D Laplacian at n=511 on two
+    ranks, with ``multigrid`` and with ``method="pas"``: the messages of the
+    errors raised (None where nothing raised)."""
+    import scipy.sparse as sps
+
+    import gcge_tpu_torch
+
+    rows, cols, vals = lap_coo(511)
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(511, 511)).tocsr()
+    out = {}
+    for name, kw in (("multigrid", dict(multigrid=3)),
+                     ("pas", dict(method="pas"))):
+        try:
+            gcge_tpu_torch.solve(a, None, nev=2, device="cpu",
+                                 distribute=True, verbose=0, **kw)
+            out[name] = None
+        except ValueError as exc:
+            out[name] = str(exc)
+    return out
+
+
 TASKS = {
     "four": {"matvecs": task_matvecs, "solves": task_solves,
-             "one_rank": task_one_rank},
-    "two": {"api_solve": task_api_solve, "host_blocks": task_host_blocks},
+             "one_rank": task_one_rank, "mg_transfers": task_mg_transfers,
+             "mg_gcg": task_mg_gcg, "pas": task_pas,
+             "mg_one_rank": task_mg_one_rank,
+             "hybrid_mesh": task_hybrid_mesh},
+    "two": {"api_solve": task_api_solve, "host_blocks": task_host_blocks,
+            "divisibility": task_divisibility, "mg_api": task_mg_api},
 }
 
 
