@@ -8,9 +8,10 @@ the phased and by the fused loop), the two kernel measurement scripts, the
 multilevel path on the cube FEM pair (GCG preconditioned by an AMG V-cycle,
 standard and generalized, and the PAS solver), a check that a fused chunk
 never waits for the device outside ``eigh``, kernels 1 and 2 on halo
-windows, the row-sharded solves on a one-rank NCCL mesh, the utils, and the
+windows, the row-sharded solves on a one-rank NCCL mesh, the utils, the
 distributed multilevel path (AMG and PAS on a sharded hierarchy) on a
-one-rank NCCL mesh.  Phases, each of which raises on failure:
+one-rank NCCL mesh, and the headline and AMG solves on a (1, 1) grid.
+Phases, each of which raises on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
    ``gcge_tpu_torch/ops/csrc`` and print the build time; check one 16 x 8 x 8
@@ -136,6 +137,18 @@ one-rank NCCL mesh.  Phases, each of which raises on failure:
     reason printed.  Each prints whether it has the undistributed solve's
     bits.  Then kernel 6 at the rank-local P rows and P^T columns of level
     0, timed like the other rows.
+17. grid — ``parallel.grid_mesh(1, 1)`` on the one-rank NCCL group of
+    phases 14 and 16 (one card holds no larger grid): the headline problem
+    through ``gcg_solve(shard_operator(op, grid), mesh=grid)`` by the phased
+    and the fused loop, right after phase 14's solves with the same
+    parameters, and the AMG standard solve on ``shard_hierarchy(hier,
+    grid)``, right after phase 16's, each against the undistributed solve
+    of this run: its bits, iterations and converged count, kernels 1 and 2
+    through the window; walls printed beside the undistributed and the
+    row-mesh ones, with whether the f32 CG stage was captured or ran eager.
+    The AMG phase also times kernels 1 and 2 at the FEM pair's level-0
+    operand (15 diagonals, n=148,877, block 10: ``V[:, 110:120]`` and the
+    f32 CG stage's operand), like the other rows.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; 10 iterations of
@@ -1453,6 +1466,34 @@ def kernels_amg_levels(torch, log, hier):
                 csr_operator_row(torch, log, op, f"AMG level {i} {what}", gen)
 
 
+def kernels_fem_level0(torch, log, a):
+    """Kernels 1 and 2 at the FEM pair's level 0 (the DIA operator
+    ``solve`` places, 15 diagonals), where the multilevel solves launch
+    them: kernel 1 at the W coupling's ``V[:, 110:120]``, kernel 2 at the
+    f32 CG stage's operand, each against its plain version and beside
+    ``torch.sparse.mm``."""
+    from gcge_tpu_torch import make_operator
+    from gcge_tpu_torch.ops import spmm
+
+    coo = a.tocoo()
+    op = make_operator(coo.row, coo.col, coo.data, coo.shape, device=DEVICE)
+    n, offs = a.shape[0], op.offsets_t
+    ndiag = op.values.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    tag = f" FEM level 0 ({ndiag} diagonals, n={n})"
+    for key, dtype, case, tol in (("dia_f64", torch.float64,
+                                   "V[:, 110:120]", 1e-14),
+                                  ("dia_f32", torch.float32, "cg", 1e-5)):
+        values = op.values.to(dtype)
+        item = values.element_size()
+        spmm_rows(torch, log, key,
+                  lambda x, t, v=values: spmm.dia_spmm(v, offs, x, t),
+                  lambda x, t, absolute, v=values: spmm.dia_spmm_reference(
+                      v.abs() if absolute else v, offs, x, t),
+                  n, a.nnz, item * ndiag * n + 4 * ndiag,
+                  csr_tensor(torch, a.tocsr(), dtype), [case], tol, gen, tag)
+
+
 def csr_operator_row(torch, log, op, what, gen):
     """Kernel 6 on the CSR operator ``op`` at an ``(n, 10)`` block (n its
     columns), against its plain version and beside ``torch.sparse.mm``."""
@@ -1760,7 +1801,8 @@ def dist_solve(torch, tag, a_op, a_csr, params, mesh):
     side by side; the distributed solve's gates (the undistributed solve's
     converged count, eigenvalues within 1e-9 of it, host residuals of 2e-8,
     kernels 1/2 or 5/6 launched through the window).  Returns the
-    distributed solve's launches."""
+    distributed solve's launches, graph replays and whether it has the
+    undistributed solve's bits, then that solve and its wall."""
     from gcge_tpu_torch import gcg_solve
     from gcge_tpu_torch.parallel import dist_ops, shard_operator
     from gcge_tpu_torch.solvers import gcg
@@ -1804,7 +1846,55 @@ def dist_solve(torch, tag, a_op, a_csr, params, mesh):
     idle = [k for k in (f"{kind}_f64", f"{kind}_f32") if windowed[k] <= 0]
     if idle:
         raise AssertionError(f"{tag}: no product through the window: {idle}")
-    return launches, replays, bits
+    return launches, replays, bits, plain, wall_plain, wall
+
+
+def grid_solve(torch, tag, a_op, a_csr, params, grid, plain, walls):
+    """``gcg_solve`` of ``shard_operator(a_op, grid)`` on the (1, 1) grid,
+    against the undistributed solve ``plain`` of this run: its bits,
+    iterations and converged count, host residuals of 2e-8, kernels 1 and
+    2 launched through the window; the wall printed beside ``walls``
+    (label: seconds).  Returns the launches."""
+    from gcge_tpu_torch import gcg_solve
+    from gcge_tpu_torch.parallel import dist_ops, shard_operator
+    from gcge_tpu_torch.solvers import gcg
+
+    sharded = shard_operator(a_op, grid)
+    reset_counters()
+    reset_dist_counters()
+    gcg.GRAPH_REPLAYS["cg_stage"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Captured() as cap:
+        res = gcg_solve(sharded, None, params, mesh=grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, windowed = read_counters(), dict(dist_ops.WINDOWED)
+    bits = np.array_equal(res.eval, plain.eval) and \
+        torch.equal(res.evec, plain.evec)
+    stage = cap.stages[0] if cap.stages else None
+    how = "no f32 stage" if stage is None else \
+        "captured" if stage.graph is not None else \
+        f"eager ({stage.capture_error or 'the phased loop'})"
+    res_h = residuals(a_csr, res.eval[:NEV], res.evec[:, :NEV].cpu().numpy())
+    beside = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"{tag}: wall {wall:.3f} s on the (1, 1) grid beside {beside}; "
+          f"{res.num_iter} iterations (undistributed {plain.num_iter}), "
+          f"nev_conv {res.nev_conv} (undistributed {plain.nev_conv}), "
+          f"{'equal' if bits else 'not equal'} bits to the undistributed "
+          f"solve; f32 CG stage {how}, {gcg.GRAPH_REPLAYS['cg_stage']} "
+          f"replays; host residuals max {res_h.max():.3e}; windowed products "
+          f"{windowed}; launches {launches}")
+    if not bits or res.num_iter != plain.num_iter or \
+            res.nev_conv != plain.nev_conv or res.nev_conv < NEV:
+        raise AssertionError(f"{tag}: not the undistributed solve's bits, "
+                             f"iterations and count")
+    if not res_h.max() <= 2e-8:
+        raise AssertionError(f"{tag}: host residuals off")
+    idle = [k for k in ("dia_f64", "dia_f32") if windowed[k] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: no product through the window: {idle}")
+    return launches
 
 
 def phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm):
@@ -1820,7 +1910,7 @@ def phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm):
     import torch.distributed as dist
 
     from gcge_tpu_torch import CsrOperator, GCGParams, make_operator
-    from gcge_tpu_torch.parallel import bootstrap, row_mesh
+    from gcge_tpu_torch.parallel import bootstrap, grid_mesh, row_mesh
 
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -1828,6 +1918,7 @@ def phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm):
     paths = {}
     try:
         mesh = row_mesh()
+        grid = grid_mesh(1, 1)
         # the parameters solve() tunes on a card for this problem
         tuned = dict(cg_auto_shift=True, cg_refine=2, cg_mixed=True,
                      verbose=0)
@@ -1835,19 +1926,23 @@ def phase_distributed(torch, a_csr, rows, cols, vals, n, a_rcm):
         for fuse, tag in ((0, "distributed headline"),
                           (HEADLINE_FUSE, "distributed fused headline")):
             params = GCGParams(**dict(HEADLINE_KWARGS, fuse=fuse, **tuned))
-            launches, replays, bits = dist_solve(torch, tag, op, a_csr,
-                                                 params, mesh)
+            launches, replays, bits, plain, wall_plain, wall = dist_solve(
+                torch, tag, op, a_csr, params, mesh)
             if fuse and not bits:
                 raise AssertionError("the one-rank fused solve does not have "
                                      "the undistributed fused solve's bits")
             paths[tag.replace(" ", "_")] = launches
+            grid_tag = tag.replace("distributed", "grid")
+            paths[grid_tag.replace(" ", "_")] = grid_solve(
+                torch, grid_tag, op, a_csr, params, grid, plain,
+                {"undistributed": wall_plain, "one-rank row mesh": wall})
         coo = a_rcm.tocoo()
         csr = CsrOperator.from_coo(coo.row, coo.col, coo.data, a_rcm.shape,
                                    device=dev)
         params = GCGParams(**dict(IRREGULAR_KWARGS, fuse=0, **dict(
             tuned, cg_refine=IRREGULAR_KWARGS["cg_refine"])))
-        paths["distributed_irregular"], _, _ = dist_solve(
-            torch, "distributed irregular", csr, a_rcm, params, mesh)
+        paths["distributed_irregular"] = dist_solve(
+            torch, "distributed irregular", csr, a_rcm, params, mesh)[0]
     finally:
         dist.destroy_process_group()
     print(f"distributed phase: {time.perf_counter() - t0:.1f} s")
@@ -1901,10 +1996,14 @@ def phase_distributed_amg(torch, log, a, hier, amg):
     1e-9, host residuals of 2e-8, kernel 1 through the window, both sharded
     transfers, the V-cycle inside the captured f32 stage's graph (or the
     stage eager, with the card's reason printed).  Then kernel 6 at the
-    two operands the sharded level 0 adds.  Returns the launches."""
+    two operands the sharded level 0 adds; then the same solve on a (1, 1)
+    grid (``grid_mesh(1, 1)``, the hierarchy sharded over it), which must
+    have the undistributed solve's bits, iterations and count.  Returns the
+    launches of the row-mesh and of the grid solve."""
     from gcge_tpu_torch import GCGParams, gcg_solve, make_operator
     from gcge_tpu_torch.api import _tuned_defaults
-    from gcge_tpu_torch.parallel import shard_hierarchy, shard_operator
+    from gcge_tpu_torch.parallel import (grid_mesh, shard_hierarchy,
+                                         shard_operator)
     from gcge_tpu_torch.solvers import gcg
     from gcge_tpu_torch.solvers.multigrid import bamg_preconditioner
 
@@ -1963,7 +2062,44 @@ def phase_distributed_amg(torch, log, a, hier, amg):
                          "distributed level 0 rank-local P rows", gen)
         csr_operator_row(torch, log, lv0.r_op.local,
                          "distributed level 0 rank-local P^T columns", gen)
-    return launches
+        grid = grid_mesh(1, 1)
+        tag = "grid AMG standard"
+        hg = shard_hierarchy(hier, grid)
+        params = GCGParams(nev=NEV, verbose=0, **tuned,
+                           linear_precond=bamg_preconditioner(hg))
+        sharded = shard_operator(op, grid)
+        reset_counters()
+        reset_dist_counters()
+        gcg.GRAPH_REPLAYS["cg_stage"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Captured() as cap:
+            res = gcg_solve(sharded, None, params, mesh=grid)
+        torch.cuda.synchronize()
+        grid_wall = time.perf_counter() - t0
+        grid_launches, counted = read_counters(), dist_counters()
+        stage, = cap.stages
+        how = "captured" if stage.graph is not None else \
+            f"eager ({stage.capture_error})"
+        bits = np.array_equal(res.eval, amg.eval) and \
+            torch.equal(res.evec, amg.evec)
+        print(f"{tag}: wall {grid_wall:.3f} s on the (1, 1) grid (the "
+              f"hierarchy of the AMG standard phase, sharded over it) beside "
+              f"{wall:.3f} s on the one-rank row mesh and the undistributed "
+              f"loop's {amg.timers['total']:.3f} s; {res.num_iter} "
+              f"iterations (undistributed {amg.num_iter}), nev_conv "
+              f"{res.nev_conv} (undistributed {amg.nev_conv}), "
+              f"{'equal' if bits else 'not equal'} bits to the undistributed "
+              f"solve; f32 CG stage {how}, {gcg.GRAPH_REPLAYS['cg_stage']} "
+              f"replays; windowed products and transfers {counted}; launches "
+              f"{grid_launches}")
+        if not bits or res.num_iter != amg.num_iter or \
+                res.nev_conv != amg.nev_conv:
+            raise AssertionError(f"{tag}: not the undistributed solve's bits,"
+                                 f" iterations and count")
+        fem_gates(tag, a, None, res.eval, res.evec, NEV, amg.eval)
+        multilevel_path_gates(tag, counted)
+    return launches, grid_launches
 
 
 def phase_distributed_pas(torch, a, b, hier, pas):
@@ -2136,11 +2272,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     sync_check_amg(torch, fem_a, hier)
     kernels_amg_levels(torch, log, hier)
+    kernels_fem_level0(torch, log, fem_a)
     print(f"AMG sync check and kernel 6 rows: {time.perf_counter() - t0:.1f} "
           f"s")
     t0 = time.perf_counter()
-    paths["distributed_amg"] = phase_distributed_amg(torch, log, fem_a, hier,
-                                                     amg)
+    paths["distributed_amg"], paths["grid_amg"] = phase_distributed_amg(
+        torch, log, fem_a, hier, amg)
     del hier, amg
     print(f"distributed AMG phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

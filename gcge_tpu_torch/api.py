@@ -7,9 +7,11 @@ banded — optionally after RCM reordering — Hybrid or CSR otherwise), runs GC
 and returns ``(eval, evec, nev_conv)`` in the caller's row order.  The device
 is always the caller's choice: there is no silent move to the CPU.  With
 ``distribute=True`` every rank of the default process group calls it and
-the solve is row-sharded over them (:mod:`gcge_tpu_torch.parallel`); the
-AMG hierarchy of ``multigrid`` and ``method="pas"`` has its finest level
-sharded and its coarser levels replicated
+the solve is row-sharded over them (:mod:`gcge_tpu_torch.parallel`); with
+``distribute="grid"`` on an even number of ranks, at least 4, it runs on a
+``(ranks / 2, 2)`` grid whose columns split the basis.  The AMG hierarchy of
+``multigrid`` and ``method="pas"`` has its finest level sharded and its
+coarser levels replicated
 (:func:`~gcge_tpu_torch.parallel.shard_hierarchy`).
 """
 
@@ -28,8 +30,10 @@ from gcge_tpu_torch.ops.operators import (DenseOperator, DiagOperator,
                                           DiaOperator, HybridOperator,
                                           IdentityOperator, LinearOperator,
                                           SparseOperator, make_operator)
-from gcge_tpu_torch.parallel import (gather_rows, pad_problem, row_mesh,
-                                     shard_hierarchy, shard_operator)
+from gcge_tpu_torch.ops.multivec import gather_cols
+from gcge_tpu_torch.parallel import (gather_rows, grid_mesh, pad_problem,
+                                     row_mesh, shard_hierarchy,
+                                     shard_operator)
 from gcge_tpu_torch.solvers import multigrid as mg
 from gcge_tpu_torch.solvers.gcg import GCGParams, gcg_solve
 from gcge_tpu_torch.solvers.pas import pas_solve
@@ -127,17 +131,20 @@ def _hierarchy(a, b, perm, max_levels: int, method: str, dtype, device):
 
 
 def _distribution(distribute, device):
-    """The row mesh of ``solve(distribute=...)`` over the default process
-    group, or None where the group has one rank (``gcge_tpu`` runs its plain
-    path on one device).  No initialized group raises: a distributed call
-    never goes on undistributed in silence."""
-    if distribute == "grid":
-        raise NotImplementedError("distribute='grid' (the 2-D mesh) is not "
-                                  "ported yet (ROADMAP Queue 1 item 12b)")
-    if distribute not in (True, "rows"):
+    """The mesh of ``solve(distribute=...)`` over the default process
+    group: the row mesh, or for ``"grid"`` on an even number of ranks, at
+    least 4, the ``(ranks / 2, 2)`` grid (``gcge_tpu``'s rule; the row mesh
+    otherwise); None where the group has one rank (``gcge_tpu`` runs its
+    plain path on one device).  No initialized group raises: a distributed
+    call never goes on undistributed in silence."""
+    if distribute not in (True, "rows", "grid"):
         raise ValueError(f"unknown distribute {distribute!r}")
     mesh = row_mesh(device=device)
-    return None if mesh.world == 1 else mesh
+    if mesh.world == 1:
+        return None
+    if distribute == "grid" and mesh.world % 2 == 0 and mesh.world >= 4:
+        return grid_mesh(mesh.world // 2, 2, device=device)
+    return mesh
 
 
 def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
@@ -169,7 +176,10 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
     rank, gloo on the CPU); every rank calls ``solve`` with the same
     arguments, the problem is padded to a multiple of the rank count
     (:func:`~gcge_tpu_torch.parallel.pad_problem`) and every rank gets the
-    full eigenvectors.  With ``multigrid`` or ``method="pas"`` every rank
+    full eigenvectors.  ``'grid'``: on an even number of ranks, at least 4,
+    the ``(ranks / 2, 2)`` grid (:func:`~gcge_tpu_torch.parallel.grid_mesh`),
+    rows padded to a multiple of ``ranks / 2``; elsewhere as ``True``.
+    With ``multigrid`` or ``method="pas"`` every rank
     builds the hierarchy of the unpadded matrix and shards its finest
     level, whose rows must then be a multiple of the rank count
     (``ValueError`` otherwise: the hierarchy is not padded).  Without an
@@ -233,6 +243,8 @@ def solve(a, b=None, nev: int = 30, *, device="cuda", rcm: bool = False,
         res = gcg_solve(a_op, b_op, params, x0=x0, mesh=mesh)
     evec = res.evec
     if mesh is not None:
+        if evec.shape[1] != len(res.eval):   # a grid split the columns
+            evec = gather_cols(evec, mesh)
         evec = gather_rows(mesh, evec, n)
     if perm is not None:
         scattered = torch.empty_like(evec)

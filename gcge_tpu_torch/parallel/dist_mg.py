@@ -33,7 +33,7 @@ import torch
 from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import HybridOperator, LinearOperator
 from gcge_tpu_torch.parallel.dist_ops import TRANSFERS, shard_operator
-from gcge_tpu_torch.parallel.mesh import RowMesh, shard_rows
+from gcge_tpu_torch.parallel.mesh import GridMesh, RowMesh, shard_rows
 from gcge_tpu_torch.solvers.multigrid import MGHierarchy, MGLevel
 
 __all__ = ["TRANSFERS", "ProlongOperator", "RestrictOperator",
@@ -183,7 +183,14 @@ def shard_hierarchy(hier: MGHierarchy, mesh: RowMesh) -> MGHierarchy:
     through :func:`shard_rows`, its transfers become
     :class:`ProlongOperator` and :class:`RestrictOperator`.  Level 0's row
     count must split into equal blocks over the ranks: ``ValueError``
-    otherwise (``gcge_tpu`` asserts).  The result carries ``mesh``."""
+    otherwise (``gcge_tpu`` asserts).  The result carries ``mesh``.
+
+    On a grid (:class:`~gcge_tpu_torch.parallel.GridMesh`) level 0 is
+    sharded over the rank's row group, as ``gcge_tpu``'s specs name its row
+    axis only, and the hierarchy carries the grid with every column on every
+    rank of a row (``replicated()``): the V-cycle works on whatever columns
+    it is given, and ``pas_solve`` runs in every grid column alike, its
+    replicated values broadcast from the grid's rank 0."""
     if hier.num_levels < 1:
         raise ValueError("an empty hierarchy")
     if hier.mesh is not None:
@@ -194,7 +201,10 @@ def shard_hierarchy(hier: MGHierarchy, mesh: RowMesh) -> MGHierarchy:
         raise ValueError(f"the hierarchy's finest level has {n0} rows, which "
                          f"do not split over {mesh.world} ranks: its rows "
                          f"must be a multiple of the rank count")
-    check_replicated(hier, mesh)
+    check_replicated(hier, mesh.everyone() if isinstance(mesh, GridMesh)
+                     else mesh)
+    if isinstance(mesh, GridMesh):
+        mesh = mesh.replicated()
     new0 = MGLevel(
         a_op=shard_operator(lv0.a_op, mesh),
         b_op=shard_operator(lv0.b_op, mesh),

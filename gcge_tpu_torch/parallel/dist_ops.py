@@ -52,6 +52,12 @@ WINDOWED = {"dia_f64": 0, "dia_f32": 0, "csr_f64": 0, "csr_f32": 0}
 # products of the sharded AMG transfers on a card (``dist_mg``), one kernel-6
 # launch each: their share of ops.onehot.LAUNCHES["csr_f64"]
 TRANSFERS = {"prolong": 0, "restrict": 0}
+# products of the sharded operators on any device, by the number of columns
+# they ran on (on a grid that splits columns: the rank's columns of a block)
+WIDTHS = {}
+# the shape of the rank's part of the basis V at the end of the last
+# iteration of a distributed GCG solve (solvers.gcg)
+HELD = {"basis": None}
 
 
 def halo_window(mesh: RowMesh, xn: torch.Tensor, hl: int, hr: int,
@@ -156,11 +162,13 @@ class RowShardedOperator(LinearOperator):
 
     def matvec(self, x):
         """``x (ln, m) -> (A x)[r0:r0 + ln] (ln, m)``."""
+        WIDTHS[x.shape[1]] = WIDTHS.get(x.shape[1], 0) + 1
         return self._apply(x, False)
 
     def matvec_t(self, xt):
         """The transposed layout: ``xt (m, ln) -> (m, ln)``, in the memory
         order of ``xt``."""
+        WIDTHS[xt.shape[0]] = WIDTHS.get(xt.shape[0], 0) + 1
         return self._apply(xt, True)
 
     def astype(self, dtype) -> "RowShardedOperator":
@@ -235,9 +243,12 @@ def shard_operator(op, mesh: RowMesh):
     """This rank's rows of the global operator ``op`` (any device), on the
     mesh's device: a :class:`RowShardedOperator`, or for a diagonal or
     identity operator the plain operator of the rank's rows.  ``None`` stays
-    ``None``."""
+    ``None``.  On a grid (:class:`~gcge_tpu_torch.parallel.GridMesh`) the
+    rows are split over the rank's row group (``mesh.rows``), so each row
+    block is replicated along the grid's columns."""
     if op is None or isinstance(op, RowShardedOperator):
         return op
+    mesh = getattr(mesh, "rows", mesh)
     n = op.shape[0]
     r0, ln = mesh.block(n)
     dev = mesh.device

@@ -11,15 +11,21 @@ tall tensor of a rank holds that rank's rows only, in equal blocks
 (:func:`pad_problem` makes ``n`` a multiple of the rank count), and every
 contraction over rows is a local product followed by :meth:`RowMesh.psum`.
 
-Not carried over: ``grid_mesh`` (the 2-D mesh, ROADMAP Queue 1 item 12b),
-``mv_spec``, ``shard_mv`` and ``replicate``, which place arrays of one
-controller on many devices and have no counterpart when each rank holds its
-own rows.
+A :class:`GridMesh` (:func:`grid_mesh`) is the 2-D ``(rows, cols)`` mesh:
+the ranks laid out row-major, a row group of ``n_rows`` ranks for each grid
+column (each such group is a row mesh, over which the operators are
+sharded, so every row block is replicated along the columns) and a column
+group of ``n_cols`` ranks for each grid row, over which a solve splits the
+columns of its multivectors (:mod:`gcge_tpu_torch.ops.multivec`).
+
+Not carried over: ``mv_spec``, ``shard_mv`` and ``replicate``, which place
+arrays of one controller on many devices and have no counterpart when each
+rank holds its own rows and columns.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -90,6 +96,17 @@ class RowMesh:
         gather(out, x.contiguous(), group=self.group)
         return out
 
+    @property
+    def lead(self) -> bool:
+        """Whether this rank prints and writes for the mesh: its rank 0."""
+        return self.rank == 0
+
+    def warm(self) -> None:
+        """One collective on every group of the mesh.  NCCL sets up a
+        group's communicator at its first collective, which must not fall
+        inside a CUDA graph capture."""
+        self.psum(torch.zeros(1, device=self.device))
+
 
 def row_mesh(group=None, device=None) -> RowMesh:
     """The row mesh over ``group`` (default: the default process group,
@@ -102,6 +119,100 @@ def row_mesh(group=None, device=None) -> RowMesh:
                            "group (torchrun, or "
                            "gcge_tpu_torch.parallel.multihost.bootstrap)")
     group = dist.group.WORLD if group is None else group
+    device = _backend_device(group, device)
+    world = dist.get_world_size(group)
+    peers = tuple(dist.get_global_rank(group, r) for r in range(world))
+    return RowMesh(group, dist.get_rank(group), world, device, peers)
+
+
+@dataclass(frozen=True, kw_only=True)
+class GridMesh(RowMesh):
+    """A 2-D ``(n_rows, n_cols)`` mesh, the counterpart of ``gcge_tpu``'s
+    ``grid_mesh``: global rank ``g`` of the grid sits at ``(g // n_cols, g %
+    n_cols)``.
+
+    It is a :class:`RowMesh` over this rank's *row group*, the ``n_rows``
+    ranks of its grid column (``group``, ``rank``, ``world``, ``peers``; also
+    :attr:`rows`): the operators are sharded over it, and every contraction
+    over rows (:meth:`psum`) is summed over it.  ``cols`` is the group of
+    the ``n_cols`` ranks of this rank's grid row, ``col`` this rank's place
+    in it.  ``world_group`` holds every rank of the grid: :meth:`broadcast`
+    sends over it from the grid's rank 0, so that a value every rank must
+    share (the projected eigenpairs, the fused loop's read a chunk) has the
+    same bits on every rank of the grid.
+
+    ``col_split`` is the number of column shards of a solve's multivectors:
+    ``n_cols`` where each rank holds ``1/n_cols`` of their columns (column
+    ``j`` on the rank with ``col == j % n_cols``), 1 where every rank of a
+    row holds every column (:meth:`replicated`)."""
+
+    cols: Any
+    col: int
+    n_cols: int
+    world_group: Any
+    world_rank: int
+    world_root: int            # global rank of the grid's rank 0
+    col_split: int
+
+    @property
+    def rows(self) -> RowMesh:
+        """The row mesh of this rank's grid column."""
+        return RowMesh(self.group, self.rank, self.world, self.device,
+                       self.peers)
+
+    @property
+    def n_rows(self) -> int:
+        return self.world
+
+    @property
+    def lead(self) -> bool:
+        return self.world_rank == 0
+
+    def replicated(self) -> "GridMesh":
+        """The same grid with every column on every rank of a row."""
+        return replace(self, col_split=1)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """The grid's rank 0's ``t`` on every rank of the grid (in place
+        where contiguous); ``src`` must be 0."""
+        if src != 0:
+            raise ValueError("a grid broadcasts from its rank 0 only")
+        t = t.contiguous()
+        dist.broadcast(t, src=self.world_root, group=self.world_group)
+        return t
+
+    def col_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``(n_cols, ...)``: ``x`` of every rank of this rank's grid row,
+        stacked by column index (one ``all_gather``)."""
+        out = torch.empty((self.n_cols * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        gather = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+        gather(out, x.contiguous(), group=self.cols)
+        return out.view((self.n_cols,) + tuple(x.shape))
+
+    def col_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of this rank's grid row."""
+        t = t.contiguous()
+        dist.all_reduce(t, group=self.cols)
+        return t
+
+    def everyone(self) -> RowMesh:
+        """A row mesh over every rank of the grid (for checks that every
+        rank holds the same values)."""
+        size = self.world * self.n_cols
+        return RowMesh(self.world_group, self.world_rank, size, self.device,
+                       tuple(dist.get_global_rank(self.world_group, r)
+                             for r in range(size)))
+
+    def warm(self) -> None:
+        zero = torch.zeros(1, device=self.device)
+        self.psum(zero)
+        self.col_sum(zero)
+        self.broadcast(zero)
+
+
+def _backend_device(group, device):
     backend = str(dist.get_backend(group))
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) \
@@ -110,15 +221,44 @@ def row_mesh(group=None, device=None) -> RowMesh:
     if backend_for(device) != backend:
         raise ValueError(f"a {backend} process group cannot carry tensors on "
                          f"{device} (NCCL: cuda, gloo: cpu)")
-    world = dist.get_world_size(group)
-    peers = tuple(dist.get_global_rank(group, r) for r in range(world))
-    return RowMesh(group, dist.get_rank(group), world, device, peers)
+    return device
 
 
-def grid_mesh(*args, **kwargs):
-    """The 2-D ``(rows, cols)`` mesh of ``gcge_tpu`` is not ported yet."""
-    raise NotImplementedError("grid_mesh (the 2-D mesh) is not ported yet "
-                              "(ROADMAP Queue 1 item 12b)")
+def grid_mesh(n_rows: int, n_cols: int, group=None, device=None
+              ) -> GridMesh:
+    """The ``(n_rows, n_cols)`` grid over ``group`` (default: the default
+    process group, which must be initialized), whose size must be ``n_rows *
+    n_cols``.  Every rank of the default group calls it (it makes one
+    process group for each grid column and each grid row, all of them in
+    the same order on every rank).  ``device`` as in :func:`row_mesh`.  The
+    grid splits a solve's columns over ``n_cols`` (``col_split``)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("grid_mesh needs an initialized default process "
+                           "group (torchrun, or "
+                           "gcge_tpu_torch.parallel.multihost.bootstrap)")
+    group = dist.group.WORLD if group is None else group
+    device = _backend_device(group, device)
+    size = dist.get_world_size(group)
+    if n_rows < 1 or n_cols < 1 or n_rows * n_cols != size:
+        raise ValueError(f"a ({n_rows}, {n_cols}) grid needs "
+                         f"{n_rows * n_cols} ranks; the group has {size}")
+    members = [dist.get_global_rank(group, r) for r in range(size)]
+    me = dist.get_rank(group)
+    row, col = divmod(me, n_cols)
+    row_group = col_group = None
+    # every rank makes every group, in one order
+    for c in range(n_cols):
+        g = dist.new_group([members[i * n_cols + c] for i in range(n_rows)])
+        if c == col:
+            row_group = g
+    for r in range(n_rows):
+        g = dist.new_group([members[r * n_cols + j] for j in range(n_cols)])
+        if r == row:
+            col_group = g
+    peers = tuple(members[i * n_cols + col] for i in range(n_rows))
+    return GridMesh(row_group, row, n_rows, device, peers, cols=col_group,
+                    col=col, n_cols=n_cols, world_group=group,
+                    world_rank=me, world_root=members[0], col_split=n_cols)
 
 
 def shard_rows(mesh: RowMesh, x) -> torch.Tensor:

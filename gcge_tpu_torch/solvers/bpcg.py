@@ -15,7 +15,11 @@ a CUDA graph over a CG stage need this form.
 Under a row mesh (``mesh``) each rank holds its rows of ``b`` and ``x``, the
 matvec is the rank's rows of the sharded product, and every column dot
 (``r^T z``, ``p^T w``, ``r^T r``) is summed over the ranks, so that every
-rank takes the same early exit.
+rank takes the same early exit.  On a grid that splits columns each rank
+solves for its columns of the block (the columns are independent): the
+dots are summed over its row group only, and the ranks of a row group take
+the same early exit (another grid column may stop at another step; a
+column that no longer moves is the same either way).
 """
 
 from __future__ import annotations
@@ -136,12 +140,14 @@ def block_pcg_t(matvec_t, bt: torch.Tensor, x0t: torch.Tensor,
 
 
 def pcg(matvec, b: torch.Tensor, x0: torch.Tensor, max_iter: int = 50,
-        rate: float = 1e-2, tol: float = 1e-12):
+        rate: float = 1e-2, tol: float = 1e-12, mesh=None):
     """Single-vector CG (the reference's ``PCG``): :func:`block_pcg` on a
     one-column block, stopping on the relative decrease ``rate`` or the
-    absolute floor ``tol``.  ``b, x0`` are ``(n,)``; returns
-    ``(x, BlockPCGInfo)``."""
+    absolute floor ``tol``.  ``b, x0`` are ``(n,)`` (under a row mesh,
+    ``mesh``, the rank's rows, with ``matvec`` the rank's rows of the
+    sharded product: ``gcge_tpu``'s ``psum_axis``); returns ``(x,
+    BlockPCGInfo)``."""
     x, info = block_pcg(matvec, b[:, None], x0[:, None],
                         BlockPCGParams(max_iter=max_iter, rate=rate, tol=tol,
-                                       tol_type="abs"))
+                                       tol_type="abs"), mesh=mesh)
     return x[:, 0], info

@@ -44,6 +44,38 @@ count, restart, stop, the inner CG's early exit) is taken from reduced or
 broadcast values, the fused loop's one read a chunk included.  The random
 start is the rank's rows of one global draw, so a distributed solve starts
 where the undistributed one does.
+
+On a grid (:class:`gcge_tpu_torch.parallel.GridMesh`) the operators hold the
+rows of the rank's row group and every rank of a grid row holds the same
+rows.  Where every width of the solve (the initial and the largest X, the
+block, the residual window) splits over the grid's ``n_cols`` columns, each
+rank also holds only its columns of V, of the Ritz vectors and of each
+block (:mod:`gcge_tpu_torch.ops.multivec`: column ``j`` on grid column ``j
+% n_cols``, so that V's local columns are its blocks' local columns in
+order), and the solve decides at each call site:
+
+* an operator product runs on the rank's columns only (the initial X, the
+  residual window, the W block's inner CG, W in the Rayleigh-Ritz step);
+* a Gram ``V^T (A W)`` gathers the narrow factor over the grid row and
+  multiplies the rank's columns of the wide one (:func:`~gcge_tpu_torch.ops.
+  multivec.gram_cols`), a recombination ``V c`` sums the ranks' partial
+  products (:func:`~gcge_tpu_torch.ops.multivec.expand_cols`);
+* a selection of columns at indices (the active window, the residual
+  window) is summed over the grid row from the ranks that hold them
+  (:func:`~gcge_tpu_torch.ops.multivec.select_cols`), then each rank keeps
+  its columns;
+* the W block's orthonormalization runs on the whole block, which every
+  rank of a grid row holds for it (``orth.orth_block_against``), and the
+  random start is drawn and orthonormalized whole, then split;
+* ``cg_order=2`` solves for the whole W block on every rank of a row (its
+  second stage continues the first stage's columns, which another rank may
+  hold).
+
+Otherwise every column lies on every rank of a row (``GridMesh.replicated``)
+and the solve is the row mesh's, in every grid column.  Either way the
+projected problem, the eigenpairs (the grid's rank 0's, broadcast over the
+grid), the counts and the fused loop's read have the same bits on every
+rank of the grid.
 """
 
 from __future__ import annotations
@@ -59,7 +91,10 @@ import torch
 
 from gcge_tpu_torch.ops import onehot, spmm
 from gcge_tpu_torch.ops.eighs import check_backend, eigh
-from gcge_tpu_torch.ops.multivec import col_dots, psum, set_random
+from gcge_tpu_torch.ops.multivec import (col_dots, col_split, expand_cols,
+                                         gather_cols, gram_cols, own_cols,
+                                         select_cols, set_random,
+                                         whole_matvec)
 from gcge_tpu_torch.ops.onehot import CsrOperator
 from gcge_tpu_torch.ops.operators import (DiagOperator, DiaOperator,
                                           HybridOperator, SparseOperator)
@@ -165,7 +200,8 @@ class GCGParams:
 class GCGResult:
     eval: np.ndarray            # (size_x,) Ritz values, ascending
     evec: torch.Tensor          # (n, size_x) Ritz vectors (under a mesh:
-                                # the rank's rows)
+                                # the rank's rows; on a grid that splits
+                                # columns, its columns of them)
     nev_conv: int
     num_iter: int
     res_norms: np.ndarray       # last residual window (diagnostic)
@@ -187,8 +223,8 @@ def _initial_rr(a_op, v, size_x: int, bs: int, rr_backend: str = "auto",
     """First Rayleigh-Ritz on V = [X]: H = X^T A X, eigh, Ritz vectors
     written into the X slots of ``v``."""
     m = size_x + 2 * bs
-    x = v[:, :size_x]
-    h_xx = psum(tall_gram(x, a_op.matvec(x)), mesh)
+    x = v[:, :size_x // col_split(mesh)]
+    h_xx = gram_cols(x, gather_cols(a_op.matvec(x), mesh), mesh, tall_gram)
     h_xx = 0.5 * (h_xx + h_xx.T)
     w, c = eigh(h_xx, rr_backend, mesh)
     ss_eval = torch.cat([w, w[-1:].expand(m - size_x)])
@@ -196,15 +232,20 @@ def _initial_rr(a_op, v, size_x: int, bs: int, rr_backend: str = "auto",
     ss_evec[:size_x, :size_x] = c
     h = torch.zeros((m, m), dtype=v.dtype, device=v.device)
     h[:size_x, :size_x] = h_xx
-    ritz = tall_expand(x, c)
-    v[:, :size_x] = ritz
+    ritz = expand_cols(x, c, mesh, tall_expand)
+    v[:, :x.shape[1]] = ritz
     return ss_eval, ss_evec, h, ritz, v
 
 
 def _residual_norms(a_op, b_op, ritz, ss_eval, c0, cw: int, mesh=None):
     """Residual 2-norms of the Ritz window ``[c0, c0+cw)``.  ``c0`` is an int
-    (the window is a view) or a 0-d tensor on the device (a gather)."""
-    if torch.is_tensor(c0):
+    (the window is a view) or a 0-d tensor on the device (a gather).  On a
+    grid that splits columns each rank runs its columns of the window."""
+    if col_split(mesh) > 1:
+        idx = c0 + torch.arange(cw, device=ritz.device)
+        cols = own_cols(select_cols(ritz, idx, mesh), mesh)
+        lam = own_cols(ss_eval.index_select(0, idx), mesh)
+    elif torch.is_tensor(c0):
         idx = c0 + torch.arange(cw, device=ritz.device)
         cols = ritz.index_select(1, idx)
         lam = ss_eval.index_select(0, idx)
@@ -212,11 +253,12 @@ def _residual_norms(a_op, b_op, ritz, ss_eval, c0, cw: int, mesh=None):
         cols = ritz[:, c0:c0 + cw]
         lam = ss_eval[c0:c0 + cw]
     r = a_op.matvec(cols) - lam[None, :] * _matvec(b_op, cols)
-    return torch.sqrt(col_dots(r, r, mesh))
+    return gather_cols(torch.sqrt(col_dots(r, r, mesh)), mesh)
 
 
 def _compute_p(v, ss_evec, h, act_idx, act_cnt, size_x: int, bs: int,
-               zero_tol: float, passes: int, orth_method: str = "evp"):
+               zero_tol: float, passes: int, orth_method: str = "evp",
+               mesh=None):
     """The P block: the active window's subspace eigenvectors with their
     X components zeroed, orthonormalized against the X coefficients and
     within (ref scale 1: converged columns' leftovers must deflate), then
@@ -233,7 +275,7 @@ def _compute_p(v, ss_evec, h, act_idx, act_cnt, size_x: int, bs: int,
                                     passes=passes, ref_scale2=1.0,
                                     method=orth_method, precision="f64")
     h_pp = c_p.T @ (h @ c_p)
-    return tall_expand(v, c_p), p_cnt, h_pp
+    return expand_cols(v, c_p, mesh, tall_expand), p_cnt, h_pp
 
 
 def _f32_apply(a_op):
@@ -273,11 +315,19 @@ def _f32_apply(a_op):
 # hierarchy's transfers to dist_ops.TRANSFERS)
 GRAPH_REPLAYS = {"cg_stage": 0}
 _STAGE_COUNTERS = (spmm.LAUNCHES, onehot.LAUNCHES, dist_ops.WINDOWED,
-                   dist_ops.TRANSFERS)
+                   dist_ops.TRANSFERS, dist_ops.WIDTHS)
 
 
 def _stage_counts():
     return [dict(counters) for counters in _STAGE_COUNTERS]
+
+
+def _held(v, mesh) -> None:
+    """Under a mesh, record the shape of the rank's part of V
+    (``dist_ops.HELD``) at the end of an iteration (the fused loop: of a
+    chunk)."""
+    if mesh is not None:
+        dist_ops.HELD["basis"] = tuple(v.shape)
 
 
 class _MixedStage:
@@ -350,6 +400,8 @@ class _MixedStage:
         # card under capture.  A preconditioner is captured with the stage:
         # it must read nothing back (bamg_preconditioner's coarse CG runs its
         # whole budget)
+        if self.mesh is not None:
+            self.mesh.warm()
         r32 = torch.zeros((n, bs), dtype=torch.float32, device=device)
         self._r32 = r32.T if self.transposed else r32
         self._mask = torch.zeros(bs, dtype=torch.bool, device=device)
@@ -369,7 +421,8 @@ class _MixedStage:
             # nothing: its count moves from the capture to the replays
             self._launches = []
             for counters, was in zip(_STAGE_COUNTERS, before):
-                delta = {k: counters[k] - was[k] for k in counters}
+                delta = {k: counters[k] - was.get(k, 0) for k in counters}
+                counters.clear()
                 counters.update(was)
                 self._launches.append(delta)
 
@@ -386,7 +439,7 @@ class _MixedStage:
             GRAPH_REPLAYS["cg_stage"] += 1
             for counters, delta in zip(_STAGE_COUNTERS, self._launches):
                 for k, count in delta.items():
-                    counters[k] += count
+                    counters[k] = counters.get(k, 0) + count
             d, niters = self._d, self._niters.clone()
         else:
             r32 = r.T.float() if self.transposed else r.float()
@@ -427,11 +480,18 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
     every CG run its whole step budget.  ``linear_solver(shifted, rhs, x,
     colmask)`` replaces the block CG (zero steps and residuals reported);
     ``precond`` preconditions the f64 block CGs.  Under a row mesh the
-    user functions get the rank's rows."""
+    user functions get the rank's rows (on a grid that splits columns, and
+    the stage too, its columns of the block)."""
     colmask = torch.arange(bs, device=v.device) < act_cnt
     fmask = colmask.to(v.dtype)
-    xact = ritz[:, act_idx] * fmask[None, :]
+    xact = select_cols(ritz, act_idx, mesh) * fmask[None, :]
     lam = ss_eval[act_idx] + sigma
+    # cg_order=2's second stage continues the first one's columns, which
+    # another rank of the grid row may hold: it solves for the whole block
+    whole = cg_order == 2 and col_split(mesh) > 1
+    if not whole:
+        xact, lam, colmask, fmask = (own_cols(t, mesh)
+                                     for t in (xact, lam, colmask, fmask))
     rhs = lam[None, :] * _matvec(b_op, xact)
 
     def shifted(y):
@@ -440,7 +500,7 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
     if linear_solver is not None:
         w = linear_solver(shifted, rhs, xact, colmask)
         niters = 0
-        final_res = torch.zeros(bs, dtype=v.dtype, device=v.device)
+        final_res = torch.zeros_like(fmask)
     elif mixed:
         if stage is not None:
             w, niters = _mixed_inner_solve(stage, rhs, xact, fmask, colmask,
@@ -465,17 +525,21 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
         w = torch.nn.functional.pad(w, (0, bs - w.shape[1]))[:, :bs]
         niters = info1.niters + info2.niters
         final_res = info2.final_res
+        if whole:
+            w = own_cols(w, mesh)
     else:
         w, info = block_pcg(shifted, rhs, xact, cg, active0=colmask,
                             precond=precond, fixed=fixed, mesh=mesh)
         w = w * fmask[None, :]
         niters, final_res = info.niters, info.final_res
-    q = v[:, :size_x + bs]
+    if not whole:
+        final_res = gather_cols(final_res, mesh)
+    q = v[:, :(size_x + bs) // col_split(mesh)]
     bmv = None if b_op is None else b_op.matvec
     w, w_cnt = orth_block_against(w, q, bmv, zero_tol=zero_tol, passes=passes,
                                   method=orth_method, precision="auto",
                                   mesh=mesh)
-    v[:, size_x + bs:] = w
+    v[:, q.shape[1]:] = w
     return v, w_cnt, niters, final_res
 
 
@@ -489,8 +553,8 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     m = size_x + 2 * bs
     dev, dt = v.device, v.dtype
     ar = torch.arange(bs, device=dev)
-    h_vw = psum(tall_gram(v, a_op.matvec(v[:, size_x + bs:])),   # (m, bs)
-                mesh)
+    aw = a_op.matvec(v[:, (size_x + bs) // col_split(mesh):])
+    h_vw = gram_cols(v, gather_cols(aw, mesh), mesh, tall_gram)   # (m, bs)
     h_vw = h_vw * (ar < w_cnt).to(dt)[None, :]
 
     h = torch.zeros((m, m), dtype=dt, device=dev)
@@ -514,31 +578,36 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     lam_pad = w.index_select(0, (act_tot - 1).reshape(1))
     ss_eval_new = torch.where(torch.arange(m, device=dev) < act_tot, w,
                               lam_pad)
-    ritz = tall_expand(v, c[:, :size_x])
+    ritz = expand_cols(v, c[:, :size_x], mesh, tall_expand)
     return ss_eval_new, c, h, ritz
 
 
 def _set_x(v, ritz, size_x: int):
     """ComputeX: copy the Ritz vectors into the X slots of ``v``."""
-    v[:, :size_x] = ritz
+    v[:, :ritz.shape[1]] = ritz
     return v
 
 
-def _expand_ritz(v, ss_evec, ritz, size_x_old: int, extra: int):
-    """Restart growth: append P/W Ritz combinations as new X columns."""
-    new_cols = tall_expand(v, ss_evec[:, size_x_old:size_x_old + extra])
+def _expand_ritz(v, ss_evec, ritz, size_x_old: int, extra: int, mesh=None):
+    """Restart growth: append P/W Ritz combinations as new X columns (on a
+    grid that splits columns, the rank's columns of both follow each other:
+    ``size_x_old`` is a multiple of the split)."""
+    new_cols = expand_cols(v, ss_evec[:, size_x_old:size_x_old + extra], mesh,
+                           tall_expand)
     return torch.cat([ritz, new_cols], dim=1)
 
 
-def _grow_basis(v, ss_evec, ritz, ss_eval, size_x: int, extra: int, bs: int):
+def _grow_basis(v, ss_evec, ritz, ss_eval, size_x: int, extra: int, bs: int,
+                mesh=None):
     """Restart growth: ``extra`` P/W Ritz combinations join X; the basis, the
     Ritz values and the projected problem are rebuilt at the new width.
     Returns ``(v, ritz, ss_eval, ss_evec, h, size_x)``."""
-    ritz = _expand_ritz(v, ss_evec, ritz, size_x, extra)
+    ritz = _expand_ritz(v, ss_evec, ritz, size_x, extra, mesh)
     size_x += extra
     m = size_x + 2 * bs
-    v = torch.zeros((v.shape[0], m), dtype=v.dtype, device=v.device)
-    v[:, :size_x] = ritz
+    v = torch.zeros((v.shape[0], m // col_split(mesh)), dtype=v.dtype,
+                    device=v.device)
+    v[:, :ritz.shape[1]] = ritz
     ss_eval = torch.cat([ss_eval[:size_x],
                          ss_eval[size_x - 1].expand(2 * bs)])
     ss_evec = torch.eye(m, dtype=v.dtype, device=v.device)
@@ -664,7 +733,7 @@ class _FusedState:
     """What one fused iteration hands to the next; every field a tensor on
     the device."""
 
-    v: torch.Tensor          # (n, m) basis [X | P | W]
+    v: torch.Tensor          # (n, m) basis [X | P | W] (the rank's part)
     ritz: torch.Tensor       # (n, size_x)
     ss_eval: torch.Tensor    # (m,)
     ss_evec: torch.Tensor    # (m, m)
@@ -697,7 +766,8 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
         nev_conv, res = st.nev_conv, st.res
         act_idx = torch.clamp(nev_conv + arb, max=size_x - 1)
         act_cnt = torch.full_like(st.act_cnt, bs)
-        p_blk = torch.zeros((st.v.shape[0], bs), dtype=dt, device=dev)
+        p_blk = torch.zeros((st.v.shape[0], bs // col_split(mesh)), dtype=dt,
+                            device=dev)
         p_cnt = torch.zeros_like(st.act_cnt)
         h_pp = torch.zeros((bs, bs), dtype=dt, device=dev)
     else:
@@ -711,14 +781,15 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
         res = torch.where(live, res_new, st.res)
         p_blk, p_cnt, h_pp = _compute_p(
             st.v, st.ss_evec, st.h, st.act_idx, st.act_cnt, size_x, bs,
-            p.orth_zero_tol, p.orth_passes, p.orth_method)
+            p.orth_zero_tol, p.orth_passes, p.orth_method, mesh)
     # this iteration counts (the first one runs whatever nev_conv is, as in
     # the phased loop, where a restart is followed by an iteration)
     go = live if first else live & (nev_conv < nev_target)
 
     v = torch.empty_like(st.v)
-    v[:, :size_x] = st.ritz
-    v[:, size_x:size_x + bs] = p_blk
+    sxl = st.ritz.shape[1]
+    v[:, :sxl] = st.ritz
+    v[:, sxl:sxl + p_blk.shape[1]] = p_blk
 
     sigma = torch.full((), p.cg_shift, dtype=dt, device=dev)
     if p.cg_auto_shift:
@@ -822,6 +893,7 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
         nev_conv, num_iter, stall = (int(x) for x in back[:3])
         res_h = back[3:].numpy()
         history.append((num_iter, nev_conv))
+        _held(st.v, mesh)
         if checkpoint is not None:
             checkpoint(num_iter + (p.max_iter - iter_budget), st.ritz,
                        st.ss_eval, nev_conv)
@@ -833,7 +905,7 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
                 break
             extra = min(2 * bs, p.nev_max - size_x)
             grown = _grow_basis(st.v, st.ss_evec, st.ritz, st.ss_eval,
-                                size_x, extra, bs)
+                                size_x, extra, bs, mesh)
             size_x = grown[-1]
             nev_target = min(nev_target + extra, nev0)
             st = fresh_state(*grown, nev_conv)
@@ -858,8 +930,11 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
 
 def _init_fill_orth(b_op, x, zero_tol: float, passes: int, orth_method: str,
                     mesh=None):
-    """One InitializeX trial: B-orthonormalize the block."""
-    bmv = None if b_op is None else b_op.matvec
+    """One InitializeX trial: B-orthonormalize the block, which every rank
+    of a grid row holds whole (B on the rank's columns, then gathered)."""
+    bmv = None if b_op is None else whole_matvec(b_op.matvec, mesh)
+    if col_split(mesh) > 1:
+        mesh = mesh.replicated()
     return orth_within(x, bmv, zero_tol=zero_tol, passes=passes,
                        method=orth_method, precision="auto", mesh=mesh)
 
@@ -878,7 +953,8 @@ def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
     """InitializeX: keep user vectors, fill with random, B-orthonormalize;
     re-randomize dependent columns until the block has full rank.  Under a
     mesh ``x0`` holds the rank's rows and each random block is the rank's
-    rows of one global draw."""
+    rows of one global draw; on a grid that splits columns the rank keeps
+    its columns of the orthonormal block."""
     def draw(cols):
         return _local_rows(set_random(generator, (n, cols), dtype), mesh)
 
@@ -893,7 +969,7 @@ def _init_x(b_op, x0, size_x: int, n: int, dtype, generator, zero_tol,
                                   mesh)
         r = int(rank)
         if r == size_x:
-            return x
+            return own_cols(x, mesh)
         x[:, r:] = draw(size_x - r)
     raise RuntimeError("InitializeX: could not build a full-rank "
                        "B-orthonormal block")
@@ -904,7 +980,8 @@ def _not_ported(params: GCGParams, mesh) -> None:
     TPU only says so."""
     if mesh is not None and not isinstance(mesh, RowMesh):
         raise TypeError(f"mesh must be a gcge_tpu_torch.parallel.RowMesh "
-                        f"(row_mesh()), got {type(mesh).__name__}")
+                        f"(row_mesh()) or GridMesh (grid_mesh()), got "
+                        f"{type(mesh).__name__}")
     if params.rr_warm not in ("auto", "struct", "off"):
         raise ValueError(f"unknown rr_warm {params.rr_warm!r}")
     check_backend(params.rr_backend)
@@ -924,7 +1001,8 @@ def _checkpointer(p: GCGParams, timers, mesh):
     """``save(total_iter, ritz, ss_eval, nev_conv)``: writes the Ritz pairs
     to ``p.checkpoint_path`` once ``p.checkpoint_every`` iterations have
     completed since the last write (``gcge_tpu``'s rule); under a mesh
-    every rank gathers the rows and rank 0 writes.  None without a path."""
+    every rank gathers the rows (and a grid's columns) and the mesh's lead
+    rank writes.  None without a path."""
     if not p.checkpoint_path or p.checkpoint_every <= 0:
         return None
     from gcge_tpu_torch.utils.checkpoint import save_checkpoint
@@ -935,8 +1013,9 @@ def _checkpointer(p: GCGParams, timers, mesh):
         if total_iter - last[0] < p.checkpoint_every:
             return
         last[0] = total_iter
-        evec = ritz if mesh is None else gather_rows(mesh, ritz)
-        if mesh is None or mesh.rank == 0:
+        evec = ritz if mesh is None else \
+            gather_rows(mesh, gather_cols(ritz, mesh))
+        if mesh is None or mesh.lead:
             save_checkpoint(p.checkpoint_path, GCGResult(
                 eval=ss_eval[:ritz.shape[1]].cpu().numpy(), evec=evec,
                 nev_conv=int(nev_conv), num_iter=int(total_iter),
@@ -960,7 +1039,7 @@ def _profiled(profile_dir, device: torch.device, mesh):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     name = "gcg_trace.json" if mesh is None else \
-        f"gcg_trace_rank{mesh.rank}.json"
+        f"gcg_trace_rank{mesh.peers[mesh.rank]}.json"
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, name))
@@ -983,7 +1062,10 @@ def gcg_solve(a_op, b_op=None, params: GCGParams = GCGParams(),
     rank of it calls ``gcg_solve`` with the same arguments, ``x0`` global,
     and gets its rows of the Ritz vectors in ``evec``.  ``params.profile_dir``
     writes a Chrome trace of the solve, ``params.checkpoint_path`` the Ritz
-    pairs every ``params.checkpoint_every`` iterations."""
+    pairs every ``params.checkpoint_every`` iterations.  ``mesh`` may be a
+    grid (:func:`gcge_tpu_torch.parallel.grid_mesh`), with the operators
+    sharded over it: ``evec`` is then the rank's rows and, where the solve
+    splits columns, its columns ``j % n_cols == col`` of them."""
     _not_ported(params, mesh)
     with _profiled(params.profile_dir, a_op.device, mesh):
         return _gcg_solve(a_op, b_op, params, x0, generator, mesh)
@@ -993,9 +1075,15 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
                ) -> GCGResult:
     n = a_op.shape[0]
     p = params.resolved(n)
-    # under a mesh, rank 0 prints
-    verbose = p.verbose if mesh is None or mesh.rank == 0 else 0
     bs, nev0 = p.block_size, p.nev
+    if col_split(mesh) > 1 and any(k % mesh.col_split for k in (
+            p.nev_init, p.nev_max, bs, max(p.check_max or 2 * bs, bs))):
+        # a width of the solve (the initial and the largest X, the block,
+        # the residual window) does not split: every column on every rank
+        # of a grid row
+        mesh = mesh.replicated()
+    # under a mesh, its lead rank prints
+    verbose = p.verbose if mesh is None or mesh.lead else 0
     size_x = p.nev_init
     dtype = p.dtype
     device = a_op.device
@@ -1013,7 +1101,8 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
             cg, max_iter=-(-cg.max_iter // p.cg_refine))
         # the fused loop's stages run their whole budget and, on a card,
         # run as one captured graph
-        stage = _MixedStage(a_op, b_op, stage_cg, bs, fixed=fused,
+        stage = _MixedStage(a_op, b_op, stage_cg, bs // col_split(mesh),
+                            fixed=fused,
                             capture=fused and device.type == "cuda",
                             precond=p.linear_precond, mesh=mesh)
         if stage.apply32 is None:
@@ -1045,8 +1134,9 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
     x = timed("initX", _init_x, b_op, x0, size_x, n, dtype, generator,
               p.orth_zero_tol, p.orth_passes, p.orth_method, mesh)
     m = size_x + 2 * bs
-    v = torch.zeros((x.shape[0], m), dtype=dtype, device=device)
-    v[:, :size_x] = x
+    v = torch.zeros((x.shape[0], m // col_split(mesh)), dtype=dtype,
+                    device=device)
+    v[:, :x.shape[1]] = x
     ss_eval, ss_evec, h, ritz, v = timed("compRR", _initial_rr, a_op, v,
                                          size_x, bs, p.rr_backend, mesh)
     checkpoint = _checkpointer(p, timers, mesh)
@@ -1116,7 +1206,7 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
                 break
             extra = min(2 * bs, p.nev_max - size_x)
             v, ritz, ss_eval, ss_evec, h, size_x = _grow_basis(
-                v, ss_evec, ritz, ss_eval, size_x, extra, bs)
+                v, ss_evec, ritz, ss_eval, size_x, extra, bs, mesh)
             nev_target = min(nev_target + extra, nev0)
             ss_eval_h = ss_eval.cpu().numpy()
             iter_budget -= num_iter
@@ -1133,17 +1223,19 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
             break
 
         # ---- ComputeP (previous iteration's active set) ------------------
+        sxl, bsl = size_x // col_split(mesh), bs // col_split(mesh)
         if skip_p or act_idx_prev is None:
             p_cnt = 0
             h_pp = torch.zeros((bs, bs), dtype=dtype, device=device)
-            v[:, size_x:size_x + bs] = 0.0
+            v[:, sxl:sxl + bsl] = 0.0
             skip_p = False
         else:
             p_blk, p_cnt, h_pp = timed(
                 "compP", _compute_p, v, ss_evec, h,
                 torch.as_tensor(act_idx_prev, device=device), act_cnt_prev,
-                size_x, bs, p.orth_zero_tol, p.orth_passes, p.orth_method)
-            v[:, size_x:size_x + bs] = p_blk
+                size_x, bs, p.orth_zero_tol, p.orth_passes, p.orth_method,
+                mesh)
+            v[:, sxl:sxl + bsl] = p_blk
 
         # ---- ComputeX ----------------------------------------------------
         v = timed("compX", _set_x, v, ritz, size_x)
@@ -1174,6 +1266,7 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
             size_x, bs, p.rr_backend, mesh)
 
         p_cnt_h, w_cnt_h = int(p_cnt), int(w_cnt)
+        _held(v, mesh)
         if verbose >= 2:
             print(f"  dbg: p_cnt={p_cnt_h} w_cnt={w_cnt_h} "
                   f"cg_iters={cg_iters} sigma={sigma:.3e} "

@@ -17,6 +17,16 @@ the same functions.  The small eigenproblems go through
 the tall blocks are each rank's rows and every Gram and column dot is summed
 over the ranks (:func:`gcge_tpu_torch.ops.multivec.psum`); the small
 problems are then the same on every rank.
+
+On a grid that splits columns (``mesh.col_split`` above 1) GCG hands
+:func:`orth_block_against` its columns of the new block and of the basis.
+The block is narrow: every rank of a grid row gathers it whole (one
+``all_gather``) and orthonormalizes it on its rows as under a row mesh,
+with B applied to its columns and gathered
+(:func:`gcge_tpu_torch.ops.multivec.whole_matvec`), then keeps its
+columns.  The basis stays split: :func:`orth_against` multiplies the
+rank's columns of it by the whole block, and the grid row sums the
+partial recombinations (``all_reduce``).
 """
 
 from __future__ import annotations
@@ -25,7 +35,9 @@ import torch
 
 from gcge_tpu_torch.ops import osgemm
 from gcge_tpu_torch.ops.eighs import safe_eigh
-from gcge_tpu_torch.ops.multivec import col_dots, gram, psum
+from gcge_tpu_torch.ops.multivec import (col_dots, col_split, gather_cols,
+                                         gram, own_cols, psum, sum_cols,
+                                         whole_matvec)
 
 # precisions the port accepts; both compute in f64: 'auto' on kernels 3/4,
 # 'f64' on plain products
@@ -58,12 +70,15 @@ def _rel_floor(dtype: torch.dtype) -> float:
 def orth_against(x, q, b_matvec=None, passes: int = 2,
                  precision: str = "f64", mesh=None):
     """``x <- x - q (q^T B x)``, ``passes`` times, for a B-orthonormal
-    ``q``.  Zero (masked) columns of either block are no-ops."""
+    ``q``.  Zero (masked) columns of either block are no-ops.  On a grid
+    that splits columns ``q`` is the rank's columns and ``x`` the whole
+    block: each rank projects out its columns of ``q``, and the grid row
+    sums the projections."""
     _check_precision(precision)
     for _ in range(passes):
         bx = x if b_matvec is None else b_matvec(x)
         coef = _gram_p(q, bx, precision, mesh)
-        x = x - _expand_p(q, coef, precision)
+        x = x - sum_cols(_expand_p(q, coef, precision), mesh)
     return x
 
 
@@ -151,23 +166,31 @@ def orth_block_against(x, q, b_matvec=None, zero_tol: float = 1e-13,
     """Orthonormalize ``x`` against ``q`` and within itself, ``passes``
     times, then project once more.  The deflation scale is the entry-time
     largest column norm, so a direction that is small because most of ``x``
-    lay in span(q) survives.  Returns ``(x, rank)``."""
+    lay in span(q) survives.  On a grid that splits columns ``x`` and ``q``
+    are the rank's columns: the block is gathered whole, orthonormalized on
+    every rank of the grid row, and split again.  Returns ``(x, rank)``."""
     _check_precision(precision)
+    inner = mesh
+    if col_split(mesh) > 1:
+        x = gather_cols(x, mesh)
+        b_matvec = None if b_matvec is None else whole_matvec(b_matvec, mesh)
+        inner = mesh.replicated()
     if ref_scale2 is None:
         bx = x if b_matvec is None else b_matvec(x)
-        ref_scale2 = torch.clamp(col_dots(x, bx, mesh).max(), min=1e-300)
+        ref_scale2 = torch.clamp(col_dots(x, bx, inner).max(), min=1e-300)
     rank = torch.full((), x.shape[1], dtype=torch.int64, device=x.device)
     for i in range(passes):
         x = orth_against(x, q, b_matvec, passes=1, precision=precision,
                          mesh=mesh)
         x, r = orth_within(x, b_matvec, zero_tol=zero_tol, passes=1,
                            ref_scale2=ref_scale2 if i == 0 else None,
-                           method=method, precision=precision, mesh=mesh)
+                           method=method, precision=precision, mesh=inner)
         rank = torch.minimum(rank, r)
     # the last within-block recombination can re-amplify span(q) leakage of
     # near-floor directions; one more projection removes it
-    return orth_against(x, q, b_matvec, passes=1, precision=precision,
-                        mesh=mesh), rank
+    x = orth_against(x, q, b_matvec, passes=1, precision=precision,
+                     mesh=mesh)
+    return own_cols(x, mesh), rank
 
 
 def bgs_orth(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,

@@ -178,7 +178,7 @@ def pas_solve(hier: MGHierarchy, nev: int,
     lvls = hier.levels
     top = hier.num_levels - 1
     mesh = hier.mesh
-    if mesh is not None and mesh.rank != 0:
+    if mesh is not None and not mesh.lead:
         verbose = 0
     nev_work = min(nev + max(2, nev // 2), lvls[top].a_op.shape[0] - 1)
     cp = coarse_params or GCGParams(nev=nev_work, verbose=0, max_iter=300)

@@ -1006,3 +1006,41 @@ def test_one_rank_nccl_mesh_matches_no_mesh(cuda):
             assert dist_ops.WINDOWED[f"{kind}_f32"] > 0
     finally:
         dist.destroy_process_group()
+
+
+def test_one_rank_nccl_grid_matches_no_mesh(cuda):
+    """A (1, 1) grid on a one-rank NCCL group (its row and column groups
+    are new one-rank groups, set up by a collective before the f32 stage is
+    captured): the sharded DIA solve equals the solve without a mesh bit
+    for bit, on the fused and the phased loop."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gcge_tpu_torch import GCGParams, gcg_solve
+    from gcge_tpu_torch.parallel import dist_ops, grid_mesh, shard_operator
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        grid = grid_mesh(1, 1)
+        rows, cols, vals, n = _laplacian_27(12)
+        dia = make_operator(rows, cols, vals, (n, n), device=cuda)
+        kw = dict(nev=6, block_size=3, max_iter=80, cg_mixed=True,
+                  cg_auto_shift=True, verbose=0)
+        for fuse in (4, 0):
+            p = GCGParams(fuse=fuse, **kw)
+            plain = gcg_solve(dia, None, p)
+            dist_ops.WINDOWED.update({k: 0 for k in dist_ops.WINDOWED})
+            sharded = gcg_solve(shard_operator(dia, grid), None, p,
+                                mesh=grid)
+            assert np.array_equal(plain.eval, sharded.eval)
+            assert torch.equal(plain.evec, sharded.evec)
+            assert plain.num_iter == sharded.num_iter
+            assert dist_ops.WINDOWED["dia_f64"] > 0
+            assert dist_ops.WINDOWED["dia_f32"] > 0
+    finally:
+        dist.destroy_process_group()

@@ -1,4 +1,5 @@
-"""The port's row-sharded distribution against gcge_tpu's, on the CPU.
+"""The port's distribution, the row mesh and the 2-D grid, against
+gcge_tpu's, on the CPU.
 
 The port runs one process a rank on ``torch.distributed`` (gloo here, NCCL
 on cards); ``gcge_tpu`` runs one process over its 8-device virtual CPU mesh.
@@ -6,8 +7,10 @@ The ranks (``tests/torch_dist_worker.py``: four, and two for the one-call
 frontend and the per-rank ingestion) are started once for the module, in
 spawned interpreters that never import ``jax``, and run every check while
 this process computes ``gcge_tpu``'s results on ``row_mesh(4)`` from the
-same numpy inputs.  Each rank has a hard time limit: a rank that waits in a
-collective fails the checks it did not finish instead of hanging the suite.
+same numpy inputs (its ``grid_mesh(2, 2)`` references in a child
+interpreter of their own, at the same time).  Each rank has a hard time
+limit: a rank that waits in a collective fails the checks it did not finish
+instead of hanging the suite.
 
 Tolerances: the stitched sharded products equal ``gcge_tpu``'s to 1e-13 of
 their largest entry (the same sums in another order); the solves, as in
@@ -18,8 +21,17 @@ converged count and the same sweeps by level; the f32 products of the
 windowed path, and a solve on a one-rank mesh, equal the undistributed
 port's bit for bit (the same operations on the same values).  The
 replicated coarse levels of a sharded AMG hierarchy give every rank the
-same bits.
+same bits.  On the (2, 2) grid every rank holds the same eigenvalues,
+counts and gathered eigenvectors, bit for bit; a (4, 1) grid gives the row
+mesh's bits, and ``pcg(mesh=)`` is within 1e-13 of the undistributed
+``pcg``.
 """
+
+import os
+import pickle
+import subprocess
+import sys
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -60,8 +72,9 @@ RANK_LIMIT = 420
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Both rank groups, started at once; joined by :func:`joined`."""
+def ranks(tmp_path_factory, jax_grid_child):
+    """Both rank groups, started at once (after the child of
+    :func:`jax_grid_child`); joined by :func:`joined`."""
     out = str(tmp_path_factory.mktemp("ranks"))
     procs = {group: w.launch(group, out) for group in w.WORLD}
     yield out, procs
@@ -178,22 +191,20 @@ def test_pad_problem_matches_jax():
 
 
 def test_distribution_needs_a_process_group():
-    """No initialized group: ``row_mesh``, ``hybrid_row_mesh`` and
-    ``solve(distribute=True)``, with ``multigrid`` and ``method="pas"`` too,
-    raise (nothing runs undistributed in silence); what waits for item 12b
-    (the 2-D mesh) names it."""
+    """No initialized group: ``row_mesh``, ``hybrid_row_mesh``,
+    ``grid_mesh`` and ``solve(distribute=True)`` and ``"grid"``, with
+    ``multigrid`` and ``method="pas"`` too, raise (nothing runs
+    undistributed in silence)."""
     a = sps.identity(40, format="csr")
-    for fn in (row_mesh, hybrid_row_mesh):
+    for fn in (row_mesh, hybrid_row_mesh, lambda: grid_mesh(2, 2)):
         with pytest.raises(RuntimeError, match="process group"):
             fn()
     for kw in (dict(), dict(multigrid=3), dict(method="pas")):
         with pytest.raises(RuntimeError, match="process group"):
             gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute=True,
                                  **kw)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(RuntimeError, match="process group"):
         gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute="grid")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        grid_mesh()
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +352,75 @@ def jax_mg():
     return out
 
 
+def _jax_grid_refs(path):
+    """gcge_tpu on ``grid_mesh(2, 2)`` (``tests/test_dist.py``'s grid
+    cases): the sharded DIA and ELL products of ``block(512, 6, 7)`` and
+    GCG on the sharded ELL operator (its phased loop, the reference of both
+    loops of the port); and ``gcge_tpu.solve(distribute="grid")`` of the
+    cube FEM pair's plain case on its 8 devices, a (4, 2) grid.  Pickled to
+    ``path`` as numpy values."""
+    from gcge_tpu.parallel import grid_mesh as j_grid_mesh
+    from gcge_tpu.parallel import shard_mv as j_shard_mv
+
+    mesh = j_grid_mesh(2, 2)
+    n = w.GRID_N
+    rows, cols, vals, _ = w.laplacian_1d(n)
+    x = j_shard_mv(mesh, jnp.asarray(w.block(n, w.GRID_M, 7)))
+    out = {}
+    for kind, cls in (("dia", JDia), ("csr", JSparse)):
+        op = j_shard_operator(cls.from_coo(rows, cols, vals, (n, n)), mesh)
+        out[kind] = np.asarray(op.matvec(x))
+    ell = j_shard_operator(JSparse.from_coo(rows, cols, vals, (n, n)), mesh)
+    res = j_gcg_solve(ell, None, JParams(verbose=0, fuse=0, **w.GRID_GCG),
+                      x0=jnp.asarray(w.x0_for(n, w.GRID_X0)), mesh=mesh)
+    out["gcg"] = SimpleNamespace(eval=np.asarray(res.eval),
+                                 nev_conv=int(res.nev_conv),
+                                 num_iter=int(res.num_iter))
+    a, b = w.api_matrices("fem9")
+    kw, k = w.API_GRID["fem_plain"]
+    ev, _, conv = gcge_tpu.solve(a, b, distribute="grid", verbose=0,
+                                 x0=jnp.asarray(w.x0_for(a.shape[0], k)),
+                                 **kw)
+    out["fem_plain"] = (np.asarray(ev), None, int(conv))
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
 @pytest.fixture(scope="module")
-def four(ranks, jax_matvecs, jax_solves, jax_mg):
+def jax_grid_child(tmp_path_factory):
+    """An interpreter of its own (this module's test set-up, ``conftest``)
+    that computes :func:`_jax_grid_refs` while this process computes
+    gcge_tpu's other references: started before the ranks."""
+    path = str(tmp_path_factory.mktemp("jax_grid") / "refs.pkl")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path[:0] = [{here!r}, {os.path.dirname(here)!r}]"
+            f"; import conftest, test_torch_dist; "
+            f"test_torch_dist._jax_grid_refs({path!r})")
+    with open(path + ".log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                                stderr=subprocess.STDOUT)
+    yield proc, path
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_grid(jax_grid_child):
+    """The child's references (:func:`_jax_grid_refs`)."""
+    proc, path = jax_grid_child
+    if proc.wait(timeout=RANK_LIMIT) != 0:
+        with open(path + ".log") as log:
+            raise AssertionError(f"gcge_tpu's grid references failed:\n"
+                                 f"{log.read()[-4000:]}")
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def four(ranks, jax_matvecs, jax_solves, jax_mg, jax_grid, jax_api):
     """The four-rank group's results (joined after gcge_tpu's products and
-    solves, which this process computes while the ranks run)."""
+    solves, all of which this process computes while the ranks run)."""
     return joined(ranks, "four")
 
 
@@ -666,3 +742,186 @@ def test_distributed_hierarchy_needs_divisible_rows(two):
         for name in ("multigrid", "pas"):
             assert p[name] is not None and "multiple of the rank count" in \
                 p[name]
+
+
+# ---------------------------------------------------------------------------
+# the 2-D grid over four ranks against gcge_tpu's grid_mesh(2, 2), and on
+# two ranks
+# ---------------------------------------------------------------------------
+
+
+def test_grid_mesh_coordinates_and_groups(four):
+    """Global rank g of the (2, 2) grid sits at (g // 2, g % 2); its row
+    group holds the ranks of its grid column, its column group those of its
+    grid row; a (4, 1) grid is the row mesh's layout."""
+    out, _ = four
+    for g, p in enumerate(w.result(out, "four", "grid")):
+        r, c = divmod(g, 2)
+        assert p["coords"] == (r, c, 2, 2)
+        assert p["row_group"] == (c, 2 + c)
+        assert p["col_group"] == (2 * r, 2 * r + 1)
+        assert p["tall_coords"] == (g, 0, (0, 1, 2, 3))
+
+
+@pytest.mark.parametrize("kind", ["dia", "csr"])
+def test_grid_matvec_matches_jax(jax_grid, four, kind):
+    """The sharded DIA and CSR products on the (2, 2) grid, each rank on its
+    rows and its 3 of the 6 columns, gathered whole, against gcge_tpu's
+    ``grid_mesh(2, 2)`` products (its ELL stands for the CSR)."""
+    out, _ = four
+    ref = jax_grid[kind]
+    for p in w.result(out, "four", "grid"):
+        assert p[kind + "_local"] == (w.GRID_N // 2, w.GRID_M // 2)
+        assert np.abs(p[kind] - ref).max() <= 1e-13 * np.abs(ref).max()
+
+
+def _grid_reference(name, jax_grid, jax_solves):
+    """The reference solve of a grid case: gcge_tpu's on ``grid_mesh(2,
+    2)``, its ``row_mesh(4)`` solve of a case of ``SOLVES``, or for the mgs
+    and ``cg_order=2`` case the port's undistributed solve."""
+    from gcge_tpu_torch import GCGParams, gcg_solve
+
+    if name in w.SOLVES:
+        return jax_solves[name]
+    kind, kw = w.GRID_SOLVES[name]
+    if "orth_method" not in kw:
+        return jax_grid["gcg"]
+    return gcg_solve(w.grid_operator(kind), None,
+                     GCGParams(verbose=0, **w.GRID_GCG, **kw),
+                     x0=w.x0_for(w.GRID_N, w.GRID_X0))
+
+
+@pytest.mark.parametrize("name", w.GRID_CASES)
+def test_grid_gcg_matches_jax(jax_grid, jax_solves, four, name):
+    """GCG on the (2, 2) grid, phased and fused, DIA and CSR, against
+    gcge_tpu's solve on ``grid_mesh(2, 2)``; the mixed fused case (the f32
+    CG stage on the grid, the banded matrix of ``dia_std_mixed_fused``)
+    against gcge_tpu's solve of that case on ``row_mesh(4)``; the mgs and
+    ``cg_order=2`` case against the port's undistributed solve:
+    eigenvalues within 1e-10 relative, the same converged count,
+    iterations within 2.
+    Every rank of the grid holds the same eigenvalues, counts and gathered
+    eigenvectors, bit for bit, and between iterations its n/2 rows and
+    m_V/2 columns of V (m_V = nev_max + 2 block = 24)."""
+    out, _ = four
+    parts = [p[name] for p in w.result(out, "four", "grid")]
+    res = parts[0]
+    for p in parts[1:]:
+        np.testing.assert_array_equal(p["eval"], res["eval"])
+        np.testing.assert_array_equal(p["evec"], res["evec"])
+        assert (p["num_iter"], p["nev_conv"]) == (res["num_iter"],
+                                                  res["nev_conv"])
+    ref = _grid_reference(name, jax_grid, jax_solves)
+    nev = w.GRID_GCG["nev"]
+    assert res["nev_conv"] >= nev and res["nev_conv"] == ref.nev_conv
+    ev_ref = np.asarray(ref.eval)[:nev]
+    assert np.max(np.abs(res["eval"][:nev] - ev_ref) / ev_ref) <= 1e-10
+    assert abs(res["num_iter"] - ref.num_iter) <= 2
+    for p in parts:
+        assert p["held"] == (w.GRID_N // 2, 12)
+        assert p["evec_local"] == (w.GRID_N // 2, 8)
+
+
+def test_grid_products_run_on_half_the_columns(four):
+    """The counter of the sharded products' widths: on the (2, 2) grid each
+    rank ran every product of the mixed fused case (X at the start, the
+    residual window, the W block's f64 and f32 products) on half the
+    columns of the block the row mesh (the ``solves`` task) runs it on,
+    and held half of V's columns."""
+    out, _ = four
+    name = w.GRID_TALL_CASE
+    rows = w.result(out, "four", "solves")
+    for p, r in zip(w.result(out, "four", "grid"), rows):
+        row, grid = r[name]["widths"], p[name]["widths"]
+        assert sorted(row) == [4, 8, 16]
+        assert sorted(grid) == sorted(k // 2 for k in row)
+        assert p[name]["held"] == (w.GRID_N // 2, 12)
+
+
+def test_tall_grid_equals_row_mesh_bit_for_bit(four):
+    """A (4, 1) grid is the row mesh at four ranks: the same eigenvalues,
+    eigenvector rows, iterations and count as the ``solves`` task's
+    row-mesh solve of the same case, bit for bit."""
+    out, _ = four
+    name = w.GRID_TALL_CASE
+    rows = w.result(out, "four", "solves")
+    for p, r in zip(w.result(out, "four", "grid"), rows):
+        tall, row = p["tall"], r[name]
+        np.testing.assert_array_equal(tall["eval"], row["eval"])
+        np.testing.assert_array_equal(tall["evec"], row["evec"])
+        assert (tall["num_iter"], tall["nev_conv"]) == (row["num_iter"],
+                                                        row["nev_conv"])
+
+
+def test_pcg_mesh_matches_undistributed(four):
+    """``pcg(mesh=)`` on the four-rank row mesh (the sharded 1-D
+    Laplacian): within 1e-13 of the undistributed ``pcg``, the same
+    iterations, on every rank."""
+    from gcge_tpu_torch.solvers.bpcg import pcg
+
+    out, _ = four
+    a_op = w.grid_operator("dia")
+    b = torch.as_tensor(w.block(w.GRID_N, 1, 42))[:, 0]
+    ref, info = pcg(a_op.matvec, b, torch.zeros_like(b), **w.PCG_KW)
+    ref = ref.numpy()
+    for p in w.result(out, "four", "grid"):
+        assert np.abs(p["pcg"] - ref).max() <= 1e-13 * np.abs(ref).max()
+        assert p["pcg_iters"] == info.niters
+
+
+def test_grid_pas_matches_row_mesh(four):
+    """``pas_solve`` on a hierarchy sharded over the (2, 2) grid: both grid
+    columns give the same bits (eigenvalues, sweeps, each row block of the
+    eigenvectors), and the result is the row mesh's (the four-rank
+    ``pas`` task) to 1e-9, with the same sweeps and count."""
+    out, _ = four
+    grid = w.result(out, "four", "grid_pas")
+    rows = [p["plain"] for p in w.result(out, "four", "pas")]
+    for p in grid:
+        np.testing.assert_array_equal(p["eval"], grid[0]["eval"])
+        assert (p["sweeps"], p["nev_conv"]) == (grid[0]["sweeps"],
+                                                grid[0]["nev_conv"])
+    for r in range(2):
+        np.testing.assert_array_equal(grid[2 * r]["evec"],
+                                      grid[2 * r + 1]["evec"])
+        assert grid[2 * r]["evec"].shape == (w.MG_N // 2, w.PAS_NEV)
+    assert grid[0]["sweeps"] == rows[0]["sweeps"]
+    assert grid[0]["nev_conv"] == rows[0]["nev_conv"] >= w.PAS_NEV
+    np.testing.assert_allclose(grid[0]["eval"], rows[0]["eval"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("name", list(w.API_GRID))
+def test_solve_distribute_grid_matches_jax(jax_grid, jax_api, four, name):
+    """``solve(distribute="grid")`` on four ranks (a (2, 2) grid) of the
+    cube FEM pair at nx=9 with B, plain and with ``multigrid=3``, against
+    gcge_tpu's ``solve(distribute="grid")`` (the plain case) and its
+    distributed solve of the same ``multigrid=3`` case (``jax_api``'s):
+    eigenvalues within 1e-10, the same count; every rank holds the same
+    whole eigenvectors."""
+    out, _ = four
+    parts = [p[name] for p in w.result(out, "four", "grid_api")]
+    ev_j, _, conv_j = jax_grid["fem_plain"] if name == "fem_plain" else \
+        jax_api["fem_amg"]
+    res = parts[0]
+    for p in parts[1:]:
+        np.testing.assert_array_equal(p["eval"], res["eval"])
+        np.testing.assert_array_equal(p["evec"], res["evec"])
+    nev = w.API_GRID[name][0]["nev"]
+    assert res["nev_conv"] == conv_j >= nev
+    ev_j = np.asarray(ev_j)[:nev]
+    assert np.max(np.abs(res["eval"][:nev] - ev_j) / np.abs(ev_j)) <= 1e-10
+    assert res["evec"].shape == (512, 8)
+
+
+def test_solve_grid_on_two_ranks_is_the_row_mesh(two):
+    """On two ranks ``solve(distribute="grid")`` runs the row mesh, as
+    gcge_tpu falls back to it: ``distribute=True``'s bits."""
+    out, _ = two
+    for p in w.result(out, "two", "grid_two"):
+        assert p["grid_is_rows"] is True
+
+
+def test_pcg_one_rank_mesh_equals_no_mesh_bit_for_bit(two):
+    """``pcg`` on a one-rank subgroup: the undistributed ``pcg``'s bits."""
+    out, _ = two
+    assert w.result(out, "two", "grid_two")[0]["pcg_one_rank"] is True

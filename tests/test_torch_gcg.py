@@ -173,9 +173,11 @@ def test_resolved_matches_jax(nev, block_size, nev_max):
 
 def test_options_not_ported_raise(stencil10):
     """What is not ported raises before the solve starts, naming its ROADMAP
-    item (checkpoint_path, profile_dir, mesh and distribute run since they
-    were ported: tests/test_torch_utils.py, tests/test_torch_dist.py;
-    rr_warm='struct' solves: test_rr_warm_struct_matches_auto_and_jax)."""
+    item (checkpoint_path, profile_dir, mesh and distribute, the grid too,
+    run since they were ported: tests/test_torch_utils.py,
+    tests/test_torch_dist.py; rr_warm='struct' solves:
+    test_rr_warm_struct_matches_auto_and_jax); a distributed solve without a
+    process group raises."""
     rows, cols, vals, n, _ = stencil10
     op = make_operator(rows, cols, vals, (n, n), device="cpu")
     res = gcg_solve(op, None, GCGParams(nev=4, rr_warm="struct", verbose=0))
@@ -187,9 +189,9 @@ def test_options_not_ported_raise(stencil10):
     # multigrid and method="pas" run since they were ported
     # (tests/test_torch_multigrid.py, tests/test_torch_pas.py)
     a = sps.identity(50, format="csr")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute="grid")
     # no process group: a distributed solve never runs undistributed
+    with pytest.raises(RuntimeError, match="process group"):
+        gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute="grid")
     with pytest.raises(RuntimeError, match="process group"):
         gcge_tpu_torch.solve(a, nev=2, device="cpu", distribute=True)
     with pytest.raises(ValueError, match="unknown method"):

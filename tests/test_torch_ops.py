@@ -50,6 +50,21 @@ def _banded_coo(n, offsets, seed):
 # ---- operators ---------------------------------------------------------
 
 
+def test_ops_export_eigh_and_safe_eigh_as_jax_does():
+    """``gcge_tpu_torch.ops`` exports ``eigh`` and ``safe_eigh``, as
+    ``gcge_tpu.ops`` does; the rest of gcge_tpu's list that the port
+    exports are the TPU workarounds' complement (``DiaDF64Operator``,
+    ``eigh_jacobi``, ``eigh_newton``, ``jacobi_polish`` are not ported)."""
+    import gcge_tpu.ops as j_ops
+    import gcge_tpu_torch.ops as t_ops
+
+    tpu_only = {"DiaDF64Operator", "eigh_jacobi", "eigh_newton",
+                "jacobi_polish"}
+    assert set(j_ops.__all__) - tpu_only <= set(t_ops.__all__)
+    assert {"eigh", "safe_eigh"} <= set(t_ops.__all__) & set(j_ops.__all__)
+    assert t_ops.eigh is eigh and t_ops.safe_eigh is safe_eigh
+
+
 def test_dia_operator_matches_scipy_both_layouts():
     """DIA from COO: to_dense equals the scipy matrix; matvec and matvec_t
     equal scipy's product to 1e-13 relative."""

@@ -117,6 +117,19 @@ def test_cli_module_runs_without_jax():
     assert lams == sorted(lams)
 
 
+def test_utils_exports_match_jax():
+    """``gcge_tpu_torch.utils`` exports gcge_tpu's four names
+    (``gcge_tpu/utils/__init__.py``), the port's own functions."""
+    import gcge_tpu.utils as j_utils
+    import gcge_tpu_torch.utils as t_utils
+
+    assert sorted(t_utils.__all__) == sorted(j_utils.__all__)
+    assert t_utils.params_from_args is cli.params_from_args
+    assert t_utils.print_usage is cli.print_usage
+    assert t_utils.save_checkpoint is checkpoint.save_checkpoint
+    assert t_utils.load_checkpoint is checkpoint.load_checkpoint
+
+
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------

@@ -261,7 +261,7 @@ def _solve(mesh, name):
     import torch
 
     from gcge_tpu_torch import DiagOperator, GCGParams, gcg_solve
-    from gcge_tpu_torch.parallel import pad_problem, shard_operator
+    from gcge_tpu_torch.parallel import dist_ops, pad_problem, shard_operator
 
     matrix, _, kw, k = SOLVES[name]
     rows, cols, vals, n, b = solve_problem(matrix)
@@ -271,10 +271,12 @@ def _solve(mesh, name):
     a_pad, b_pad, _ = pad_problem(a_op, b_op, mesh.world)
     x0 = np.zeros((a_pad.shape[0], k))
     x0[:n] = x0_for(n, k)
+    dist_ops.WIDTHS.clear()
     res = gcg_solve(shard_operator(a_pad, mesh), shard_operator(b_pad, mesh),
                     GCGParams(verbose=0, **kw), x0=x0, mesh=mesh)
     return {"eval": res.eval, "nev_conv": res.nev_conv,
-            "num_iter": res.num_iter, "evec_rows": res.evec.shape[0]}
+            "num_iter": res.num_iter, "evec_rows": res.evec.shape[0],
+            "evec": res.evec.numpy(), "widths": dict(dist_ops.WIDTHS)}
 
 
 def task_solves(mesh):
@@ -544,14 +546,189 @@ def task_divisibility(mesh):
     return out
 
 
+# the 2-D grid: the 1-D Laplacian of tests/test_dist.py's grid cases (n=512,
+# products on block(512, 6, 7), GCG with nev=8, block 4, tol_rel 1e-9, from
+# x0_for(512, GRID_X0)), by operator and loop; and the mixed fused case of
+# SOLVES, which runs the f32 CG stage on a grid
+GRID_N, GRID_M = 512, 6
+GRID_GCG = dict(nev=8, block_size=4, tol_rel=1e-9)
+GRID_X0 = 16
+GRID_SOLVES = {
+    "dia_phased": ("dia", dict(fuse=0)),
+    "csr_fused": ("csr", dict(fuse=4)),
+    # column-wise Gram-Schmidt on the whole W block, and cg_order=2, whose
+    # second stage continues the first stage's columns (the grid solves for
+    # the whole W block there)
+    "dia_mgs_order2_phased": ("dia", dict(fuse=0, orth_method="mgs",
+                                          cg_order=2)),
+}
+GRID_CASES = tuple(GRID_SOLVES) + ("dia_std_mixed_fused",)
+# the case of SOLVES that also runs on a (4, 1) grid, against the row mesh's
+# solve of the "solves" task
+GRID_TALL_CASE = "dia_std_mixed_fused"
+# the one-call grid cases (the cube FEM pair at nx=9): solve keywords, x0
+# columns
+API_GRID = {
+    "fem_plain": (dict(nev=4, block_size=2), 8),
+    "fem_amg": (dict(nev=4, block_size=2, multigrid=3), 8),
+}
+# pcg's case: the 1-D Laplacian at n=512 against the right-hand side
+# block(512, 1, 42)
+PCG_KW = dict(max_iter=200, rate=1e-12, tol=1e-10)
+
+
+def grid_operator(kind: str):
+    rows, cols, vals, _ = laplacian_1d(GRID_N)
+    return _port_operator(kind, rows, cols, vals, GRID_N)
+
+
+def _grid_solve(mesh, name):
+    """The GCG case ``name`` of :data:`GRID_CASES` on ``mesh`` (a grid or a
+    row mesh): eigenvalues, counts, the whole eigenvectors, the widths of
+    the sharded products and the shape of the rank's part of V."""
+    from gcge_tpu_torch import GCGParams, gcg_solve
+    from gcge_tpu_torch.ops.multivec import gather_cols
+    from gcge_tpu_torch.parallel import dist_ops, gather_rows, shard_operator
+
+    if name in SOLVES:
+        matrix, _, kw, k = SOLVES[name]
+        rows, cols, vals, n, _ = solve_problem(matrix)
+        op = _port_operator("dia", rows, cols, vals, n)
+    else:
+        kind, kw = GRID_SOLVES[name]
+        op, kw, n, k = grid_operator(kind), dict(GRID_GCG, **kw), GRID_N, \
+            GRID_X0
+    dist_ops.WIDTHS.clear()
+    res = gcg_solve(shard_operator(op, mesh), None,
+                    GCGParams(verbose=0, **kw), x0=x0_for(n, k), mesh=mesh)
+    whole = gather_rows(mesh, gather_cols(res.evec, mesh))
+    return {"eval": res.eval, "nev_conv": res.nev_conv,
+            "num_iter": res.num_iter, "evec": whole.numpy(),
+            "evec_local": tuple(res.evec.shape),
+            "widths": dict(dist_ops.WIDTHS),
+            "held": dist_ops.HELD["basis"], "evec_t": whole}
+
+
+def task_grid(mesh):
+    """The (2, 2) grid: each rank's coordinates and groups; the sharded DIA
+    and CSR products on the rank's columns, gathered whole; GCG on both
+    loops (:data:`GRID_CASES`); :data:`GRID_TALL_CASE` on a (4, 1) grid;
+    ``pcg(mesh=)`` on the row mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from gcge_tpu_torch.ops.multivec import gather_cols, own_cols
+    from gcge_tpu_torch.parallel import (gather_rows, grid_mesh,
+                                         shard_operator, shard_rows)
+    from gcge_tpu_torch.solvers.bpcg import pcg
+
+    grid = grid_mesh(2, 2, device="cpu")
+    tall = grid_mesh(4, 1, device="cpu")
+    out = {"coords": (grid.rank, grid.col, grid.n_rows, grid.n_cols),
+           "row_group": grid.peers,
+           "col_group": tuple(dist.get_process_group_ranks(grid.cols)),
+           "tall_coords": (tall.rank, tall.col, tall.peers)}
+    x = torch.as_tensor(block(GRID_N, GRID_M, 7))
+    for kind in ("dia", "csr"):
+        op = shard_operator(grid_operator(kind), grid)
+        xl = own_cols(shard_rows(grid, x), grid)
+        y = op.matvec(xl)
+        out[f"{kind}_local"] = tuple(y.shape)
+        out[kind] = gather_rows(grid, gather_cols(y, grid)).numpy()
+    for name in GRID_CASES:
+        out[name] = _grid_solve(grid, name)
+        out[name].pop("evec_t")
+    out["tall"] = _solve(tall, GRID_TALL_CASE)
+    a_op = grid_operator("dia")
+    b = torch.as_tensor(block(GRID_N, 1, 42))[:, 0]
+    op = shard_operator(a_op, mesh)
+    xr, info = pcg(op.matvec, shard_rows(mesh, b),
+                   torch.zeros(GRID_N // mesh.world, dtype=b.dtype),
+                   mesh=mesh, **PCG_KW)
+    out["pcg"] = gather_rows(mesh, xr).numpy()
+    out["pcg_iters"] = info.niters
+    return out
+
+
+def task_grid_pas(mesh):
+    """``pas_solve`` (the "plain" case of :data:`PAS_CASES`) on the
+    hierarchy sharded over a (2, 2) grid: eigenvalues, sweeps, count and the
+    rank's rows of the eigenvectors."""
+    from gcge_tpu_torch.parallel import grid_mesh, shard_hierarchy
+    from gcge_tpu_torch.solvers.multigrid import build_hierarchy
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    grid = grid_mesh(2, 2, device="cpu")
+    rows, cols, vals = lap_coo(MG_N)
+    hier = build_hierarchy(rows, cols, vals, MG_N, max_levels=MG_LEVELS,
+                           device="cpu")
+    res = pas_solve(shard_hierarchy(hier, grid), PAS_NEV, verbose=0,
+                    **PAS_CASES["plain"])
+    return {"eval": res.eval, "nev_conv": res.nev_conv, "sweeps": res.sweeps,
+            "evec": res.evec.numpy(), "coords": (grid.rank, grid.col)}
+
+
+def task_grid_api(mesh):
+    """``solve(distribute="grid")`` of the cube FEM pair at nx=9
+    (:data:`API_GRID`): on four ranks a (2, 2) grid."""
+    import gcge_tpu_torch
+
+    a, b = api_matrices("fem9")
+    out = {}
+    for name, (kw, k) in API_GRID.items():
+        ev, evec, conv = gcge_tpu_torch.solve(
+            a, b, device="cpu", distribute="grid", verbose=0,
+            x0=x0_for(a.shape[0], k), **kw)
+        out[name] = {"eval": ev, "nev_conv": conv, "evec": evec.numpy()}
+    return out
+
+
+def task_grid_two(mesh):
+    """Two ranks: ``solve(distribute="grid")`` is ``distribute=True`` there
+    (gcge_tpu falls back to the row mesh), bit for bit; ``pcg`` on a
+    one-rank subgroup of rank 0 is the undistributed ``pcg``, bit for
+    bit."""
+    import torch
+    import torch.distributed as dist
+
+    import gcge_tpu_torch
+    from gcge_tpu_torch.parallel import row_mesh
+    from gcge_tpu_torch.solvers.bpcg import pcg
+
+    a, b = api_matrices("fem9")
+    kw, k = API_GRID["fem_plain"]
+    runs = [gcge_tpu_torch.solve(a, b, device="cpu", distribute=how,
+                                 verbose=0, x0=x0_for(a.shape[0], k), **kw)
+            for how in ("grid", True)]
+    out = {"grid_is_rows": (np.array_equal(runs[0][0], runs[1][0])
+                            and torch.equal(runs[0][1], runs[1][1])
+                            and runs[0][2] == runs[1][2])}
+    sub = dist.new_group([0])     # every rank takes part in new_group
+    if mesh.rank == 0:
+        one = row_mesh(sub, device="cpu")
+        a_op = grid_operator("dia")
+        b_vec = torch.as_tensor(block(GRID_N, 1, 42))[:, 0]
+        x0 = torch.zeros(GRID_N, dtype=b_vec.dtype)
+        plain = pcg(a_op.matvec, b_vec, x0, **PCG_KW)
+        from gcge_tpu_torch.parallel import shard_operator
+
+        sharded = pcg(shard_operator(a_op, one).matvec, b_vec, x0, mesh=one,
+                      **PCG_KW)
+        out["pcg_one_rank"] = (torch.equal(plain[0], sharded[0])
+                               and plain[1].niters == sharded[1].niters)
+    return out
+
+
 TASKS = {
     "four": {"matvecs": task_matvecs, "solves": task_solves,
              "one_rank": task_one_rank, "mg_transfers": task_mg_transfers,
              "mg_gcg": task_mg_gcg, "pas": task_pas,
              "mg_one_rank": task_mg_one_rank,
-             "hybrid_mesh": task_hybrid_mesh},
+             "hybrid_mesh": task_hybrid_mesh, "grid": task_grid,
+             "grid_pas": task_grid_pas, "grid_api": task_grid_api},
     "two": {"api_solve": task_api_solve, "host_blocks": task_host_blocks,
-            "divisibility": task_divisibility, "mg_api": task_mg_api},
+            "divisibility": task_divisibility, "mg_api": task_mg_api,
+            "grid_two": task_grid_two},
 }
 
 
