@@ -50,8 +50,8 @@ Phases, each of which raises on failure:
    plain version and beside ``torch.sparse.mm``, as kernels 1 and 2 (kernel
    6 at the solve's operands first, then block 10 in both layouts and block
    40 transposed; kernel 5 at the f32 CG stage's own operand first); both
-   also on a matrix with rows longer than their tile budget, kernel 5 on the
-   Hybrid check's CSR remainder; the mask probe against its plain version
+   also on a matrix with rows of 3,000-20,000 entries (the split path, one
+   to ten blocks a row), kernel 5 on the Hybrid check's CSR remainder; the mask probe against its plain version
    bit for bit; kernels 3 and 4 again at this matrix's n;
 6. Hybrid check — a banded matrix plus a thin scatter of outliers (n=50,000)
    through ``make_operator``: DIA core and CSR remainder applied together in
@@ -98,8 +98,10 @@ Phases, each of which raises on failure:
     count, and holds its converged pairs to host residuals of 2e-8 (the
     solver's measure: ``||Ax - lambda Bx|| / |lambda|`` for B-orthonormal x,
     and ``X^T B X = I`` to 1e-10) and its 50 eigenvalues to 1e-9 of the plain
-    solve; then kernel 6 at the coarse levels' own operands (rows past its
-    tile budget), timed like the other rows.
+    solve; then kernel 6 at the coarse levels' own operands (rows of more
+    than 256 entries on the split path), timed like the other rows, and
+    each CSR level's middle third of rows as a CSR of its own, which must
+    give the same bits as the rows of the whole product.
 
 13. halo kernels — right after phase 2: kernels 1 and 2 on the halo windows
     of the headline operator cut into 4 row blocks of 39,366 rows (hl = hr
@@ -205,6 +207,8 @@ IRREGULAR_KWARGS = dict(nev=NEV, block_size=BS, max_iter=300, cg_max_iter=60,
 FEM_NX = 54                  # the cube FEM pair: n = (FEM_NX - 1)^3
 # solve's PAS defaults, for the composite run on a prebuilt hierarchy
 PAS_KWARGS = dict(sweeps_per_level=2, final_sweeps=16, bamg_cycles=8)
+# PAS's working block at NEV (nev + nev // 2): the width of its V-cycles
+PAS_WIDTH = NEV + NEV // 2
 
 
 def median_ms(torch, fn, reps: int = REPS, flush=None) -> float:
@@ -839,9 +843,8 @@ def phase_kernels_irregular(torch, log, a_rcm):
               "(10, n)", "(40, n)"], 1e-14, gen)
     csr_rows(torch, log, "csr_f32", op, op.values.float(), a_rcm,
              ["cg", "(n, 10)", "(10, n)", "(40, n)"], 1e-5, gen)
-    # kernels 6 and 5 at rows longer than their tile budget: 50,000 rows of
-    # 0 to 11 entries (every 997th empty) and three of 3,000, 5,000 and
-    # 20,000
+    # kernels 6 and 5 at rows of the split path: 50,000 rows of 0 to 11
+    # entries (every 997th empty) and three of 3,000, 5,000 and 20,000
     rng = np.random.default_rng(3)
     n2 = 50_000
     deg = rng.integers(0, 12, n2)
@@ -854,10 +857,16 @@ def phase_kernels_irregular(torch, log, a_rcm):
     coo2 = long_rows.tocoo()
     op2 = onehot.CsrOperator.from_coo(coo2.row, coo2.col, coo2.data,
                                       (n2, n2), device=dev)
-    tiles = op2.plan.tiles.cpu().numpy()
-    if not (np.diff(tiles) == 1).sum() >= 3:
-        raise AssertionError("the long rows do not have tiles of their own")
-    tag = f" long rows (max {deg.max()}, budget {onehot.CSR_BUDGET})"
+    plan = op2.plan
+    split = plan.split[:plan.nsplit].cpu().numpy()
+    tiled = plan.tiles.cpu().numpy()
+    if set(split[:, 0]) != {5, 777, 40_000} or \
+            plan.nmulti != int((deg > onehot.CSR_PART).sum()) or \
+            any(a <= r < b for a, b in tiled for r in (5, 777, 40_000)):
+        raise AssertionError("the long rows are not on the split path alone: "
+                             f"split blocks {split.tolist()}")
+    tag = (f" long rows (max {deg.max()}; {plan.nsplit} split blocks, "
+           f"{plan.nmulti} rows of several parts)")
     csr_rows(torch, log, "csr_f64", op2, op2.values, long_rows,
              ["V[:, 110:120]"], 1e-14, gen, tag)
     csr_rows(torch, log, "csr_f32", op2, op2.values.float(), long_rows,
@@ -1456,14 +1465,48 @@ def phase_pas(torch, a, b, ev_plain):
 def kernels_amg_levels(torch, log, hier):
     """Kernel 6 at the operands the V-cycle hands the CSR levels and the
     transfers (an ``(n, 10)`` block), against its plain version and beside
-    ``torch.sparse.mm``; rows past the tile budget run as serial chains."""
+    ``torch.sparse.mm``; rows of more than 256 entries run on the split
+    path.  Where a level has such rows (level 2 A and R, level 3 A), also
+    at PAS's working block (``(n, 75)``, m / LV > 16: the staged kernel of
+    the split path).  Then each level's A, at both widths: its middle third
+    of rows as a CSR of its own gives the same bits as the whole product's
+    rows."""
     from gcge_tpu_torch.ops import onehot
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     for i, lv in enumerate(hier.levels):
         for what, op in (("A", lv.a_op), ("P", lv.p_op), ("R", lv.r_op)):
             if isinstance(op, onehot.CsrOperator):
-                csr_operator_row(torch, log, op, f"AMG level {i} {what}", gen)
+                widths = [BS] + ([PAS_WIDTH] if op.plan.nsplit else [])
+                csr_operator_row(torch, log, op, f"AMG level {i} {what}",
+                                 gen, widths)
+                if what == "A":
+                    for m in widths:
+                        shard_bits(torch, op, f"AMG level {i} A", gen, m)
+
+
+def shard_bits(torch, op, what, gen, m):
+    """Rows [n/3, 2n/3) of the CSR operator ``op`` as a CSR of their own, on
+    the same ``(n, m)`` block: the same bits as those rows of the whole
+    product (a row's sum is split and ordered by its length alone)."""
+    from gcge_tpu_torch.ops import onehot
+
+    n = op.shape[0]
+    r0, r1 = n // 3, 2 * n // 3
+    lo, hi = (int(v) for v in op.rowptr[[r0, r1]].cpu())
+    rowptr = (op.rowptr[r0:r1 + 1] - lo).contiguous()
+    part = onehot.CsrOperator(rowptr, op.colidx[lo:hi].contiguous(),
+                              op.values[lo:hi].contiguous(), op.shape[1])
+    x = torch.randn((op.shape[1], m), generator=gen, dtype=torch.float64,
+                    device=DEVICE)
+    whole, shard = op.matvec(x), part.matvec(x)
+    equal = torch.equal(whole[r0:r1], shard)
+    print(f"{what} m={m}: rows [{r0}, {r1}) as a CSR of their own "
+          f"({part.plan.nsplit} split blocks): equal bits to the whole "
+          f"product's rows: {equal}")
+    if not equal:
+        raise AssertionError(f"{what} m={m}: the shard's bits differ from "
+                             "the whole product's")
 
 
 def kernels_fem_level0(torch, log, a):
@@ -1494,9 +1537,10 @@ def kernels_fem_level0(torch, log, a):
                   csr_tensor(torch, a.tocsr(), dtype), [case], tol, gen, tag)
 
 
-def csr_operator_row(torch, log, op, what, gen):
-    """Kernel 6 on the CSR operator ``op`` at an ``(n, 10)`` block (n its
-    columns), against its plain version and beside ``torch.sparse.mm``."""
+def csr_operator_row(torch, log, op, what, gen, widths=(BS,)):
+    """Kernel 6 on the CSR operator ``op`` at an ``(n, m)`` block of each
+    width of ``widths`` (n its columns), against its plain version and
+    beside ``torch.sparse.mm``."""
     import scipy.sparse as sps
 
     from gcge_tpu_torch.ops import onehot
@@ -1504,11 +1548,11 @@ def csr_operator_row(torch, log, op, what, gen):
     a_csr = sps.csr_matrix((op.values.cpu().numpy(), op.colidx.cpu().numpy(),
                             op.rowptr.cpu().numpy()), shape=op.shape)
     lengths = np.diff(a_csr.indptr)
-    past = int((lengths > onehot.CSR_BUDGET).sum())
-    csr_rows(torch, log, "csr_f64", op, op.values, a_csr, [f"(n, {BS})"],
-             1e-14, gen, f" {what} {op.shape} ({a_csr.nnz} entries, rows up "
-             f"to {lengths.max()}, {past} past the budget of "
-             f"{onehot.CSR_BUDGET})")
+    split = int((lengths > onehot.CSR_SPLIT).sum())
+    csr_rows(torch, log, "csr_f64", op, op.values, a_csr,
+             [f"(n, {m})" for m in widths], 1e-14, gen, f" {what} {op.shape} ({a_csr.nnz} entries, rows up "
+             f"to {lengths.max()}, {split} of more than {onehot.CSR_SPLIT} "
+             f"on the split path, {op.plan.nsplit} blocks)")
 
 
 def sync_check_amg(torch, a, hier):
@@ -1597,8 +1641,11 @@ def profile_solve(torch, label: str, run):
              lambda k: "tall_gram" in k or "tall_expand" in k),
             ("kernel 1", lambda k: "dia_spmm_f64_staged" in k),
             ("kernel 2", lambda k: "dia_spmm_f32_staged" in k),
-            ("kernel 5", lambda k: "csr_spmm_f32_tiled" in k),
-            ("kernel 6", lambda k: "csr_spmm_f64_tiled" in k),
+            # kernels 5 and 6 with the second launch of their split path
+            ("kernel 5", lambda k: "csr_spmm_f32" in k
+             or "csr_combine<float>" in k),
+            ("kernel 6", lambda k: "csr_spmm_f64" in k
+             or "csr_combine<double>" in k),
             # the f32 CG stage is the only f32 work of a solve
             ("PyTorch f32 elementwise and reductions (the CG stage's)",
              lambda k: ("elementwise" in k or "reduce_kernel" in k)

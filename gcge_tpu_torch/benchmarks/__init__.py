@@ -5,7 +5,9 @@ the repository's ``benchmarks/``: each has a ``main(argv)`` and runs as
 * :mod:`.df64_push` — the FMA probe (kernel 8), then the f64 DIA SpMM
   (kernel 1) at several block sizes;
 * :mod:`.pallas_isolate` — the four modes of the sliced-Gram isolation
-  kernel (kernel 9).
+  kernel (kernel 9);
+* :mod:`.csr_levels`, which has no counterpart there — kernel 6 at the CSR
+  operators of the cube FEM pair's AMG hierarchy, and the PAS walls.
 
 They print times; they are not a benchmark harness and define no workload.
 """

@@ -9,63 +9,97 @@
 // :_onehot_spmm_t_df64 (the same product to ~2^-40 relative from bf16 planes,
 // Dekker products and integer-slice scatters, because the TPU has no f64).
 // Hopper has a gather and native f64, so neither the pairs nor the planes are
-// carried over: both kernels work on plain CSR.  In both the sum runs in T,
-// in CSR order (entries sorted by column within a row), one fused
-// multiply-add a term, with no atomics: two launches on the same inputs give
-// the same bits.  x and y are logical (n_cols, m) and (n, m)
-// matrices given by 2-D strides, so both serve the row-major (n, m) layout of
-// CsrOperator.matvec and the transposed (m, n) layout of matvec_t, views
-// included, without a copy.
+// carried over: both kernels work on plain CSR, in T, with no atomics.  Two
+// launches on the same inputs give the same bits, and so does a row wherever
+// it sits: how its sum is split and ordered depends on its length, m and T
+// alone, never on the rows around it or on the layout of x and y, so a block
+// of rows gives the same bits in the whole matrix and as a rank's shard.  x
+// and y are logical (n_cols, m) and (n, m) matrices given by 2-D strides, so
+// both serve the row-major (n, m) layout of CsrOperator.matvec and the
+// transposed (m, n) layout of matvec_t, views included, without a copy.
 //
-// Kernel 5, csr_spmm_f32_tiled: the f32 product of the mixed inner CG, whose
+// Kernel 5, csr_spmm_f32: the f32 product of the mixed inner CG, whose
 //   operand is (m, n) in shape and (n, m) in memory: a row of the logical x,
-//   one m-float record, is contiguous.  Bound: 16 MB of values, 16 MB of
-//   colidx, 1 MB of rowptr and 10 MB each of x and y (15.8 us at 3.35 TB/s)
-//   for 80 MFLOP.
-//
-// Kernel 6, csr_spmm_f64_tiled: every f64 application of a CSR operator in a
+//   one m-float record, is contiguous.
+// Kernel 6, csr_spmm_f64: every f64 application of a CSR operator in a
 //   solve: the W coupling of each Rayleigh-Ritz step on the column view
 //   V[:, size_x + bs:] (rows 120 doubles apart), the residual window (an odd
 //   column offset: rows 8-byte aligned only), the initial Rayleigh-Ritz at
-//   m = 100 and the inner solve's f64 refresh.  At the irregular slice's
-//   shape (n = 250,047, nnz = 4,004,065, m = 10) one call must move 12 B per
-//   nonzero (48 MB), 1 MB of rowptr and 20 MB each of x and y (26.6 us at
-//   3.35 TB/s) for 80 MFLOP: bound by device memory.
+//   m = 100, the inner solve's f64 refresh, and the AMG V-cycle's products on
+//   the coarse levels and transfers (an (n, 10) block).
 //
-// Both kernels are one design (csr_spmm_tiled), in T = float and double:
-//   * Row tiles.  Block b owns rows [tiles[b], tiles[b+1]), a range of whole
-//     rows whose entries fit `budget` entries of shared memory (the plan,
-//     onehot.csr_tiles, computed once per matrix on the host; it depends on
-//     rowptr alone, so one plan serves both kernels: 1,024 entries are 8 KB
-//     in f32 and 12 KB in f64).  A row longer than the budget is a tile of
-//     its own, streamed in chunks of `budget`.
-//   * Staging.  The block copies its tile's colidx and values into shared
-//     memory with 16-byte cp.async copies from the 16-byte-aligned start of
-//     its range (a multiple of 4 entries: 16 bytes of colidx, 16 or 32 of
-//     values; one-element copies where an array does not start on 16 bytes),
-//     so each byte of the matrix crosses from device memory once, not once
-//     per output column.
-//   * Thread map.  Thread t takes the items t, t + kThreads, ... of the
-//     tile's (row, column group) pairs, VEC elements (16 bytes or one) a
-//     group: the lanes of one row gather its x records with VEC-element
-//     loads (a row of x is m contiguous elements: 40 bytes in f32, 80 in
-//     f64 at m = 10), and a warp holds several rows, each a chain of
-//     independent gathers; a thread issues kBatch gathers before it adds
-//     them, in order.  The column group runs fastest, unless y's rows are
-//     adjacent (a transposed layout): then the row does, so that
-//     neighbouring threads store neighbouring elements and gather from
-//     neighbouring rows' columns.  Any m works: the column groups of a row
-//     are items like any other.
-//   What holds kernel 6 at the solve's operand (found on the H100 by leaving
-//   parts out): the gathers of x; the tile's staging and the stores alone
-//   take well under half its time.  Within a tile of the Delaunay matrix
-//   only about a third of the gathered records are distinct, but staging
-//   each distinct record once in shared memory (a plan of local indices)
-//   measured no faster: L1 already serves the repeats.  Nor were 4 or 16
-//   gathers in flight, 512 threads, or other tile budgets.
+// What bounds both on this card: device memory.  A product reads each entry
+// once, 12 B in f64 (8 of values, 4 of colidx) and 8 B in f32, plus rowptr,
+// x and y once each, for 2 flops an entry and column: at the irregular
+// slice's shape (n = 250,047, nnz = 4,004,065, m = 10) 48 MB of entries, 1 MB
+// of rowptr and 20 MB each of x and y in f64 (26.6 us at 3.35 TB/s; f32
+// 15.8 us), at AMG level 2 (17,588 rows of 400-1,289 entries, 12.86 M
+// entries) 154 MB (47 us).  The gathered records of x (80 B an entry in f64
+// at m = 10) come from L2 and L1: x fits the 50 MB L2 at every solve operand.
+//
+// The plan (onehot.csr_plan, built once per matrix on the host) sorts each
+// row by its own length: rows of at most CSR_SPLIT (256) entries go to row
+// tiles, longer ones to the split list.  One launch runs both: blocks
+// [0, nsplit) the split list, longest rows first, the rest the tiles; both
+// write disjoint rows of y.
+//   * Tile path (the Delaunay matrix's ~16-entry rows, the AMG transfers and
+//     level 1).  Block b owns the whole rows [tiles[2b], tiles[2b+1]), whose
+//     entries, widened to 16-byte boundaries, fit `budget` entries (1,024:
+//     8 KB in f32, 12 KB in f64).  It copies them into shared memory with
+//     16-byte cp.async copies (one-element copies where an array does not
+//     start on 16 bytes), so each byte of the matrix crosses from device
+//     memory once, not once per output column.  Thread t then takes the
+//     items t, t + kThreads, ... of the tile's (row, column group) pairs,
+//     VEC elements (16 bytes or one) a group, and carries its item through
+//     the row in CSR order, one fused multiply-add a term, kBatch gathers in
+//     flight before it adds them.  The column group runs fastest, unless y's
+//     rows are adjacent (a transposed layout): then the row does.  What holds
+//     it at the solve's operand (found by leaving parts out): the gathers of
+//     x; staging each distinct record once in shared memory, 4 or 16 gathers
+//     in flight, 512 threads and other budgets measured no faster.
+//   * Split path (the AMG coarse levels' rows of 400-2,449 entries).  On the
+//     tile path a 1,024-entry tile held one or two such rows: m / VEC items
+//     (5 at m = 10 in f64) for a block of 256 threads, each a chain of up to
+//     1,289 dependent gathers, and a row past the budget was a tile of its
+//     own, restaged in 1,024-entry chunks with a barrier each: 20-30 times
+//     the bound, slower than torch.sparse.mm.  Now a row gets whole blocks:
+//     ceil(len / CSR_PART) parts of equal length (CSR_PART = 2,048), a block
+//     each.  A part's entries split into kWarps contiguous ranges, one a
+//     warp.  In a warp, G = min(m / LV, 32) lanes share an entry, lane g
+//     gathering columns [g LV, g LV + LV) of its record (LV = 2 in f64, 4 or
+//     2 in f32, 1 where m is odd: a function of m and T, loaded VEC at a
+//     time), and E = 32 / G entry slots run side by side, slot s taking the
+//     range's entries s, s + E, ... in order, kSplitBatch in flight.  colidx
+//     and values are read straight from device memory, coalesced across the
+//     slots, each entry once; only where a warp holds one slot (m / LV > 16:
+//     each lane then walks a long chain) does the launch pick the kernel
+//     that first stages the part in shared memory, as a tile is, which
+//     spares each batch a dependent round trip, and keeps kBatch gathers in
+//     flight (staged_split).  The slots' sums are added by a fixed shuffle
+//     tree, the warps' in warp order through shared memory, and a row of
+//     several parts has its parts' sums added in part order by a second
+//     launch (csr_combine) from a scratch buffer.  A larger m walks slabs
+//     of 32 column groups.  What holds it at
+//     AMG level 2: the 80-byte records of x that every entry gathers, 1 GB a
+//     call, mostly from L2 (about 5 TB/s of them at the measured 0.20 ms).
+//     At PAS's m = 75 (600-byte records, 7.7 GB of them a call at level 2)
+//     the same: the staged kernel beats the tile path at level 2 R and
+//     level 3 A and trails it by 10 % at level 2 A.  Tried there and slower:
+//     the warps taking the slabs of an entry side by side, one warp a slab
+//     over the whole part, and staging colidx alone.
+//   Registers are the two paths' price for sharing a kernel: alone the tile
+//   path needs 40 in f64 and 32 in f32, with the split path the kernel took
+//   more, and the fewer blocks an SM slowed the short rows.  The
+//   launch bounds hold the kernel to the tile path's counts (6 blocks of 256
+//   threads, 16 of 128 an SM); the split path keeps kSplitBatch = 4 gathers
+//   in flight to fit them (the staged kernel, one slot a warp, fits 8),
+//   which measured faster than 8 with more registers,
+//   than masking the last batch, and than separate kernels for the two paths
+//   (which cannot overlap: the split path's long rows then wait for the
+//   tiles).
 //
 // Plain C interface (built with nvcc, loaded with ctypes): each entry point
-// returns cudaGetLastError() after the launch.
+// returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,7 +110,15 @@ namespace {
 // 256 and 512 for each type on the H100)
 template <typename T>
 constexpr int kThreads = sizeof(T) == 8 ? 256 : 128;
+template <typename T>
+constexpr int kWarps = kThreads<T> / 32;
 constexpr int kBatch = 8;       // gathers a thread issues before it adds them
+constexpr int kSplitBatch = 4;  // the same on the split path
+// entries of a part of a long row (onehot.CSR_PART), and of its range
+// widened to 16-byte boundaries, which a block of the split path stages
+// where it walks wide records (see staged_split)
+constexpr int kPart = 2048;
+constexpr int kPartStage = kPart + 8;
 
 // most entries a block stages: colidx and values fit the 48 KB a block may
 // use without opting in to more
@@ -225,11 +267,13 @@ __device__ __forceinline__ void gather_row(Vec<T, VEC>& acc, const int* s_col,
   }
 }
 
-// The body of both kernels, on block blockIdx.x's row tile.
+// The tile path, on row tile `tile` (its first row and its end): staged
+// entries, one thread an item.  The plan keeps every tile's staged range
+// within the budget.
 template <typename T, int VEC>
-__device__ __forceinline__ void csr_spmm_tiled(
+__device__ __forceinline__ void csr_tile(
     const int* __restrict__ rowptr, const int* __restrict__ colidx,
-    const T* __restrict__ values, int64_t nnz, const int* __restrict__ tiles,
+    const T* __restrict__ values, int64_t nnz, const int* __restrict__ tile,
     int budget, int64_t m, const T* __restrict__ x, int64_t xs_i,
     int64_t xs_j, T* __restrict__ y, int64_t ys_i, int64_t ys_j, int copy16,
     int row_fast, int* smem) {
@@ -237,153 +281,390 @@ __device__ __forceinline__ void csr_spmm_tiled(
   // the values after the column indices, on 16 bytes (budget is a multiple
   // of 4)
   T* s_val = reinterpret_cast<T*>(smem + budget);
-  const int r0 = __ldg(tiles + blockIdx.x);
-  const int r1 = __ldg(tiles + blockIdx.x + 1);
+  const int r0 = __ldg(tile), r1 = __ldg(tile + 1);
   const int64_t p0 = __ldg(rowptr + r0), p1 = __ldg(rowptr + r1);
   const int64_t e0 = copy16 ? (p0 & ~(int64_t)3) : p0;
   const int64_t e1 = copy16 ? ((p1 + 3) & ~(int64_t)3) : p1;
+  if (e1 - e0 > budget) __trap();   // not a plan of onehot.csr_plan
+  stage<T>(s_col, s_val, colidx, values, e0, e1, nnz, copy16);
   const int groups = (int)(m / VEC);
-  if (e1 - e0 <= budget) {
-    stage<T>(s_col, s_val, colidx, values, e0, e1, nnz, copy16);
-    const int nrows = r1 - r0;
-    const int items = nrows * groups;
-    for (int it = threadIdx.x; it < items; it += kThreads<T>) {
-      int a, g;
-      if (row_fast) {
-        g = it / nrows;
-        a = it - g * nrows;
-      } else {
-        a = it / groups;
-        g = it - a * groups;
-      }
-      const int64_t r = r0 + a;
-      Vec<T, VEC> acc;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc.v[e] = T(0);
-      gather_row<T, VEC>(acc, s_col, s_val, (int)(__ldg(rowptr + r) - e0),
-                         (int)(__ldg(rowptr + r + 1) - e0),
-                         x + (int64_t)g * VEC * xs_j, xs_i);
-      store_y<T, VEC>(y + r * ys_i + (int64_t)g * VEC * ys_j, acc);
+  const int nrows = r1 - r0;
+  const int items = nrows * groups;
+  for (int it = threadIdx.x; it < items; it += kThreads<T>) {
+    int a, g;
+    if (row_fast) {
+      g = it / nrows;
+      a = it - g * nrows;
+    } else {
+      a = it / groups;
+      g = it - a * groups;
     }
-    return;
-  }
-  // a tile of one row longer than the budget: its entries stream through
-  // shared memory in chunks of `budget`, the sums carried across chunks
-  for (int g0 = 0; g0 < groups; g0 += kThreads<T>) {
-    const int g = g0 + threadIdx.x;
+    const int64_t r = r0 + a;
     Vec<T, VEC> acc;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc.v[e] = T(0);
-    for (int64_t c = e0; c < e1; c += budget) {
-      const int64_t c1 = c + budget < e1 ? c + budget : e1;
-      __syncthreads();     // every thread is done with the last chunk
-      stage<T>(s_col, s_val, colidx, values, c, c1, nnz, copy16);
-      if (g < groups)
-        gather_row<T, VEC>(acc, s_col, s_val, (int)((p0 > c ? p0 : c) - c),
-                           (int)((p1 < c1 ? p1 : c1) - c),
-                           x + (int64_t)g * VEC * xs_j, xs_i);
-    }
-    if (g < groups)
-      store_y<T, VEC>(y + r0 * ys_i + (int64_t)g * VEC * ys_j, acc);
+    gather_row<T, VEC>(acc, s_col, s_val, (int)(__ldg(rowptr + r) - e0),
+                       (int)(__ldg(rowptr + r + 1) - e0),
+                       x + (int64_t)g * VEC * xs_j, xs_i);
+    store_y<T, VEC>(y + r * ys_i + (int64_t)g * VEC * ys_j, acc);
   }
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads<float>)
-    csr_spmm_f32_tiled(const int* __restrict__ rowptr,
-                       const int* __restrict__ colidx,
-                       const float* __restrict__ values, int64_t nnz,
-                       const int* __restrict__ tiles, int budget, int64_t m,
-                       const float* __restrict__ x, int64_t xs_i,
-                       int64_t xs_j, float* __restrict__ y, int64_t ys_i,
-                       int64_t ys_j, int copy16, int row_fast) {
-  extern __shared__ __align__(16) int smem_f[];
-  csr_spmm_tiled<float, VEC>(rowptr, colidx, values, nnz, tiles, budget, m, x,
-                             xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast,
-                             smem_f);
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads<double>)
-    csr_spmm_f64_tiled(const int* __restrict__ rowptr,
-                       const int* __restrict__ colidx,
-                       const double* __restrict__ values, int64_t nnz,
-                       const int* __restrict__ tiles, int budget, int64_t m,
-                       const double* __restrict__ x, int64_t xs_i,
-                       int64_t xs_j, double* __restrict__ y, int64_t ys_i,
-                       int64_t ys_j, int copy16, int row_fast) {
-  extern __shared__ __align__(16) int smem_d[];
-  csr_spmm_tiled<double, VEC>(rowptr, colidx, values, nnz, tiles, budget, m,
-                              x, xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast,
-                              smem_d);
+// LV elements of x at p, xs_j apart, VEC at a time (xs_j is 1 where VEC > 1)
+template <typename T, int VEC, int LV>
+__device__ __forceinline__ void load_lv(T (&r)[LV], const T* p,
+                                        int64_t xs_j) {
+#pragma unroll
+  for (int i = 0; i < LV; i += VEC) {
+    const Vec<T, VEC> t = load_x<T, VEC>(p + i * xs_j);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) r[i + e] = t.v[e];
+  }
 }
 
-template <typename T, int VEC>
-int launch_tiled(const int* rowptr, const int* colidx, const T* values,
-                 int64_t nnz, const int* tiles, int64_t ntiles, int budget,
-                 int64_t m, const T* x, int64_t xs_i, int64_t xs_j, T* y,
-                 int64_t ys_i, int64_t ys_j, int copy16, int row_fast,
-                 cudaStream_t stream) {
-  const size_t smem = (size_t)budget * (sizeof(int) + sizeof(T));
-  if constexpr (sizeof(T) == 8)
-    csr_spmm_f64_tiled<VEC><<<(unsigned)ntiles, kThreads<T>, smem, stream>>>(
-        rowptr, colidx, values, nnz, tiles, budget, m, x, xs_i, xs_j, y, ys_i,
-        ys_j, copy16, row_fast);
+// acc += the entries e0, e0 + step, ... below e1 times their x records, in
+// that order, kSplitBatch gathers in flight (kStaged: kBatch).  cols and vals: colidx and
+// values in device memory, or (kStaged) the part's entries in shared memory,
+// e0 and e1 then counted from its first staged entry.  xg points at the
+// lane's first column of x.
+template <typename T, int VEC, int LV, bool kStaged>
+__device__ __forceinline__ void gather_strided(
+    T (&acc)[LV], const int* __restrict__ cols, const T* __restrict__ vals,
+    int64_t e0, int64_t e1, int step, const T* xg, int64_t xs_i,
+    int64_t xs_j) {
+  const auto col = [&](int64_t e) {
+    return kStaged ? cols[e] : __ldg(cols + e);
+  };
+  const auto val = [&](int64_t e) {
+    return kStaged ? vals[e] : __ldg(vals + e);
+  };
+  constexpr int kB = kStaged ? kBatch : kSplitBatch;
+  int64_t e = e0;
+  for (; e + (int64_t)(kB - 1) * step < e1;
+       e += (int64_t)kB * step) {
+    int c[kB];
+    T v[kB];
+    T xv[kB][LV];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      c[b] = col(e + b * step);
+      v[b] = val(e + b * step);
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+      load_lv<T, VEC, LV>(xv[b], xg + (int64_t)c[b] * xs_i, xs_j);
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+#pragma unroll
+      for (int i = 0; i < LV; ++i) acc[i] = fma_t(v[b], xv[b][i], acc[i]);
+  }
+  for (; e < e1; e += step) {
+    T xv[LV];
+    load_lv<T, VEC, LV>(xv, xg + (int64_t)col(e) * xs_i, xs_j);
+    const T v = val(e);
+#pragma unroll
+    for (int i = 0; i < LV; ++i) acc[i] = fma_t(v, xv[i], acc[i]);
+  }
+}
+
+// Whether the split path stages a part's entries in shared memory first
+// (the launch picks the kernel compiled for it: one kernel holding both
+// gathers measured slower in both, under its register bound): where a
+// warp's first slab holds one entry slot (m / LV > 16 column groups), each
+// lane walks a long chain of the warp's entries, and reading their colidx
+// from shared memory spares a round trip to device memory a batch (faster
+// at m = 75, PAS's width, on the H100); with several slots a warp the
+// chains are short, and the staging (a round trip, a barrier, and shared
+// memory taken from L1) measured slower at m = 10.  Either way the sums run
+// in the same order.
+__host__ __device__ constexpr bool staged_split(int64_t groups) {
+  return groups > 16;
+}
+
+// The split path: part d.y of the d.z parts of row d.x on the whole block.
+// d.w < 0: the only part, stored to y; else the part's sums go to row d.w of
+// scratch ((slots, m), contiguous) for csr_combine.  s_sum: two buffers of
+// kWarps * 32 * LV elements in shared memory, used by turns, so that one
+// barrier a slab of column groups suffices.
+template <typename T, int VEC, int LV, bool kStaged>
+__device__ __forceinline__ void csr_split_part(
+    const int* __restrict__ rowptr, const int* __restrict__ colidx,
+    const T* __restrict__ values, int64_t nnz, int4 d, int64_t m,
+    const T* __restrict__ x, int64_t xs_i, int64_t xs_j, T* __restrict__ y,
+    int64_t ys_i, int64_t ys_j, T* __restrict__ scratch, int copy16,
+    int* smem) {
+  const int64_t p0 = __ldg(rowptr + d.x);
+  const int64_t len = __ldg(rowptr + d.x + 1) - p0;
+  const int64_t per_part = (len + d.z - 1) / d.z;
+  const int64_t a = p0 + d.y * per_part;
+  const int64_t b = p0 + min64(len, (d.y + 1) * per_part);
+  // where it stages: the entries [e0, e1) in shared memory, then the sums
+  const int64_t e0 = copy16 ? (a & ~(int64_t)3) : a;
+  const int64_t e1 = copy16 ? ((b + 3) & ~(int64_t)3) : b;
+  int* s_col = smem;
+  T* s_val = reinterpret_cast<T*>(smem + kPartStage);
+  T* s_sum = kStaged ? s_val + kPartStage : reinterpret_cast<T*>(smem);
+  if constexpr (kStaged) {
+    if (e1 - e0 > kPartStage) __trap();   // not a plan of onehot.csr_plan
+    stage<T>(s_col, s_val, colidx, values, e0, e1, nnz, copy16);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t per_warp = (b - a + kWarps<T> - 1) / kWarps<T>;
+  const int64_t wa = a + warp * per_warp;
+  const int64_t wb = min64(b, wa + per_warp);
+  const int groups = (int)(m / LV);
+  for (int g0 = 0, slab = 0; g0 < groups; g0 += 32, ++slab) {
+    const int G = min(32, groups - g0);
+    const int E = 32 / G;
+    const int s = lane / G, g = lane - s * G;   // entry slot, column group
+    T acc[LV];
+#pragma unroll
+    for (int i = 0; i < LV; ++i) acc[i] = T(0);
+    const T* xg = x + (int64_t)(g0 + g) * LV * xs_j;
+    if (s < E) {
+      if constexpr (kStaged)
+        gather_strided<T, VEC, LV, true>(acc, s_col, s_val, wa + s - e0,
+                                         wb - e0, E, xg, xs_i, xs_j);
+      else
+        gather_strided<T, VEC, LV, false>(acc, colidx, values, wa + s, wb,
+                                          E, xg, xs_i, xs_j);
+    }
+    // slot s += slot s + h, for h = 1, 2, 4, ...: slot 0 ends with the sum
+    for (int h = 1; h < E; h *= 2) {
+#pragma unroll
+      for (int i = 0; i < LV; ++i) {
+        const T other = __shfl_down_sync(0xffffffffu, acc[i], h * G);
+        if ((s & (2 * h - 1)) == 0 && s + h < E) acc[i] += other;
+      }
+    }
+    T* buf = s_sum + (slab & 1) * (kWarps<T> * 32 * LV);
+    if (lane < G) {
+#pragma unroll
+      for (int i = 0; i < LV; ++i) buf[(warp * 32 + lane) * LV + i] = acc[i];
+    }
+    __syncthreads();
+    if (warp == 0 && lane < G) {
+      T sum[LV];
+#pragma unroll
+      for (int i = 0; i < LV; ++i) sum[i] = buf[lane * LV + i];
+      for (int w = 1; w < kWarps<T>; ++w)
+#pragma unroll
+        for (int i = 0; i < LV; ++i) sum[i] += buf[(w * 32 + lane) * LV + i];
+      const int64_t j = (int64_t)(g0 + lane) * LV;
+      if (d.w < 0) {
+        T* out = y + (int64_t)d.x * ys_i + j * ys_j;
+#pragma unroll
+        for (int i = 0; i < LV; i += VEC) {
+          Vec<T, VEC> t;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) t.v[e] = sum[i + e];
+          store_y<T, VEC>(out + i * ys_j, t);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < LV; ++i) scratch[d.w * m + j + i] = sum[i];
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, int LV, bool kStaged>
+__device__ __forceinline__ void csr_spmm_body(
+    const int* __restrict__ rowptr, const int* __restrict__ colidx,
+    const T* __restrict__ values, int64_t nnz, const int* __restrict__ tiles,
+    int budget, const int4* __restrict__ split, int nsplit,
+    T* __restrict__ scratch, int64_t m, const T* __restrict__ x,
+    int64_t xs_i, int64_t xs_j, T* __restrict__ y, int64_t ys_i,
+    int64_t ys_j, int copy16, int row_fast, int* smem) {
+  if ((int)blockIdx.x < nsplit)
+    csr_split_part<T, VEC, LV, kStaged>(rowptr, colidx, values, nnz,
+                               split[blockIdx.x], m, x, xs_i, xs_j, y, ys_i,
+                               ys_j, scratch, copy16, smem);
   else
-    csr_spmm_f32_tiled<VEC><<<(unsigned)ntiles, kThreads<T>, smem, stream>>>(
-        rowptr, colidx, values, nnz, tiles, budget, m, x, xs_i, xs_j, y, ys_i,
-        ys_j, copy16, row_fast);
+    csr_tile<T, VEC>(rowptr, colidx, values, nnz,
+                     tiles + 2 * ((int)blockIdx.x - nsplit), budget, m, x,
+                     xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast, smem);
+}
+
+// the launch bounds hold both kernels to the tile path's registers (see the
+// note at the top)
+template <int VEC, int LV, bool kStaged>
+__global__ void __launch_bounds__(kThreads<float>, 16)
+    csr_spmm_f32(const int* __restrict__ rowptr,
+                 const int* __restrict__ colidx,
+                 const float* __restrict__ values, int64_t nnz,
+                 const int* __restrict__ tiles, int budget,
+                 const int4* __restrict__ split, int nsplit,
+                 float* __restrict__ scratch, int64_t m,
+                 const float* __restrict__ x, int64_t xs_i, int64_t xs_j,
+                 float* __restrict__ y, int64_t ys_i, int64_t ys_j,
+                 int copy16, int row_fast) {
+  extern __shared__ __align__(16) int smem_f[];
+  csr_spmm_body<float, VEC, LV, kStaged>(
+      rowptr, colidx, values, nnz, tiles, budget, split, nsplit, scratch, m,
+      x, xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast, smem_f);
+}
+
+template <int VEC, int LV, bool kStaged>
+__global__ void __launch_bounds__(kThreads<double>, 6)
+    csr_spmm_f64(const int* __restrict__ rowptr,
+                 const int* __restrict__ colidx,
+                 const double* __restrict__ values, int64_t nnz,
+                 const int* __restrict__ tiles, int budget,
+                 const int4* __restrict__ split, int nsplit,
+                 double* __restrict__ scratch, int64_t m,
+                 const double* __restrict__ x, int64_t xs_i, int64_t xs_j,
+                 double* __restrict__ y, int64_t ys_i, int64_t ys_j,
+                 int copy16, int row_fast) {
+  extern __shared__ __align__(16) int smem_d[];
+  csr_spmm_body<double, VEC, LV, kStaged>(
+      rowptr, colidx, values, nnz, tiles, budget, split, nsplit, scratch, m,
+      x, xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast, smem_d);
+}
+
+// y[row] = the sum of its parts' rows of scratch, in part order; multi:
+// (row, first slot, parts, 0) for each row of more than one part
+template <typename T>
+__global__ void csr_combine(const int4* __restrict__ multi, int64_t nmulti,
+                            int64_t m, const T* __restrict__ scratch,
+                            T* __restrict__ y, int64_t ys_i, int64_t ys_j) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nmulti * m) return;
+  const int64_t k = t / m, j = t - k * m;
+  const int4 d = multi[k];
+  const T* p = scratch + (int64_t)d.y * m + j;
+  T sum = p[0];
+  for (int q = 1; q < d.z; ++q) sum += p[(int64_t)q * m];
+  y[(int64_t)d.x * ys_i + j * ys_j] = sum;
+}
+
+// shared memory of a block: the tile path's staged entries, or the split
+// path's two buffers of warp sums, after its staged entries where it stages
+template <typename T, int LV>
+size_t smem_bytes(int64_t budget, int64_t nsplit, int64_t m) {
+  const size_t tile = (size_t)budget * (sizeof(int) + sizeof(T));
+  const size_t sums = 2 * kWarps<T> * 32 * LV * sizeof(T);
+  const size_t part =
+      nsplit == 0               ? 0
+      : staged_split(m / LV) ? kPartStage * (sizeof(int) + sizeof(T)) + sums
+                               : sums;
+  return tile > part ? tile : part;
+}
+
+template <typename T, int VEC, int LV, bool kStaged>
+int launch_spmm(const int* rowptr, const int* colidx, const T* values,
+                int64_t nnz, const int* tiles, int64_t ntiles, int budget,
+                const int4* split, int64_t nsplit, T* scratch, int64_t m,
+                const T* x, int64_t xs_i, int64_t xs_j, T* y, int64_t ys_i,
+                int64_t ys_j, int copy16, int row_fast, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, LV>(budget, nsplit, m);
+  const unsigned blocks = (unsigned)(nsplit + ntiles);
+  if constexpr (sizeof(T) == 8)
+    csr_spmm_f64<VEC, LV, kStaged><<<blocks, kThreads<T>, smem, stream>>>(
+        rowptr, colidx, values, nnz, tiles, budget, split, (int)nsplit,
+        scratch, m, x, xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast);
+  else
+    csr_spmm_f32<VEC, LV, kStaged><<<blocks, kThreads<T>, smem, stream>>>(
+        rowptr, colidx, values, nnz, tiles, budget, split, (int)nsplit,
+        scratch, m, x, xs_i, xs_j, y, ys_i, ys_j, copy16, row_fast);
   return (int)cudaGetLastError();
 }
 
-// a plan the kernels cannot take: a budget that is not a positive multiple
-// of 4 up to kMaxBudget, vec not one of T's widths or not dividing m
+template <typename T, int VEC, int LV>
+int launch(const int* rowptr, const int* colidx, const T* values, int64_t nnz,
+           const int* tiles, int64_t ntiles, int budget, const int4* split,
+           int64_t nsplit, int64_t nmulti, T* scratch, int64_t m, const T* x,
+           int64_t xs_i, int64_t xs_j, T* y, int64_t ys_i, int64_t ys_j,
+           int copy16, int row_fast, cudaStream_t stream) {
+  if (nsplit + ntiles > 0) {
+    const auto fn = staged_split(m / LV) ? launch_spmm<T, VEC, LV, true>
+                                         : launch_spmm<T, VEC, LV, false>;
+    const int err = fn(rowptr, colidx, values, nnz, tiles, ntiles, budget,
+                       split, nsplit, scratch, m, x, xs_i, xs_j, y, ys_i,
+                       ys_j, copy16, row_fast, stream);
+    if (err != 0) return err;
+  }
+  if (nmulti > 0) {
+    const int64_t items = nmulti * m;
+    csr_combine<T><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
+        split + nsplit, nmulti, m, scratch, y, ys_i, ys_j);
+  }
+  return (int)cudaGetLastError();
+}
+
+// columns a lane of the split path gathers: a function of m and T alone
 template <typename T>
-bool bad_plan(int64_t budget, int64_t m, int64_t vec) {
+int64_t lane_width(int64_t m) {
+  if (sizeof(T) == 4 && m % 4 == 0) return 4;
+  return m % 2 == 0 ? 2 : 1;
+}
+
+// a plan the kernels cannot take: a budget that is not a positive multiple
+// of 4 up to kMaxBudget, vec not one of T's widths or not dividing m, a
+// negative count, scratch missing for rows of several parts, a grid past
+// the int range
+template <typename T>
+bool bad_plan(int64_t ntiles, int64_t budget, int64_t nsplit, int64_t nmulti,
+              const void* scratch, int64_t m, int64_t vec) {
   const bool vec_ok = vec == 1 || vec == 2 || (sizeof(T) == 4 && vec == 4);
   return budget <= 0 || budget % 4 != 0 || budget > kMaxBudget<T> ||
-         !vec_ok || m % vec != 0;
+         !vec_ok || m % vec != 0 || ntiles < 0 || nsplit < 0 || nmulti < 0 ||
+         (nmulti > 0 && scratch == nullptr) ||
+         ntiles + nsplit > (int64_t)0x7fffffff;
 }
 
 }  // namespace
 
-// Kernels 5 (f32) and 6 (f64).  tiles: ntiles + 1 first rows
-// (onehot.csr_tiles); budget: entries of colidx and values a block stages,
-// a multiple of 4 up to kMaxBudget; vec: elements a thread gathers and
-// stores at once (f32: 4, 2 or 1; f64: 2 or 1; dividing m); copy16: colidx
-// and values start on 16 bytes; row_fast: the items' rows run fastest (y's
-// rows adjacent).  The launch plan is onehot.csr_plan's and the wrapper's.
-extern "C" int gcge_csr_spmm_f32(const void* rowptr, const void* colidx,
-                                 const void* values, int64_t nnz,
-                                 const void* tiles, int64_t ntiles,
-                                 int64_t budget, int64_t m, const void* x,
-                                 int64_t xs_i, int64_t xs_j, void* y,
-                                 int64_t ys_i, int64_t ys_j, int64_t vec,
-                                 int64_t copy16, int64_t row_fast,
-                                 void* stream) {
-  if (bad_plan<float>(budget, m, vec)) return (int)cudaErrorInvalidValue;
-  const auto fn = vec == 4   ? launch_tiled<float, 4>
-                  : vec == 2 ? launch_tiled<float, 2>
-                             : launch_tiled<float, 1>;
+// Kernels 5 (f32) and 6 (f64).  tiles: ntiles (first row, end) pairs of row
+// tiles (onehot.csr_plan); budget: entries of colidx and values a tile
+// stages, a multiple of 4 up to kMaxBudget; split: nsplit (row, part, parts,
+// scratch slot or -1) blocks of the split path, then nmulti (row, first
+// slot, parts, 0) rows of several parts; scratch: (slots, m) of T for those
+// rows' partial sums (may be null where nmulti is 0); vec: elements a thread
+// gathers and stores at once (f32: 4, 2 or 1; f64: 2 or 1; dividing m);
+// copy16: colidx and values start on 16 bytes; row_fast: the tile path's
+// rows run fastest (y's rows adjacent).  The launch plan is
+// onehot.csr_plan's and the wrapper's.
+extern "C" int gcge_csr_spmm_f32(
+    const void* rowptr, const void* colidx, const void* values, int64_t nnz,
+    const void* tiles, int64_t ntiles, int64_t budget, const void* split,
+    int64_t nsplit, int64_t nmulti, void* scratch, int64_t m, const void* x,
+    int64_t xs_i, int64_t xs_j, void* y, int64_t ys_i, int64_t ys_j,
+    int64_t vec, int64_t copy16, int64_t row_fast, void* stream) {
+  if (bad_plan<float>(ntiles, budget, nsplit, nmulti, scratch, m, vec))
+    return (int)cudaErrorInvalidValue;
+  const int64_t lv = lane_width<float>(m);
+  const auto fn = vec == 4   ? launch<float, 4, 4>
+                  : vec == 2 ? (lv == 4 ? launch<float, 2, 4>
+                                        : launch<float, 2, 2>)
+                  : lv == 4  ? launch<float, 1, 4>
+                  : lv == 2  ? launch<float, 1, 2>
+                             : launch<float, 1, 1>;
   return fn((const int*)rowptr, (const int*)colidx, (const float*)values,
-            nnz, (const int*)tiles, ntiles, (int)budget, m, (const float*)x,
-            xs_i, xs_j, (float*)y, ys_i, ys_j, (int)copy16, (int)row_fast,
+            nnz, (const int*)tiles, ntiles, (int)budget, (const int4*)split,
+            nsplit, nmulti, (float*)scratch, m, (const float*)x, xs_i, xs_j,
+            (float*)y, ys_i, ys_j, (int)copy16, (int)row_fast,
             (cudaStream_t)stream);
 }
 
-extern "C" int gcge_csr_spmm_f64(const void* rowptr, const void* colidx,
-                                 const void* values, int64_t nnz,
-                                 const void* tiles, int64_t ntiles,
-                                 int64_t budget, int64_t m, const void* x,
-                                 int64_t xs_i, int64_t xs_j, void* y,
-                                 int64_t ys_i, int64_t ys_j, int64_t vec,
-                                 int64_t copy16, int64_t row_fast,
-                                 void* stream) {
-  if (bad_plan<double>(budget, m, vec)) return (int)cudaErrorInvalidValue;
-  const auto fn = vec == 2 ? launch_tiled<double, 2>
-                           : launch_tiled<double, 1>;
+extern "C" int gcge_csr_spmm_f64(
+    const void* rowptr, const void* colidx, const void* values, int64_t nnz,
+    const void* tiles, int64_t ntiles, int64_t budget, const void* split,
+    int64_t nsplit, int64_t nmulti, void* scratch, int64_t m, const void* x,
+    int64_t xs_i, int64_t xs_j, void* y, int64_t ys_i, int64_t ys_j,
+    int64_t vec, int64_t copy16, int64_t row_fast, void* stream) {
+  if (bad_plan<double>(ntiles, budget, nsplit, nmulti, scratch, m, vec))
+    return (int)cudaErrorInvalidValue;
+  const auto fn = vec == 2                     ? launch<double, 2, 2>
+                  : lane_width<double>(m) == 2 ? launch<double, 1, 2>
+                                               : launch<double, 1, 1>;
   return fn((const int*)rowptr, (const int*)colidx, (const double*)values,
-            nnz, (const int*)tiles, ntiles, (int)budget, m, (const double*)x,
-            xs_i, xs_j, (double*)y, ys_i, ys_j, (int)copy16, (int)row_fast,
+            nnz, (const int*)tiles, ntiles, (int)budget, (const int4*)split,
+            nsplit, nmulti, (double*)scratch, m, (const double*)x, xs_i,
+            xs_j, (double*)y, ys_i, ys_j, (int)copy16, (int)row_fast,
             (cudaStream_t)stream);
 }

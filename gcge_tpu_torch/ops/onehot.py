@@ -11,9 +11,11 @@ on the host and sorted by (row, column).
   ``(n, m)`` or ``(m, n)`` (``transposed=True``), and returns it in the
   memory order of ``x``.  On a CUDA tensor it launches kernel 5 (f32) or
   kernel 6 (f64) of ``csrc/csr_spmm.cu``; on a CPU tensor it runs
-  :func:`csr_spmm_reference`, the plain PyTorch version.  Both kernels work
-  in row tiles planned once per matrix on the host (:func:`csr_tiles`,
-  :func:`csr_plan`): the plan depends on ``rowptr`` alone and serves both.
+  :func:`csr_spmm_reference`, the plain PyTorch version.  Both kernels run
+  on a plan made once per matrix on the host (:func:`csr_plan`): rows of at
+  most ``CSR_SPLIT`` entries in row tiles (:func:`csr_tiles`), longer rows
+  on whole blocks (:func:`csr_split`).  It depends on ``rowptr`` alone and
+  serves both.
 * :class:`CsrOperator` is the operator on top of it.
 * :func:`onehot_mask_probe` / :func:`bf16_mask_supported` are the counterpart
   of the TPU's one-hot mask probe (kernel 7, ``csrc/mask_probe.cu``).
@@ -49,6 +51,11 @@ MASK_SHAPE = (8, 128)
 CSR_BUDGET = 1024
 CSR_MAX_ROWS = 64
 _ALIGN = 4             # entries of a 16-byte copy
+# the split path: rows of more entries than CSR_SPLIT run on whole blocks,
+# in parts of at most CSR_PART entries (kPart of csrc/csr_spmm.cu, which
+# sizes the shared memory that stages a part), a block each
+CSR_SPLIT = 256
+CSR_PART = 2048
 
 
 def pack_csr(rows, cols, vals, shape):
@@ -81,44 +88,101 @@ def _row_ids(rowptr: torch.Tensor, nnz: int) -> torch.Tensor:
 
 def csr_tiles(rowptr: np.ndarray, budget: int = CSR_BUDGET,
               max_rows: int = CSR_MAX_ROWS) -> np.ndarray:
-    """The row tiles of kernels 5 and 6 for CSR ``rowptr`` (n+1,): the first
-    row of each tile, then n, as int32.  A tile is a range of at most ``max_rows`` whole
-    rows whose entries, widened to 16-byte boundaries (``[rowptr[r0] // 4 *
-    4, ceil4(rowptr[r1]))``), fit ``budget`` entries; a row whose entries do
-    not is a tile of its own, which the kernel streams in chunks.  Greedy
-    from the first row, so every row lies in exactly one tile."""
+    """The row tiles of kernels 5 and 6 for CSR ``rowptr`` (n+1,), as
+    ``(first row, end)`` pairs, int32 ``(ntiles, 2)``.  A tile is a range of
+    at most ``max_rows`` whole rows whose entries, widened to 16-byte
+    boundaries (``[rowptr[r0] // 4 * 4, ceil4(rowptr[r1]))``), fit
+    ``budget`` entries.  Tiles hold only the rows of at most ``CSR_SPLIT``
+    entries (and of no more than fit the budget alone): the longer rows are
+    left out, for the split path (:func:`csr_split`).  Greedy from the first
+    row, a tile ending before each row left out, so every other row lies in
+    exactly one tile."""
     if budget <= 0 or budget % _ALIGN or max_rows <= 0:
         raise ValueError(f"csr_tiles: budget {budget} (a positive multiple "
                          f"of {_ALIGN}) and max_rows {max_rows} > 0 expected")
     rowptr = np.asarray(rowptr, dtype=np.int64)
     n = len(rowptr) - 1
-    starts = [0]
-    r0 = 0
+    # a row of budget - 3 entries still fits the budget, widened
+    left_out = np.flatnonzero(np.diff(rowptr) >
+                              min(CSR_SPLIT, budget - (_ALIGN - 1)))
+    pairs = []
+    r0 = k = 0
     while r0 < n:
+        if k < len(left_out) and left_out[k] == r0:
+            r0, k = r0 + 1, k + 1
+            continue
+        stop = int(left_out[k]) if k < len(left_out) else n
         limit = rowptr[r0] // _ALIGN * _ALIGN + budget
         # the last row boundary within the budget (a multiple of 4, so that
         # rowptr[r1] <= limit also bounds its 16-byte ceiling)
         r1 = int(np.searchsorted(rowptr, limit, side="right")) - 1
-        r1 = max(r0 + 1, min(r1, r0 + max_rows, n))
-        starts.append(r1)
+        r1 = max(r0 + 1, min(r1, r0 + max_rows, stop))
+        pairs.append((r0, r1))
         r0 = r1
-    return np.asarray(starts, dtype=np.int32)
+    return np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+
+
+def csr_split(rowptr: np.ndarray, split: int = CSR_SPLIT,
+              part: int = CSR_PART) -> tuple[np.ndarray, np.ndarray]:
+    """The split path of kernels 5 and 6 for CSR ``rowptr`` (n+1,): every
+    row of more than ``split`` entries, cut into ``ceil(len / part)`` parts
+    of equal length, each part a block.  Returns ``(blocks, multi)``, int32:
+    ``blocks`` (nsplit, 4), one ``(row, part, parts, slot)`` a block, rows of
+    more parts first, then in row order, a row's parts together and in
+    order, ``slot`` the row of the kernel's scratch that takes the part's
+    sums where the row has more than one part (numbered from 0 in that
+    order), else -1; ``multi`` (nmulti, 4), one ``(row, first slot, parts,
+    0)`` for each row of more than one part, whose parts' sums the kernel
+    adds in part order.  A row's entry depends on its length alone."""
+    if split < 0 or part <= 0:
+        raise ValueError(f"csr_split: split {split} >= 0 and part {part} > 0 "
+                         "expected")
+    lengths = np.diff(np.asarray(rowptr, dtype=np.int64))
+    rows = np.flatnonzero(lengths > split)
+    parts = -(-lengths[rows] // part)
+    order = np.argsort(-parts, kind="stable")
+    rows, parts = rows[order], parts[order]
+    several = parts > 1
+    first = np.cumsum(np.where(several, parts, 0)) - np.where(several, parts,
+                                                               0)
+    starts = np.cumsum(parts) - parts
+    k = np.arange(int(parts.sum())) - np.repeat(starts, parts)
+    slot = np.where(np.repeat(several, parts), np.repeat(first, parts) + k,
+                    -1)
+    blocks = np.stack([np.repeat(rows, parts), k, np.repeat(parts, parts),
+                       slot], axis=1)
+    multi = np.stack([rows[several], first[several], parts[several],
+                      np.zeros(int(several.sum()), np.int64)], axis=1)
+    return blocks.astype(np.int32), multi.astype(np.int32)
 
 
 @dataclass(frozen=True)
 class CsrPlan:
-    tiles: torch.Tensor   # (ntiles + 1,) int32 on the card: csr_tiles
-    budget: int           # entries a block stages
+    tiles: torch.Tensor   # (ntiles, 2) int32 on the card: first row, end
+    budget: int           # entries a tile stages
+    split: torch.Tensor   # (nsplit + nmulti, 4) int32 on the card: the
+                          # split blocks, then the rows of several parts
+    nsplit: int
+    nmulti: int
+    slots: int            # rows of scratch: the parts of those rows
 
 
 def csr_plan(rowptr: torch.Tensor) -> CsrPlan:
     """The launch plan of kernels 5 and 6 for ``rowptr``, on its device (the
-    same for both: it depends on ``rowptr`` alone).  It reads
-    ``rowptr`` to the host and copies the tiles back: build it once per
+    same for both: it depends on ``rowptr`` alone): the row tiles of
+    :func:`csr_tiles` for the rows of at most ``CSR_SPLIT`` entries, and the
+    split blocks of :func:`csr_split` for the longer rows.  It reads
+    ``rowptr`` to the host and copies the plan back: build it once per
     matrix (:class:`CsrOperator` does, when it is built), never while a CUDA
     graph is being captured."""
-    tiles = csr_tiles(rowptr.cpu().numpy())
-    return CsrPlan(torch.as_tensor(tiles, device=rowptr.device), CSR_BUDGET)
+    rp = rowptr.cpu().numpy().astype(np.int64)
+    blocks, multi = csr_split(rp)
+    dev = rowptr.device
+    return CsrPlan(torch.as_tensor(csr_tiles(rp), device=dev),
+                   CSR_BUDGET,
+                   torch.as_tensor(np.concatenate([blocks, multi]),
+                                   device=dev),
+                   len(blocks), len(multi), int(multi[:, 2].sum()))
 
 
 def csr_spmm_reference(rowptr: torch.Tensor, colidx: torch.Tensor,
@@ -148,8 +212,8 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     it).  The result is ``(n, m)`` or ``(m, n)``, freshly allocated, in the
     memory order of ``x``: like ``torch.empty_like(x)`` for a dense ``x``,
     else contiguous in the logical layout (``spmm.empty_in_order_of``).
-    ``plan``: the row tiles for this ``rowptr`` (:func:`csr_plan`), which a
-    product on a card needs."""
+    ``plan``: the launch plan for this ``rowptr`` (:func:`csr_plan`), which
+    a product on a card needs."""
     if x.dim() != 2:
         raise ValueError(f"csr_spmm: x must be 2-D, got {tuple(x.shape)}")
     if rowptr.dim() != 1 or rowptr.shape[0] < 1 or colidx.dim() != 1 or \
@@ -195,13 +259,19 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     vec = vec_width(m, (xs_i, xs_j, x.data_ptr()), (ys_i, ys_j, y.data_ptr()),
                     item=item)
     copy16 = colidx.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
+    # the partial sums of the rows of several parts, added by the kernel's
+    # second launch
+    scratch = torch.empty((plan.slots, m), dtype=x.dtype, device=x.device) \
+        if plan.nmulti else None
     entry, counter = ("gcge_csr_spmm_f64", "csr_f64") if item == 8 else \
         ("gcge_csr_spmm_f32", "csr_f32")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(_build.lib(), entry)(
             rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), nnz,
-            plan.tiles.data_ptr(), plan.tiles.shape[0] - 1, plan.budget, m,
+            plan.tiles.data_ptr(), plan.tiles.shape[0], plan.budget,
+            plan.split.data_ptr(), plan.nsplit, plan.nmulti,
+            None if scratch is None else scratch.data_ptr(), m,
             x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, vec,
             int(copy16), int(row_fast(m, ys_i, ys_j)), stream)
     _build.check(entry, err)
@@ -220,8 +290,8 @@ class CsrOperator(LinearOperator):
     the operator's dtype runs on ``values`` (f64: kernel 6 on the card); a
     float32 ``x`` on a float64 operator runs on a float32 copy of the values,
     made once at first use (kernel 5: the mixed-precision inner CG).  On a
-    card the operator plans the row tiles of both kernels when it is built,
-    so that a captured CG stage finds them on the card."""
+    card the operator makes the launch plan of both kernels when it is
+    built, so that a captured CG stage finds it on the card."""
 
     def __init__(self, rowptr: torch.Tensor, colidx: torch.Tensor,
                  values: torch.Tensor, n_cols: int):

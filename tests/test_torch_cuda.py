@@ -365,19 +365,32 @@ def _irregular_csr(n: int, seed: int, long_rows=()):
     return a, onehot.pack_csr(rows, cols, vals, (n, n))
 
 
+# rows of the split path: past the tile budget (``long``), or of the AMG
+# coarse levels' lengths, on both sides of CSR_SPLIT and of one part
+# (``amg``: level 2's 400-1,289 entries, level 2 R's 2,449 in two parts, a
+# row of three parts)
+_LONG_ROWS = {
+    "short": [],
+    "long": [(7, 3 * onehot.CSR_BUDGET + 5), (1000, onehot.CSR_BUDGET + 1)],
+    "amg": [(3, onehot.CSR_SPLIT), (4, onehot.CSR_SPLIT + 1), (9, 400),
+            (10, 731), (11, 1289), (500, 2449), (501, 2 * onehot.CSR_PART),
+            (777, 2 * onehot.CSR_PART + 1), (1029, 924)],
+}
+
+
 @pytest.mark.parametrize("dtype,tol,key", [
     (torch.float64, 1e-14, "csr_f64"), (torch.float32, 1e-5, "csr_f32")])
 @pytest.mark.parametrize("m", [1, 10, 16, 40])
 @pytest.mark.parametrize("layout", _LAYOUTS)
-@pytest.mark.parametrize("rows", ["short", "long"])
+@pytest.mark.parametrize("rows", ["short", "long", "amg"])
 def test_csr_kernel_matches_plain(cuda, dtype, tol, key, m, layout, rows):
     """Kernels 5 and 6 against the plain version in every layout, n = 1031
-    (no multiple of a block), with empty rows, a one-entry row and (``long``)
-    rows past kernel 5's tile budget: within tol of max |A||x|; two launches
-    give the same bits; the product lies in the memory order of x."""
+    (no multiple of a block), with empty rows, a one-entry row and (``long``,
+    ``amg``) rows of the split path: within tol of max |A||x| (the split
+    path sums in another order); two launches give the same bits; the
+    product lies in the memory order of x."""
     n = 1031
-    long_rows = [] if rows == "short" else \
-        [(7, 3 * onehot.CSR_BUDGET + 5), (1000, onehot.CSR_BUDGET + 1)]
+    long_rows = _LONG_ROWS[rows]
     a, (rowptr, colidx, values) = _irregular_csr(n, m, long_rows)
     rowptr, colidx = (torch.as_tensor(t, device=cuda)
                       for t in (rowptr, colidx))
@@ -425,15 +438,15 @@ def test_csr_f32_kernel_on_unaligned_arrays(cuda):
 
 @pytest.mark.parametrize("m", [1, 10, 40])
 @pytest.mark.parametrize("kind", ["even", "odd", "nm", "mn", "mn view"])
-@pytest.mark.parametrize("rows", ["short", "long"])
+@pytest.mark.parametrize("rows", ["short", "long", "amg"])
 def test_csr_f64_kernel_at_the_solve_operands(cuda, m, kind, rows):
     """Kernel 6 on the operands a solve hands it (column views of V at an
     even and an odd offset) and the other layouts, at m in {1, 10, 40}, on
     n = 1031 rows with empty first and last rows, a one-entry row and
-    (``long``) rows past the tile budget; in the operator's own plan."""
+    (``long``, ``amg``) rows of the split path; in the operator's own
+    plan."""
     n = 1031
-    long_rows = [] if rows == "short" else \
-        [(7, 3 * onehot.CSR_BUDGET + 5), (1000, onehot.CSR_BUDGET + 1)]
+    long_rows = _LONG_ROWS[rows]
     a, (rowptr, colidx, values) = _irregular_csr(n, m, long_rows)
     op = onehot.CsrOperator(*(torch.as_tensor(t, device=cuda)
                               for t in (rowptr, colidx, values)), n)
@@ -450,6 +463,63 @@ def test_csr_f64_kernel_at_the_solve_operands(cuda, m, kind, rows):
         x, transposed, "csr_f64", onehot.LAUNCHES, a)
     y = got.T if transposed else got
     assert not y[0].any() and not y[n - 1].any()             # empty rows
+
+
+def _basis_view(n, m, dtype, device, seed):
+    """``V[:, 120 - m:120]`` of an (n, 120) basis (``V[:, 110:120]`` at
+    m = 10, the W coupling's operand)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n, 120), generator=g, dtype=dtype,
+                       device=device)[:, 120 - m:]
+
+
+def _csr_rows_of(rowptr, colidx, values, r0, r1):
+    """Rows [r0, r1) of a CSR matrix as a CSR of their own, over the same
+    columns (a rank's shard before its columns are windowed)."""
+    lo, hi = int(rowptr[r0]), int(rowptr[r1])
+    return ((rowptr[r0:r1 + 1] - lo).contiguous(), colidx[lo:hi].contiguous(),
+            values[lo:hi].contiguous())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("m", [1, 10, 16, 40, 75])
+@pytest.mark.parametrize("layout", ["nm", "mn", "V view", "cg"])
+def test_csr_split_rows_same_bits_in_the_whole_matrix_and_a_shard(
+        cuda, dtype, tol, m, layout):
+    """Rows of the split path (the AMG coarse levels' lengths and longer;
+    at m = 75, PAS's width, several slabs of column groups side by side)
+    against the plain version, within tol of max |A||x|; the same bits on
+    two launches, and for a block of rows computed inside the whole matrix
+    and as its own CSR (cut at rows that split tiles of the whole, and
+    shifted by one row), with the same x."""
+    n = 1031
+    a, (rowptr, colidx, values) = _irregular_csr(n, 100 + m,
+                                                 _LONG_ROWS["amg"])
+    rowptr, colidx = (torch.as_tensor(t, device=cuda)
+                      for t in (rowptr, colidx))
+    values = torch.as_tensor(values, device=cuda).to(dtype)
+    if layout == "V view":
+        x, transposed = _basis_view(n, m, dtype, cuda, 5), False
+    else:
+        x, transposed = _operand(layout, n, m, dtype, cuda, 5)
+    plan = onehot.csr_plan(rowptr)
+    assert plan.nsplit > 0 and plan.nmulti > 0
+    got = onehot.csr_spmm(rowptr, colidx, values, x, transposed, plan)
+    assert torch.equal(got, onehot.csr_spmm(rowptr, colidx, values, x,
+                                            transposed, plan))
+    ref = onehot.csr_spmm_reference(rowptr, colidx, values, x, transposed)
+    scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(), x.abs(),
+                                      transposed).max()
+    assert float((got - ref).abs().max()) <= tol * float(scale)
+    whole = got.T if transposed else got
+    for r0, r1 in ((1, 13), (2, 520), (400, 1031), (0, 1031)):
+        rp, ci, va = _csr_rows_of(rowptr, colidx, values, r0, r1)
+        part = onehot.csr_spmm(rp, ci, va, x, transposed,
+                               onehot.csr_plan(rp))
+        if transposed:
+            part = part.T
+        assert torch.equal(part, whole[r0:r1]), (r0, r1)
 
 
 def test_csr_f64_kernel_on_unaligned_arrays_and_needs_a_plan(cuda):
@@ -883,9 +953,10 @@ def test_bgs_orth_on_card_matches_cpu(cuda, m):
 @pytest.mark.parametrize("m", [1, 10, 75])
 def test_csr_kernel_on_rectangular_transfers(cuda, m):
     """Kernel 6 on the hierarchy's rectangular P and R (at nx=24 the last
-    restriction's rows reach 1,236 entries, past the tile budget of 1,024)
-    against the plain version on the same card: 1e-14 of max |P| |x|, in
-    the (n, m) layout and transposed, equal bits across two launches."""
+    restriction's rows reach 1,236 entries, past the tile budget of 1,024:
+    the split path) against the plain version on the same card: 1e-14 of
+    max |P| |x|, in the (n, m) layout and transposed, equal bits across two
+    launches and for the middle third of the rows as a CSR of its own."""
     h, _ = _fem_hierarchy(24, cuda)
     longest = h.levels[-2].r_op.rowptr.diff().max()
     assert int(longest) > onehot.CSR_BUDGET
@@ -909,6 +980,17 @@ def test_csr_kernel_on_rectangular_transfers(cuda, m):
                 assert (got - ref).abs().max() <= 1e-14 * scale
                 assert torch.equal(got, onehot.csr_spmm(
                     op.rowptr, op.colidx, op.values, x, transposed, op.plan))
+                # the rows of the long restriction's middle third as a CSR
+                # of their own: the same bits
+                n = op.shape[0]
+                r0, r1 = n // 3, 2 * n // 3
+                rp, ci, va = _csr_rows_of(op.rowptr, op.colidx, op.values,
+                                          r0, r1)
+                part = onehot.csr_spmm(rp, ci, va, x, transposed,
+                                       onehot.csr_plan(rp))
+                whole = got.T if transposed else got
+                assert torch.equal(part.T if transposed else part,
+                                   whole[r0:r1])
 
 
 # ---------------------------------------------------------------------------

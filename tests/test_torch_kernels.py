@@ -7,6 +7,8 @@ The CUDA kernels themselves are checked on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -337,27 +339,31 @@ def _row_cases():
                                                onehot.CSR_MAX_ROWS),
                                               (64, 8), (1024, 300)])
 def test_csr_tiles_cover_each_row_once_and_fit(case, budget, max_rows):
-    """Kernel 5's row tiles: rows 0..n-1 each in exactly one tile, in order;
-    a tile's entries, widened to 16-byte boundaries, fit the budget unless
-    the tile is one row that does not (it streams in chunks); no tile
-    exceeds max_rows; a tile stops only where the next row would break
-    one of the two limits."""
+    """Kernels 5 and 6's row tiles: every row of at most min(CSR_SPLIT,
+    budget - 3) entries in exactly one tile, in order; a tile's entries,
+    widened to 16-byte boundaries, fit the budget; no tile exceeds
+    max_rows; a tile stops only where the next row would break one of the
+    two limits or is left out."""
     rowptr = _rowptr(_row_cases()[case])
     n = len(rowptr) - 1
     tiles = onehot.csr_tiles(rowptr, budget, max_rows)
-    assert tiles.dtype == np.int32 and tiles[0] == 0 and tiles[-1] == n
-    assert np.all(np.diff(tiles) >= 1)
+    assert tiles.dtype == np.int32 and tiles.shape == (len(tiles), 2)
     rp = rowptr.astype(np.int64)
-    for r0, r1 in zip(tiles[:-1], tiles[1:]):
+    cap = min(onehot.CSR_SPLIT, budget - 3)
+    kept = np.diff(rp) <= cap
+    covered = np.zeros(n, np.int64)
+    for r0, r1 in tiles:
+        covered[r0:r1] += 1
         staged = -(-rp[r1] // 4) * 4 - rp[r0] // 4 * 4
-        assert r1 - r0 <= max_rows
-        assert staged <= budget or r1 - r0 == 1
-        if r1 < n:                 # greedy: the next row did not fit
+        assert 1 <= r1 - r0 <= max_rows and staged <= budget
+        if r1 < n and kept[r1]:    # greedy: the next row did not fit
             grown = -(-rp[r1 + 1] // 4) * 4 - rp[r0] // 4 * 4
             assert r1 - r0 == max_rows or grown > budget
-    # every row longer than the budget has a tile of its own
-    for r in np.flatnonzero(np.diff(rp) > budget):
-        assert r in tiles and r + 1 in tiles
+    np.testing.assert_array_equal(covered, kept)
+    assert np.all(tiles[1:, 0] >= tiles[:-1, 1])
+    # every row longer than the budget (and every other row past the cap)
+    # is in no tile: the split path takes it
+    assert not covered[np.diff(rp) > budget].any()
 
 
 def test_csr_tiles_reject_budgets_the_kernel_cannot_take():
@@ -367,6 +373,135 @@ def test_csr_tiles_reject_budgets_the_kernel_cannot_take():
             onehot.csr_tiles(rowptr, budget)
     with pytest.raises(ValueError, match="max_rows"):
         onehot.csr_tiles(rowptr, 8, 0)
+
+
+def _level2_lengths(n=17_588):
+    """Row lengths like the AMG level-2 operator of the cube FEM pair at
+    nx=54: 17,588 rows of 400 to 1,289 entries, mean about 731."""
+    rng = np.random.default_rng(2)
+    lengths = np.clip(rng.normal(731, 160, n).round(), 400, 1289)
+    lengths[[3, n // 2]] = [400, 1289]
+    return lengths.astype(np.int64)
+
+
+def _plan_cases():
+    cases = dict(_row_cases())
+    cases["AMG level 2 like"] = _level2_lengths()
+    cases["split threshold edges"] = np.array(
+        [onehot.CSR_SPLIT, onehot.CSR_SPLIT + 1, 0, onehot.CSR_PART,
+         onehot.CSR_PART + 1, 3 * onehot.CSR_PART + 7, 5, 2449, 1])
+    return cases
+
+
+def _plan_of(rowptr):
+    plan = onehot.csr_plan(torch.as_tensor(rowptr))
+    split = plan.split.numpy()
+    return (plan.tiles.numpy(), split[:plan.nsplit], split[plan.nsplit:],
+            plan)
+
+
+@pytest.mark.parametrize("case", list(_plan_cases()))
+def test_csr_plan_covers_each_row_once(case):
+    """Kernels 5 and 6's plan: every row of at most CSR_SPLIT entries lies in
+    exactly one row tile, the tiles in row order and within the budget;
+    every longer row (every row past the tile budget among them) lies in
+    the split list, as parts 0..K-1 of K = ceil(len / CSR_PART) blocks,
+    together and in order, the rows of more parts first and in row order
+    within a count of parts; the rows of several parts are listed again for
+    the second launch, their scratch slots numbered from 0 without gaps."""
+    lengths = np.asarray(_plan_cases()[case], np.int64)
+    rowptr = _rowptr(lengths)
+    n = len(lengths)
+    tiles, blocks, multi, plan = _plan_of(rowptr)
+    long = lengths > onehot.CSR_SPLIT
+    covered = np.zeros(n, np.int64)
+    for r0, r1 in tiles:
+        covered[r0:r1] += 1
+        staged = -(-rowptr[r1] // 4) * 4 - rowptr[r0] // 4 * 4
+        assert staged <= plan.budget and 1 <= r1 - r0 <= onehot.CSR_MAX_ROWS
+    assert np.all(tiles[1:, 0] >= tiles[:-1, 1])
+    np.testing.assert_array_equal(covered, ~long)
+    assert not long[np.flatnonzero(covered)].any()
+    # every row past the tile budget is in the split list
+    assert set(np.flatnonzero(lengths > plan.budget)) <= set(blocks[:, 0])
+    rows, first = np.unique(blocks[:, 0], return_index=True)
+    np.testing.assert_array_equal(rows, np.flatnonzero(long))
+    parts = -(-lengths[rows] // onehot.CSR_PART)
+    assert len(blocks) == parts.sum() == plan.nsplit
+    for r, i, k in zip(rows, first, parts):
+        np.testing.assert_array_equal(blocks[i:i + k, 0], r)
+        np.testing.assert_array_equal(blocks[i:i + k, 1], np.arange(k))
+        np.testing.assert_array_equal(blocks[i:i + k, 2], k)
+    heads = blocks[blocks[:, 1] == 0]
+    order = np.lexsort((heads[:, 0], -heads[:, 2]))
+    np.testing.assert_array_equal(order, np.arange(len(heads)))
+    several = blocks[blocks[:, 2] > 1]
+    np.testing.assert_array_equal(several[:, 3], np.arange(len(several)))
+    assert np.all(blocks[blocks[:, 2] == 1, 3] == -1)
+    firsts = several[several[:, 1] == 0]
+    np.testing.assert_array_equal(
+        multi.reshape(-1, 4), np.c_[firsts[:, 0], firsts[:, 3], firsts[:, 2],
+                                    np.zeros(len(firsts), int)])
+    assert plan.nmulti == len(multi) and plan.slots == len(several)
+
+
+def _split_of_each_row(lengths):
+    """Row -> (part, parts) of each of its split blocks, from the plan."""
+    _, blocks, _, _ = _plan_of(_rowptr(lengths))
+    out = {}
+    for r, k, parts, _ in blocks:
+        out.setdefault(int(r), []).append((int(k), int(parts)))
+    return out
+
+
+@pytest.mark.parametrize("case", ["long rows", "AMG level 2 like",
+                                  "split threshold edges"])
+def test_csr_split_depends_on_row_length_alone(case):
+    """A row's path and its parts follow from its length alone: the same
+    rows behind other rows, or cut out as a shard at any row (a rank's
+    rows), get the same split, row for row."""
+    lengths = np.asarray(_plan_cases()[case], np.int64)
+    whole = _split_of_each_row(lengths)
+    rng = np.random.default_rng(len(lengths))
+    before = rng.integers(0, 3000, 17)
+    moved = _split_of_each_row(np.concatenate([before, lengths]))
+    assert {r - len(before): v for r, v in moved.items()
+            if r >= len(before)} == whole
+    for r0, r1 in [(0, len(lengths)), (1, len(lengths) - 1),
+                   (len(lengths) // 3, len(lengths) // 3 + 5),
+                   tuple(sorted(rng.integers(0, len(lengths), 2)))]:
+        shard = _split_of_each_row(lengths[r0:r1])
+        assert shard == {r - r0: v for r, v in whole.items() if r0 <= r < r1}
+
+
+def test_csr_plan_puts_the_amg_level2_rows_on_the_split_path():
+    """At the lengths of AMG level 2 (17,588 rows, mean about 731, at most
+    1,289), no tile holds a row of more than CSR_SPLIT entries: every row
+    runs on a block of its own, in one part."""
+    lengths = _level2_lengths()
+    assert lengths.max() == 1289 and 700 < lengths.mean() < 760
+    tiles, blocks, multi, plan = _plan_of(_rowptr(lengths))
+    assert len(tiles) == 0 and len(multi) == 0 and plan.slots == 0
+    assert plan.nsplit == len(lengths)
+    np.testing.assert_array_equal(np.sort(blocks[:, 0]),
+                                  np.arange(len(lengths)))
+    assert np.all(blocks[:, 1:] == [0, 1, -1])
+
+
+def test_csr_part_is_the_kernels():
+    """CSR_PART is the kernels' kPart, which sizes the shared memory where a
+    block of the split path stages a part."""
+    src = open(os.path.join(os.path.dirname(onehot.__file__), "csrc",
+                            "csr_spmm.cu")).read()
+    assert f"constexpr int kPart = {onehot.CSR_PART};" in src
+
+
+def test_csr_split_rejects_what_it_cannot_plan():
+    rowptr = _rowptr([3, 4])
+    with pytest.raises(ValueError, match="split"):
+        onehot.csr_split(rowptr, -1)
+    with pytest.raises(ValueError, match="part"):
+        onehot.csr_split(rowptr, 8, 0)
 
 
 def test_csr_operator_plans_only_on_a_card():
@@ -478,13 +613,22 @@ def test_dia_plan_transposed_layouts(item, m):
 @pytest.mark.parametrize("case", list(_row_cases()))
 def test_csr_plan_serves_both_dtypes(case):
     """One plan for kernels 5 and 6: the tiles csr_tiles gives at
-    CSR_BUDGET, whose entries fit 48 KB of shared memory at 8 bytes (f32)
-    and at 12 bytes (f64) each, and whose 16-byte copies start on 4 entries
-    (16 bytes of colidx, 16 or 32 of values)."""
+    CSR_BUDGET, (first row, end) pairs whose entries fit 48 KB of shared
+    memory at 8 bytes (f32) and at 12 bytes (f64) each, and whose 16-byte
+    copies start on 4 entries (16 bytes of colidx, 16 or 32 of values); then
+    csr_split's blocks and rows of several parts.  The split path's two
+    buffers of warp sums (8 warps of 32 lanes of 2 doubles in f64, 4 warps
+    of 4 floats in f32) fit the same shared memory."""
     rowptr = _rowptr(_row_cases()[case])
     plan = onehot.csr_plan(torch.as_tensor(rowptr))
     np.testing.assert_array_equal(plan.tiles.numpy(),
                                   onehot.csr_tiles(rowptr, onehot.CSR_BUDGET))
+    blocks, multi = onehot.csr_split(rowptr)
+    np.testing.assert_array_equal(plan.split.numpy(),
+                                  np.concatenate([blocks, multi]))
+    assert (plan.nsplit, plan.nmulti) == (len(blocks), len(multi))
+    assert plan.tiles.dtype == plan.split.dtype == torch.int32
     assert plan.budget == onehot.CSR_BUDGET and plan.budget % 4 == 0
-    for item in (4, 8):
+    for item, warps, lanes in ((4, 4, 4), (8, 8, 2)):
         assert plan.budget * (4 + item) <= 48 * 1024
+        assert 2 * warps * 32 * lanes * item <= plan.budget * (4 + item)

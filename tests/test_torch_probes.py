@@ -20,7 +20,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from gcge_tpu_torch.benchmarks import df64_push, pallas_isolate
+from gcge_tpu_torch.benchmarks import csr_levels, df64_push, pallas_isolate
 from gcge_tpu_torch.ops import probes
 
 torch.set_num_threads(2)
@@ -286,3 +286,19 @@ def test_pallas_isolate_main_cpu(capsys):
     for label in ("loads_only", "peel_only", "dot_only", "full"):
         assert label in out
     assert "n_pad=384" in out
+
+
+def test_csr_levels_main_cpu(capsys):
+    """The CSR-level script on a small FEM pair: a row for every CSR
+    operator of the hierarchy at each width, each agreeing with
+    torch.sparse.mm to rounding and with equal bits twice."""
+    assert csr_levels.main(["--device", "cpu", "--nx", "10", "--widths",
+                            "2,3", "--trials", "1", "--reps", "1"]) == 0
+    out = capsys.readouterr().out
+    rows = [line for line in out.splitlines() if line.startswith("level ")]
+    assert "device: cpu" in out and "hierarchy of" in out
+    assert rows and len(rows) % 2 == 0
+    assert sum(" m=2:" in r for r in rows) == sum(" m=3:" in r for r in rows)
+    for r in rows:
+        assert r.endswith("equal bits twice True")
+        assert float(r.split("rel err ")[1].split(",")[0]) < 1e-13
