@@ -10,7 +10,9 @@ standard and generalized, and the PAS solver), a check that a fused chunk
 never waits for the device outside ``eigh``, kernels 1 and 2 on halo
 windows, the row-sharded solves on a one-rank NCCL mesh, the utils, the
 distributed multilevel path (AMG and PAS on a sharded hierarchy) on a
-one-rank NCCL mesh, and the headline and AMG solves on a (1, 1) grid.
+one-rank NCCL mesh, the headline and AMG solves on a (1, 1) grid, the
+command-line driver on files, and the stencil at the reference's
+production widths (nev=200, m=480; nev=400, m=960).
 Phases, each of which raises on failure:
 
 1. build — print the card's name and power limit, build the CUDA kernels from
@@ -151,10 +153,38 @@ Phases, each of which raises on failure:
     The AMG phase also times kernels 1 and 2 at the FEM pair's level-0
     operand (15 diagonals, n=148,877, block 10: ``V[:, 110:120]`` and the
     f32 CG stage's operand), like the other rows.
+18. driver — ``gcge_tpu_torch.utils.cli.main`` on the card: the headline
+    stencil written to a MatrixMarket file (the natural ordering must be
+    kept; the headline phase's parameters; its eigenvalues within 1e-10 of
+    the headline solve's and the headline gates), and the cube FEM pair
+    written as PETSc binary files, solved with ``-shift 5`` (its
+    eigenvalues less 5 within 1e-9 of ``solve(A, B, nev=50)``'s); each
+    through kernels 1 (2 on the stencil), 3 and 4.
+19. wide — for nev=200 at nx=54 (block 40, nevMax 400, m=480) and nev=400
+    at nx=44 (block 80, nevMax 800, m=960): kernels 1-4 timed at the
+    shapes those solves hand them (kernel 1 at ``V[:, m - bs:m]`` and the
+    residual window ``ritz[:, 41:41 + bs]`` of the (n, 2 nev) Ritz block,
+    kernel 2 at the CG's ``(bs, n)`` operand, kernels 3
+    and 4 at every shape class), then one row of ``utils.sweep`` (warm-up
+    and timed solve): walls, iterations and converged count beside the C
+    reference's, peak device memory, launches and host waits an
+    iteration, kernels 3/4 by shape class; the headline gates on the
+    first nev pairs, kernels 1-4 launched.
+20. irregular wide — the Delaunay matrix of phase 7, in phase 7's RCM
+    ordering, written to a MatrixMarket file and solved through
+    ``utils.cli.main`` at nev=200, block 40 (m=480): packed as CSR; at
+    least 200 converged, host residuals of the first 200 pairs at
+    most 2e-8, the first 50 eigenvalues within 1e-9 of phase 7's;
+    iterations beside the C reference's 107; kernels 6 and 5 timed at this
+    solve's operands (``V[:, 440:480]``, the CG's ``(40, n)``).  Then the
+    same matrix in its mesh ordering through the driver, under the same
+    gates, with the layout the driver chose and its wall beside the first
+    run's.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
-solve and the whole headline solve, each phased and fused; 10 iterations of
-each AMG-preconditioned solve and one PAS solve on the FEM pair) and prints
+solve and the whole headline solve, each phased and fused; the whole wide
+solves; 10 iterations of each AMG-preconditioned solve and one PAS solve
+on the FEM pair) and prints
 the
 device's busy and idle share, the device operations, host launches and host
 synchronisations per iteration, the device time by kernel, that of kernels
@@ -201,6 +231,8 @@ HEADLINE_KWARGS = dict(nev=NEV, block_size=BS, max_iter=120, cg_max_iter=30)
 GRAM_CLASSES = ((120, 10), (110, 10), (10, 10), (100, 100))
 EXPAND_CLASSES = ((120, 100), (120, 10), (110, 10), (10, 10))
 HEADLINE_FUSE, IRREGULAR_FUSE = 20, 10
+# the production widths run by the wide phase (block nev/5, nevMax 2 nev)
+WIDE_NEVS = (200, 400)
 
 IRREGULAR_KWARGS = dict(nev=NEV, block_size=BS, max_iter=300, cg_max_iter=60,
                         cg_refine=3)
@@ -255,6 +287,42 @@ def residuals(a_csr, ev, x):
     """Host residuals ||A x - lambda x|| / (|lambda| ||x||) per pair."""
     r = a_csr @ x - x * ev[None, :]
     return np.linalg.norm(r, axis=0) / (np.abs(ev) * np.linalg.norm(x, axis=0))
+
+
+def stencil(nx: int):
+    """The 27-point stencil at ``nx`` as ``(rows, cols, vals, n)`` and a
+    scipy CSR matrix."""
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.io.stencil import build_3d27
+
+    rows, cols, vals, n = build_3d27(nx)
+    return (rows, cols, vals, n), \
+        sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+
+
+def stencil_gates(tag, a_csr, nx, count, ev, evec):
+    """The headline gates on the first ``count`` pairs: eigenvalues within
+    1e-9 of the closed form, host residuals at most 2e-8."""
+    from gcge_tpu_torch.io.stencil import smallest_eigs_3d27
+
+    exact = smallest_eigs_3d27(nx, count)
+    ev_err = float(np.max(np.abs(ev[:count] - exact) / np.abs(exact)))
+    res = residuals(a_csr, ev[:count], evec[:, :count].cpu().numpy())
+    print(f"{tag}: eigenvalues vs closed form max rel err {ev_err:.3e} "
+          f"(tol 1e-9); host residuals max {res.max():.3e} (tol 2e-8)")
+    if not ev_err <= 1e-9:
+        raise AssertionError(f"{tag}: eigenvalue error {ev_err:.3e} > 1e-9")
+    if not res.max() <= 2e-8:
+        raise AssertionError(f"{tag}: residual {res.max():.3e} > 2e-8")
+
+
+def path_launched(tag, launches, keys):
+    """Raise unless every kernel of ``keys`` was launched (the counts of
+    :func:`read_counters` over a path's run)."""
+    idle = [k for k in keys if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: kernels not launched: {idle}")
 
 
 class KernelLog:
@@ -340,23 +408,25 @@ def csr_tensor(torch, a_csr, dtype):
         size=a_csr.shape, check_invariants=False)
 
 
-def spmm_operand(torch, name, n, dtype, gen):
+def spmm_operand(torch, name, n, dtype, gen, parents=None):
     """The operand of an SpMM row, as ``(x, transposed)``: a column view of
-    a basis as a solve hands it to kernels 1 and 6 (``V[:, 110:120]``, the W
-    coupling of every Rayleigh-Ritz step: rows 120 elements apart, on 16
-    bytes; ``V[:, :100]``, the initial Rayleigh-Ritz; ``ritz[:, 41:51]``, a
-    residual window at an odd offset: rows 8-byte aligned only), a
-    contiguous ``(n, m)`` or a contiguous ``(m, n)`` of the transposed
-    layout."""
+    a basis as a solve hands it to kernels 1 and 6, a contiguous ``(n, m)``
+    or a contiguous ``(m, n)`` of the transposed layout.  The views are
+    ``V[:, a:b]`` of the (n, m) basis and ``ritz[:, a:b]`` of the (n,
+    size_x) Ritz block that ``tall_expand`` returns, whose widths
+    ``parents`` gives as ``{"V": m, "ritz": size_x}`` (default the
+    headline's, 120 and 100): ``V[:, 110:120]``, the W coupling of every
+    Rayleigh-Ritz step (rows 120 elements apart, on 16 bytes);
+    ``V[:, :100]``, the initial Rayleigh-Ritz; ``ritz[:, 41:51]``, a
+    residual window at an odd offset (rows 8-byte aligned only)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, dtype=dtype, device=DEVICE)
 
-    if name == "V[:, 110:120]":
-        return randn(n, 120)[:, 110:120], False
-    if name == "V[:, :100]":
-        return randn(n, 120)[:, :100], False
-    if name == "ritz[:, 41:51]":
-        return randn(n, 100)[:, 41:51], False
+    if name.startswith(("V[", "ritz[")):
+        parent, window = name.split("[:, ")
+        lo, hi = window.rstrip("]").split(":")
+        width = (parents or {"V": 2 * NEV + 2 * BS, "ritz": 2 * NEV})[parent]
+        return randn(n, width)[:, int(lo or 0):int(hi)], False
     rows, cols = name.strip("()").split(", ")
     if rows == "n":
         return randn(n, int(cols)), False
@@ -372,25 +442,29 @@ def follows(y, x) -> bool:
 
 
 def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
-              cases, tol, gen, tag="", n_in=None):
+              cases, tol, gen, tag="", n_in=None, parents=None):
     """An SpMM kernel (``apply(x, transposed)``) against its plain version
     (``plain(x, transposed, absolute)``, on |A| where ``absolute``) and
     beside ``torch.sparse.mm`` on ``lib`` (the same values, in the (n, m)
     layout), for each operand of ``cases`` (:func:`spmm_operand`, or ``cg``:
-    the f32 CG stage's, :func:`cg_operand`).  Each row also gives equal bits
-    twice and returns its product in the memory order of its operand; its
-    bound counts the matrix's bytes, x and y once each.  The first case is
-    the primary one where ``tag`` is empty.  ``n_in``: the rows of x where
-    the matrix is rectangular (its columns; default ``n``)."""
+    the f32 CG stage's, :func:`cg_operand`, of BS columns; ``cg40``: of
+    40).  Each row also gives equal bits twice and returns its product in
+    the memory order of its operand; its bound counts the matrix's bytes,
+    x and y once each.  The first case is the primary one where ``tag`` is
+    empty.  ``n_in``: the rows of x where the matrix is rectangular (its
+    columns; default ``n``); ``parents``: the widths of the views'
+    parents, as in :func:`spmm_operand`."""
     dtype = lib.dtype
     item = torch.empty((), dtype=dtype).element_size()
     n_in = n if n_in is None else n_in
     for name in cases:
-        if name == "cg":
-            x = cg_operand(torch, lambda z: apply(z, True), n_in, BS, gen)
+        if name.startswith("cg"):
+            x = cg_operand(torch, lambda z: apply(z, True), n_in,
+                           int(name[2:] or BS), gen)
             transposed = True
         else:
-            x, transposed = spmm_operand(torch, name, n_in, dtype, gen)
+            x, transposed = spmm_operand(torch, name, n_in, dtype, gen,
+                                         parents)
         m = x.shape[0] if transposed else x.shape[1]
         x_nm = x.T.contiguous() if transposed else x.contiguous()
         label = f"{key}{tag} {name} m={m} strides {tuple(x.stride())}"
@@ -492,20 +566,21 @@ def twice_equal(torch, fn, label):
         raise AssertionError(f"{label}: two launches differ")
 
 
-def kernels_tall(torch, log, n, gen, primary):
+def kernels_tall(torch, log, n, gen, primary, grams=GRAM_CLASSES,
+                 expands=EXPAND_CLASSES, width=120):
     """Kernels 3 and 4 against their plain versions at every shape class a
-    nev=50, block-10 solve of size n gives them, with equal bits across two
-    launches.  The tall operands are column views of a basis of 120
-    columns, as the solver's are."""
+    solve of size n gives them (default: nev=50, block 10), with equal bits
+    across two launches.  The tall operands are column views of a basis of
+    ``width`` columns, as the solver's are."""
     from gcge_tpu_torch.ops import osgemm
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, dtype=torch.float64,
                            device=DEVICE)
 
-    basis = randn(n, 120)
+    basis = randn(n, width)
     # kernel 3: tall Gram; error relative to ||a_i|| ||b_j|| per entry
-    for p, q in GRAM_CLASSES:
+    for p, q in grams:
         a, b = basis[:, :p], randn(n, q)
         label = f"tall_gram n={n} ({p}x{q})"
         twice_equal(torch, lambda: osgemm.tall_gram(a, b), label)
@@ -516,7 +591,7 @@ def kernels_tall(torch, log, n, gen, primary):
                 primary=primary and (p, q) == (120, 10),
                 cls=("gram", n, p, q))
     # kernel 4: tall expand; error relative to max (|a| |c|)
-    for k, q in EXPAND_CLASSES:
+    for k, q in expands:
         a, c = basis[:, :k], randn(k, q)
         label = f"tall_expand n={n} (n x {k})({k} x {q})"
         twice_equal(torch, lambda: osgemm.tall_expand(a, c), label)
@@ -558,7 +633,8 @@ class TallCalls:
     """Counts the calls of kernels 3 and 4 by shape class, and the
     iterations, of the solves run inside it: the wrappers (where
     ``osgemm``, ``orth`` and ``gcg`` reach them) and ``gcg_solve`` (where
-    ``solve`` reaches it) are wrapped for its duration."""
+    ``solve`` and ``utils.sweep`` reach it) are wrapped for its
+    duration."""
 
     def __init__(self):
         self.calls = collections.Counter()
@@ -587,10 +663,11 @@ class TallCalls:
 
         self.saved = [(m, name, getattr(m, name)) for m, name in (
             (osgemm, "tall_gram"), (osgemm, "tall_expand"),
-            (gcg, "tall_gram"), (gcg, "tall_expand"), (api, "gcg_solve"))]
+            (gcg, "tall_gram"), (gcg, "tall_expand"), (api, "gcg_solve"),
+            (gcg, "gcg_solve"))]
         for m in (osgemm, gcg):
             m.tall_gram, m.tall_expand = counted_gram, counted_expand
-        api.gcg_solve = counted_solve
+        api.gcg_solve = gcg.gcg_solve = counted_solve
         return self
 
     def __exit__(self, *exc):
@@ -623,12 +700,21 @@ class TallCalls:
               f"ms")
 
 
+def dia_pair(values, offs):
+    """Kernel 1 or 2 on a DIA matrix (``apply(x, transposed)``) and its plain
+    version (``plain(x, transposed, absolute)``), for :func:`spmm_rows`."""
+    from gcge_tpu_torch.ops import spmm
+
+    return (lambda x, t: spmm.dia_spmm(values, offs, x, t),
+            lambda x, t, absolute: spmm.dia_spmm_reference(
+                values.abs() if absolute else values, offs, x, t))
+
+
 def phase_kernels_headline(torch, log, rows, cols, vals, n):
     """Kernels 1-4 against their plain versions at the headline shapes."""
     import scipy.sparse as sps
 
     from gcge_tpu_torch import make_operator
-    from gcge_tpu_torch.ops import spmm
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -639,23 +725,17 @@ def phase_kernels_headline(torch, log, rows, cols, vals, n):
     lib64 = csr_tensor(torch, a_csr, torch.float64)
     lib32 = csr_tensor(torch, a_csr, torch.float32)
     ndiag = v64.shape[0]
-
-    def dia(values):
-        return (lambda x, t: spmm.dia_spmm(values, offs, x, t),
-                lambda x, t, absolute: spmm.dia_spmm_reference(
-                    values.abs() if absolute else values, offs, x, t))
-
     # kernel 1: f64 DIA; error relative to max (|A| |x|).  Primary: the W
     # coupling's column view of V, then the solve's other operands and the
     # other layouts
-    spmm_rows(torch, log, "dia_f64", *dia(v64), n, a_csr.nnz,
+    spmm_rows(torch, log, "dia_f64", *dia_pair(v64, offs), n, a_csr.nnz,
               8 * ndiag * n + 4 * ndiag, lib64,
               ["V[:, 110:120]", "ritz[:, 41:51]", "V[:, :100]", "(n, 10)",
                "(10, n)", "(100, n)"], 1e-14, gen)
     # kernel 2: f32 DIA.  Primary: the operand the mixed inner CG hands it,
     # (m, n) with strides (1, m); besides, a contiguous (m, n) operand and
     # the (n, m) layout
-    spmm_rows(torch, log, "dia_f32", *dia(v32), n, a_csr.nnz,
+    spmm_rows(torch, log, "dia_f32", *dia_pair(v32, offs), n, a_csr.nnz,
               4 * ndiag * n + 4 * ndiag, lib32,
               ["cg", f"({BS}, n)", f"(n, {BS})"], 1e-5, gen)
     kernels_tall(torch, log, n, gen, primary=True)
@@ -667,7 +747,6 @@ def phase_headline(torch, log, a_csr, fuse: int, ev_phased=None):
     (``fuse=0``) or the fused one; the fused solve is also held against the
     phased solve's eigenvalues.  Returns ``(launches, eigenvalues)``."""
     import gcge_tpu_torch
-    from gcge_tpu_torch.io.stencil import smallest_eigs_3d27
     from gcge_tpu_torch.solvers import gcg
 
     tag = "headline" if fuse == 0 else f"fused headline (fuse={fuse})"
@@ -698,19 +777,8 @@ def phase_headline(torch, log, a_csr, fuse: int, ev_phased=None):
           f"the kernels it launches), replays {gcg.GRAPH_REPLAYS['cg_stage']}")
     if nev_conv < NEV:
         raise AssertionError(f"nev_conv {nev_conv} < {NEV}")
-    exact = smallest_eigs_3d27(NX, NEV)
-    ev_err = float(np.max(np.abs(ev[:NEV] - exact) / np.abs(exact)))
-    res = residuals(a_csr, ev[:NEV], evec[:, :NEV].cpu().numpy())
-    print(f"{tag}: eigenvalues vs closed form max rel err {ev_err:.3e} "
-          f"(tol 1e-9); host residuals max {res.max():.3e} (tol 2e-8)")
-    if not ev_err <= 1e-9:
-        raise AssertionError(f"eigenvalue error {ev_err:.3e} > 1e-9")
-    if not res.max() <= 2e-8:
-        raise AssertionError(f"residual {res.max():.3e} > 2e-8")
-    idle = [k for k in ("dia_f64", "dia_f32", "gram", "expand")
-            if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"kernels not launched by the solve: {idle}")
+    stencil_gates(tag, a_csr, NX, NEV, ev, evec)
+    path_launched(tag, launches, ("dia_f64", "dia_f32", "gram", "expand"))
     if fuse > 0:
         rel = float(np.max(np.abs(ev[:NEV] - ev_phased[:NEV])
                            / np.abs(ev_phased[:NEV])))
@@ -798,7 +866,8 @@ def build_delaunay(g: int):
     return a, a_rcm
 
 
-def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag=""):
+def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag="",
+             parents=None):
     """Kernel 5 or 6 (by the dtype of ``vals``) on the CSR operator ``op``
     in its own plan: :func:`spmm_rows` with the library call on the scipy
     matrix ``a_csr``."""
@@ -814,7 +883,7 @@ def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag=""):
         op.shape[0], nnz,
         nnz * (4 + vals.element_size()) + 4 * (op.shape[0] + 1),
         csr_tensor(torch, a_csr, vals.dtype), cases, tol, gen, tag,
-        n_in=op.shape[1])
+        n_in=op.shape[1], parents=parents)
 
 
 def phase_kernels_irregular(torch, log, a_rcm):
@@ -967,10 +1036,8 @@ def phase_irregular(torch, log, a, a_rcm):
           f"{res.max():.3e} (tol 2e-8)")
     if not res.max() <= 2e-8:
         raise AssertionError(f"residual {res.max():.3e} > 2e-8")
-    idle = [k for k in ("gram", "expand", "csr_f32", "csr_f64", "mask_probe")
-            if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"kernels not launched by the solve: {idle}")
+    path_launched("irregular", launches,
+                  ("gram", "expand", "csr_f32", "csr_f64", "mask_probe"))
 
     # the same problem through no hand-written SpMM: a prebuilt ELL operator
     # (one PyTorch gather per ELL column), at full width: about twice the
@@ -1032,10 +1099,7 @@ def phase_irregular_fused(torch, log, a, ev_phased):
         raise AssertionError(f"residual {res.max():.3e} > 2e-8")
     if not rel <= 1e-9:
         raise AssertionError("the fused solve disagrees with the phased")
-    idle = [k for k in ("gram", "expand", "csr_f32", "csr_f64")
-            if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"kernels not launched by the solve: {idle}")
+    path_launched(tag, launches, ("gram", "expand", "csr_f32", "csr_f64"))
     if gcg.GRAPH_REPLAYS["cg_stage"] <= 0:
         raise AssertionError("the CG stage was not replayed from a graph")
     # the same with no ``fuse`` given: the chunk length ``solve`` tunes
@@ -1396,11 +1460,8 @@ def phase_amg(torch, log, a, b):
     if nev_conv < NEV:
         raise AssertionError(f"{tag}: nev_conv {nev_conv} < {NEV}")
     fem_gates(tag, a, b, ev, evec, NEV, ev_plain)
-    want = ("dia_f64", "gram", "expand", "csr_f64") + \
-        (("dia_f32",) if b is None else ())
-    idle = [k for k in want if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"{tag}: kernels not launched: {idle}")
+    path_launched(tag, launches, ("dia_f64", "gram", "expand", "csr_f64")
+                  + (("dia_f32",) if b is None else ()))
     if b is None:
         # the V-cycle inside the captured f32 stage: its graph holds
         # kernel 1 (the fine level) and kernel 6 (coarse levels, transfers)
@@ -1452,10 +1513,8 @@ def phase_pas(torch, a, b, ev_plain):
               f"{res.sweeps}, nev_conv {nev_conv} of {NEV}, launches "
               f"{launches}")
         fem_gates(tag, a, b, ev, evec, nev_conv, ev_plain)
-        idle = [k for k in ("dia_f64", "gram", "expand", "csr_f64")
-                if launches[k] <= 0]
-        if idle:
-            raise AssertionError(f"{tag}: kernels not launched: {idle}")
+        path_launched(tag, launches, ("dia_f64", "gram", "expand",
+                                      "csr_f64"))
         out[tag] = launches
         if first is None:
             first = res
@@ -1679,6 +1738,20 @@ def phase_profile(torch, op, a_csr):
                            cg_refine=2, cg_mixed=True, verbose=0)
         profile_solve(torch, f"headline solve, fuse={fuse}",
                       lambda: gcg_solve(dia, None, params).num_iter)
+
+
+def profile_wide(torch):
+    """Profiles of the wide solves (``utils.sweep``'s settings at nev=200
+    and nev=400), whole, on operators packed outside the window."""
+    from gcge_tpu_torch import gcg_solve, make_operator
+    from gcge_tpu_torch.utils import sweep
+
+    for nev in WIDE_NEVS:
+        (rows, cols, vals, n), _ = stencil(C_REFERENCE[nev][0])
+        op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+        params = sweep.production_params(nev, op)
+        profile_solve(torch, f"wide solve, nev={nev}",
+                      lambda: gcg_solve(op, None, params).num_iter)
 
 
 def profile_multilevel(torch, a, b):
@@ -2252,6 +2325,317 @@ def phase_utils(torch, a_csr, rows, cols, vals, n):
     print(f"utils phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# the command-line layer, and the reference's production widths
+# --------------------------------------------------------------------------
+
+# the C reference's measured runs of the 27-point stencil (one CPU core,
+# BASELINE.md:32-33): nev -> (nx, iterations, converged, wall s)
+C_REFERENCE = {200: (54, 53, 202, 3800.0), 400: (44, 54, 431, 9406.5)}
+FEM_SHIFT = 5.0
+# the irregular matrix at nev=200 (BASELINE.md:35): nev, the C reference's
+# iterations, converged and wall s
+IRREGULAR_WIDE = (200, 107, 202, 20959.6)
+
+
+def wide_classes(nev: int):
+    """``(m, block, Gram classes, expand classes)`` of a solve with
+    ``utils.sweep``'s settings for ``nev`` (block nev/5, nevMax 2 nev): the
+    classes of :data:`GRAM_CLASSES` and :data:`EXPAND_CLASSES` at its
+    widths."""
+    bs, size_x = nev // 5, 2 * nev
+    m = size_x + 2 * bs
+    return (m, bs, ((m, bs), (m - bs, bs), (bs, bs), (size_x, size_x)),
+            ((m, size_x), (m, bs), (m - bs, bs), (bs, bs)))
+
+
+def phase_kernels_wide(torch, log, nev: int):
+    """Kernels 1-4 at the shapes a solve with ``utils.sweep``'s settings for
+    ``nev`` hands them, against their plain versions, beside the library
+    call, as the headline rows: kernel 1 at the W coupling ``V[:, m - bs:
+    m]`` of the (n, m) basis and at the residual window ``ritz[:, 41:41 +
+    bs]`` of the (n, 2 nev) Ritz block, at an odd offset,
+    kernel 2 at the CG's ``(bs, n)`` operand with strides ``(1, bs)``, and
+    kernels 3 and 4 at every shape class of :func:`wide_classes`."""
+    from gcge_tpu_torch import make_operator
+
+    nx = C_REFERENCE[nev][0]
+    (rows, cols, vals, n), a_csr = stencil(nx)
+    m, bs, grams, expands = wide_classes(nev)
+    gen = torch.Generator(device=DEVICE).manual_seed(nev)
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    offs, ndiag = op.offsets_t, op.values.shape[0]
+    tag = f" nev={nev} (nx={nx})"
+    spmm_rows(torch, log, "dia_f64", *dia_pair(op.values, offs), n,
+              a_csr.nnz, 8 * ndiag * n + 4 * ndiag,
+              csr_tensor(torch, a_csr, torch.float64),
+              [f"V[:, {m - bs}:{m}]", f"ritz[:, 41:{41 + bs}]"], 1e-14, gen,
+              tag=tag, parents={"V": m, "ritz": 2 * nev})
+    spmm_rows(torch, log, "dia_f32", *dia_pair(op.values.float(), offs), n,
+              a_csr.nnz, 4 * ndiag * n + 4 * ndiag,
+              csr_tensor(torch, a_csr, torch.float32), [f"cg{bs}"], 1e-5,
+              gen, tag=tag)
+    kernels_tall(torch, log, n, gen, primary=False, grams=grams,
+                 expands=expands, width=m)
+
+
+def phase_wide(torch, log, nev: int):
+    """One row of ``utils.sweep`` on the card: the 27-point stencil at the C
+    reference's nx with ``sweep.production_params(nev, op)`` (block nev/5,
+    nevMax 2 nev, tolerances 1 and 1e-8, fuse 5, the mixed inner CG), the
+    untimed warm-up solve and the timed one; the headline gates on the
+    first nev pairs, kernels 1-4 launched by both.  Returns the launches."""
+    from gcge_tpu_torch import make_operator
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.solvers import gcg
+    from gcge_tpu_torch.utils import sweep
+
+    nx, c_iters, c_conv, c_wall = C_REFERENCE[nev]
+    (rows, cols, vals, n), a_csr = stencil(nx)
+    m = wide_classes(nev)[0]
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    params = sweep.production_params(nev, op)
+    tag = f"wide nev={nev}"
+    reset_counters()
+    gcg.GRAPH_REPLAYS["cg_stage"] = 0
+    eighs.CALLS["safe_eigh"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with TallCalls() as tall:
+        row = sweep.run_row(op, params)
+    launches = read_counters()
+    res = row.result
+    iters = max(tall.iterations, 1)
+    print(f"{tag} (nx={nx}, n={n}, block {row.block_size}, nevMax "
+          f"{2 * nev}, m={m}, fuse {params.fuse}, cg_mixed "
+          f"{params.cg_mixed}): warm-up solve {row.warmup_s:.3f} s, timed "
+          f"solve {row.wall_s:.3f} s; {res.num_iter} iterations, "
+          f"{res.nev_conv} converged (the C reference on one CPU core: "
+          f"{c_iters} iterations, {c_conv} converged, {c_wall} s); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    print(f"{tag}: over both solves ({tall.iterations} iterations): kernel "
+          f"launches {launches} ("
+          + ", ".join(f"{k} {v / iters:.1f}" for k, v in launches.items()
+                      if v) + " an iteration), graph replays "
+          f"{gcg.GRAPH_REPLAYS['cg_stage']}, host waits: safe_eigh "
+          f"{eighs.CALLS['safe_eigh'] / iters:.2f} an iteration and one a "
+          f"chunk of {params.fuse}")
+    tall.report(tag, log, n)
+    if res.nev_conv < nev:
+        raise AssertionError(f"{tag}: nev_conv {res.nev_conv} < {nev}")
+    stencil_gates(tag, a_csr, nx, nev, res.eval, res.evec)
+    path_launched(tag, launches, ("dia_f64", "dia_f32", "gram", "expand"))
+    return launches
+
+
+def write_mtx(path, rows, cols, vals, n):
+    """A symmetric COO matrix as a MatrixMarket file (the lower triangle,
+    symmetric storage)."""
+    low = rows >= cols
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real symmetric\n")
+        f.write(f"{n} {n} {int(low.sum())}\n")
+        np.savetxt(f, np.column_stack([rows[low] + 1, cols[low] + 1,
+                                       vals[low]]), fmt="%d %d %.17g")
+
+
+def run_cli(argv):
+    """``utils.cli.main(argv)`` on the card: its result, its printed lines
+    (echoed here), its wall and the kernel launches of its solve."""
+    import contextlib
+    import io
+
+    from gcge_tpu_torch.utils import cli
+
+    reset_counters()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = cli.main(argv + ["-device", DEVICE])
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    return res, lines, wall, read_counters()
+
+
+def phase_driver(torch, a_csr, rows, cols, vals, n, ev_headline, fem_a,
+                 fem_b, ev_fem):
+    """``utils.cli.main`` through the card on files: the headline stencil
+    from a MatrixMarket file with the headline phase's parameters (the
+    natural ordering kept; its eigenvalues within 1e-10 of the headline
+    solve's, the headline gates), and the cube FEM pair from PETSc binary
+    files with ``-shift`` (its eigenvalues less the shift within 1e-9 of
+    ``solve(A, B, nev=50)``'s, ``ev_fem``).  Returns the launches of both
+    runs by path."""
+    import tempfile
+
+    from gcge_tpu_torch.io.loaders import save_petsc_binary
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = os.path.join(tmp, f"stencil{NX}.mtx")
+        write_mtx(mtx, rows, cols, vals, n)
+        print(f"driver: wrote {mtx} ({os.path.getsize(mtx) / 2**20:.1f} "
+              f"MiB) in {time.perf_counter() - t0:.1f} s")
+        res, lines, wall, launches = run_cli([
+            "-filename_matA", mtx, "-nevConv", str(NEV), "-blockSize",
+            str(BS), "-gcge_max_niter", str(HEADLINE_KWARGS["max_iter"]),
+            "-gcge_compW_cg_max_iter", str(HEADLINE_KWARGS["cg_max_iter"]),
+            "-gcge_print_conv", "0", "-gcge_print_eval", "3"])
+        tag = "driver (stencil .mtx)"
+        rel = float(np.max(np.abs(res.eval[:NEV] - ev_headline[:NEV])
+                           / np.abs(ev_headline[:NEV])))
+        print(f"{tag}: wall {wall:.3f} s (file load and packing included), "
+              f"{res.num_iter} iterations, nev_conv {res.nev_conv}, "
+              f"eigenvalues vs the headline solve max rel diff {rel:.3e} "
+              f"(tol 1e-10), launches {launches}")
+        if not any(line.startswith("RCM skipped") for line in lines):
+            raise AssertionError(f"{tag}: the natural ordering was not kept")
+        if res.nev_conv < NEV or not rel <= 1e-10:
+            raise AssertionError(f"{tag}: nev_conv {res.nev_conv}, "
+                                 f"eigenvalues {rel:.3e} off")
+        stencil_gates(tag, a_csr, NX, NEV, res.eval, res.evec)
+        path_launched(tag, launches, ("dia_f64", "dia_f32", "gram",
+                                      "expand"))
+        paths["driver_stencil"] = launches
+
+        files = []
+        for name, mat in (("A", fem_a), ("B", fem_b)):
+            coo = mat.tocoo()
+            files.append(os.path.join(tmp, f"fem_{name}.petsc"))
+            save_petsc_binary(files[-1], coo.row, coo.col, coo.data,
+                              coo.shape)
+        res, lines, wall, launches = run_cli([
+            "-filename_matA", files[0], "-filename_matB", files[1],
+            "-nevConv", str(NEV), "-shift", str(FEM_SHIFT),
+            "-gcge_print_conv", "0", "-gcge_print_eval", "3"])
+        tag = "driver (FEM pair, PETSc binary, -shift)"
+        rel = float(np.max(np.abs(res.eval[:NEV] - FEM_SHIFT - ev_fem[:NEV])
+                           / np.abs(ev_fem[:NEV])))
+        print(f"{tag}: wall {wall:.3f} s, {res.num_iter} iterations, "
+              f"nev_conv {res.nev_conv}, eigenvalues less {FEM_SHIFT} vs "
+              f"solve(A, B) max rel diff {rel:.3e} (tol 1e-9), launches "
+              f"{launches}")
+        if res.nev_conv < NEV or not rel <= 1e-9:
+            raise AssertionError(f"{tag}: nev_conv {res.nev_conv}, "
+                                 f"eigenvalues {rel:.3e} off")
+        path_launched(tag, launches, ("dia_f64", "gram", "expand"))
+        paths["driver_fem"] = launches
+    print(f"driver phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def drive_irregular_wide(torch, log, matrix, label, ev_irregular):
+    """The irregular matrix ``matrix`` written to a MatrixMarket file and
+    solved through ``utils.cli.main`` at nev=200, block 40 (nevMax 400,
+    m=480) with the irregular cell's inner budget of 60: at least 200
+    converged, host residuals of the first 200 pairs at most 2e-8 (in the
+    ordering the driver chose), the first 50 eigenvalues within 1e-9 of the
+    irregular phase's; iterations beside the C reference's.  Returns the
+    driver's printed lines, its wall and launches, and the matrix in the
+    driver's ordering as COO arrays and as scipy CSR."""
+    import tempfile
+
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.io.native import (apply_permutation,
+                                          load_matrix_market_native,
+                                          rcm_permutation)
+
+    nev, c_iters, c_conv, c_wall = IRREGULAR_WIDE
+    bs = wide_classes(nev)[1]
+    n = matrix.shape[0]
+    tag = f"irregular nev={nev} (driver, {label})"
+    t0 = time.perf_counter()
+    coo = matrix.tocoo()
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = os.path.join(tmp, "delaunay.mtx")
+        write_mtx(mtx, coo.row, coo.col, coo.data, n)
+        print(f"{tag}: wrote {mtx} ({os.path.getsize(mtx) / 2**20:.1f} MiB)"
+              f" in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        with TallCalls() as tall:
+            res, lines, wall, launches = run_cli([
+                "-filename_matA", mtx, "-nevConv", str(nev), "-blockSize",
+                str(bs), "-gcge_compW_cg_max_iter",
+                str(IRREGULAR_KWARGS["cg_max_iter"]), "-gcge_print_conv", "0",
+                "-gcge_print_eval", "3"])
+        # the driver's ordering, from the same file and the same toolkit
+        rows, cols, vals, _ = load_matrix_market_native(mtx)
+    if any(line.startswith("after RCM") for line in lines):
+        rows, cols, vals = apply_permutation(rows, cols, vals,
+                                             rcm_permutation(rows, cols, n))
+    a_perm = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    tall.report(tag, log, n)
+    layout = [line for line in lines if line.startswith("A layout")]
+    print(f"{tag}: {layout}; wall {wall:.3f} s (file load, RCM and packing "
+          f"included), {res.num_iter} iterations, nev_conv {res.nev_conv} "
+          f"(the C reference on one CPU core: {c_iters} iterations, "
+          f"{c_conv} converged, {c_wall} s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches} (" + ", ".join(
+              f"{k} {v / max(res.num_iter, 1):.1f}"
+              for k, v in launches.items() if v) + " an iteration)")
+    if res.nev_conv < nev:
+        raise AssertionError(f"{tag}: nev_conv {res.nev_conv} < {nev}")
+    resid = residuals(a_perm, res.eval[:nev], res.evec[:, :nev].cpu().numpy())
+    rel = float(np.max(np.abs(res.eval[:NEV] - ev_irregular[:NEV])
+                       / np.abs(ev_irregular[:NEV])))
+    print(f"{tag}: host residuals max {resid.max():.3e} (tol 2e-8); the "
+          f"first {NEV} eigenvalues vs the irregular phase's max rel diff "
+          f"{rel:.3e} (tol 1e-9)")
+    if not resid.max() <= 2e-8 or not rel <= 1e-9:
+        raise AssertionError(f"{tag}: residual {resid.max():.3e} or "
+                             f"eigenvalues {rel:.3e} off")
+    return lines, wall, launches, (rows, cols, vals), a_perm
+
+
+def phase_irregular_wide(torch, log, a, a_rcm, ev_irregular):
+    """The irregular matrix at nev=200 through the driver
+    (:func:`drive_irregular_wide`), first in the irregular phase's RCM
+    ordering, ``a_rcm``, which the driver must pack as CSR; then kernels 6
+    and 5 timed at the operands that solve hands them: ``V[:, 440:480]``
+    of the (n, 480) basis and the CG's ``(40, n)``.  Then in its mesh
+    ordering, ``a``, as a user would pass it: 119 diagonals, which the
+    driver's RCM rule (``gcge_solve.py``'s, with its cap of 65 diagonals)
+    keeps and ``make_operator`` packs as DIA (up to 128 diagonals); its
+    wall and layout beside the first run's.  Returns the launches of both
+    runs."""
+    from gcge_tpu_torch import make_operator
+
+    nev = IRREGULAR_WIDE[0]
+    m, bs = wide_classes(nev)[:2]
+    n = a_rcm.shape[0]
+    lines, wall_rcm, launches, (rows, cols, vals), a_perm = \
+        drive_irregular_wide(torch, log, a_rcm, "RCM ordering", ev_irregular)
+    if "A layout: CsrOperator, B = I" not in lines:
+        raise AssertionError("irregular wide: the driver did not pack the "
+                             "RCM-ordered A as CSR")
+    path_launched(f"irregular nev={nev} (RCM ordering)", launches,
+                  ("gram", "expand", "csr_f32", "csr_f64", "mask_probe"))
+    gen = torch.Generator(device=DEVICE).manual_seed(nev)
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    tag = f" irregular nev={nev}"
+    csr_rows(torch, log, "csr_f64", op, op.values, a_perm,
+             [f"V[:, {m - bs}:{m}]"], 1e-14, gen, tag, {"V": m})
+    csr_rows(torch, log, "csr_f32", op, op.values.float(), a_perm,
+             [f"cg{bs}"], 1e-5, gen, tag)
+    del op
+    lines, wall_mesh, natural, _, _ = drive_irregular_wide(
+        torch, log, a, "mesh ordering", ev_irregular)
+    path_launched(f"irregular nev={nev} (mesh ordering)", natural,
+                  ("gram", "expand"))
+    said = [line.split(":")[0] for line in lines
+            if line.startswith(("after RCM", "RCM skipped"))] + \
+        [line for line in lines if line.startswith("A layout")]
+    print(f"irregular nev={nev}: the driver's wall in the mesh ordering "
+          f"{wall_mesh:.3f} s ({'; '.join(said)}) against {wall_rcm:.3f} s "
+          f"in the RCM ordering (CsrOperator)")
+    return launches, natural
+
+
 KERNELS = (  # key, source, the TPU kernel it replaces
     ("dia_f64", "gcge_tpu_torch/ops/csrc/dia_spmm.cu",
      "gcge_tpu/ops/spmm_pallas.py:207"),
@@ -2283,15 +2667,10 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     import gcge_tpu_torch  # noqa: F401  (fails here, before any output, without the package)
 
-    import scipy.sparse as sps
-
-    from gcge_tpu_torch.io.stencil import build_3d27
-
     card = phase_build()
     phase_fragment_check(torch)
     log = KernelLog(torch)
-    rows, cols, vals, n = build_3d27(NX)
-    a_csr = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    (rows, cols, vals, n), a_csr = stencil(NX)
     paths = {}
     phase_kernels_headline(torch, log, rows, cols, vals, n)
     t0 = time.perf_counter()
@@ -2340,8 +2719,20 @@ def main(argv) -> int:
                                                      hier, pas)
     del hier, pas
     print(f"distributed PAS phase: {time.perf_counter() - t0:.1f} s")
+    paths.update(phase_driver(torch, a_csr, rows, cols, vals, n, ev_headline,
+                              fem_a, fem_b, ev_gen))
+    for nev in WIDE_NEVS:
+        t0 = time.perf_counter()
+        phase_kernels_wide(torch, log, nev)
+        paths[f"wide_{nev}"] = phase_wide(torch, log, nev)
+        print(f"wide phase nev={nev}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["irregular_wide"], paths["irregular_wide_mesh"] = \
+        phase_irregular_wide(torch, log, a, a_rcm, ev_irregular)
+    print(f"irregular wide phase: {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         phase_profile(torch, op, a_csr)
+        profile_wide(torch)
         profile_multilevel(torch, fem_a, fem_b)
         phase_walls(torch, a_csr, a)
     print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s")

@@ -74,6 +74,10 @@ def _mixed_capable_a(a) -> bool:
         a, (DiaOperator, CsrOperator, HybridOperator, SparseOperator))
 
 
+# the fused loop's chunk length on a card (see :func:`_tuned_defaults`)
+CUDA_FUSE = 5
+
+
 def _tuned_defaults(device: torch.device, method: str, a, b) -> dict:
     """Defaults that :func:`solve` applies on CUDA (explicit kwargs win):
     the fused loop in chunks of 5 iterations, auto shift, and the
@@ -91,7 +95,7 @@ def _tuned_defaults(device: torch.device, method: str, a, b) -> dict:
     the TPU, no tuning."""
     if device.type != "cuda" or method != "gcg":
         return {}
-    tuned = {"fuse": 5, "cg_auto_shift": True, "cg_refine": 2}
+    tuned = {"fuse": CUDA_FUSE, "cg_auto_shift": True, "cg_refine": 2}
     b_diag = b is None or (isinstance(b, np.ndarray) and b.ndim == 1) or \
         isinstance(b, (DiagOperator, IdentityOperator))
     if b_diag and _mixed_capable_a(a):

@@ -74,7 +74,7 @@ _LAYOUTS = ["nm", "nm view", "mn", "mn view", "cg"]
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14),
                                        (torch.float32, 1e-6)])
-@pytest.mark.parametrize("m", [1, 10, 16, 40])
+@pytest.mark.parametrize("m", [1, 10, 16, 40, 80])
 @pytest.mark.parametrize("layout", _LAYOUTS)
 def test_dia_kernel_matches_plain(cuda, dtype, tol, m, layout):
     """Kernels 1 and 2 against the plain version in every layout: within
@@ -181,6 +181,44 @@ def test_dia_f64_kernel_at_the_solve_operands(cuda, m, kind):
         x, transposed, "dia_f64", spmm.LAUNCHES, dense)
 
 
+@pytest.mark.parametrize("width,size_x,m", [(480, 400, 40), (960, 800, 80)])
+@pytest.mark.parametrize("window", ["W coupling", "residual"])
+def test_dia_kernels_at_the_wide_solve_operands(cuda, width, size_x, m,
+                                                window):
+    """Kernel 1 on the windows of the wide solves: the W coupling
+    ``V[:, width - m:width]`` of the (n, width) basis (rows 16-byte
+    aligned) and a residual window ``ritz[:, 41:41 + m]`` of the (n,
+    size_x) Ritz block at an odd offset (8-byte aligned only); kernel 2 at
+    the CG's ``(m, n)`` operand with strides ``(1, m)``; on the 27-point
+    Laplacian at nx = 12."""
+    rows, cols, vals, n = _laplacian_27(12)
+    op = make_operator(rows, cols, vals, (n, n), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(width + m)
+    parent = width if window == "W coupling" else size_x
+    base = torch.randn((n, parent), generator=g, dtype=torch.float64,
+                       device=cuda)
+    x = base[:, width - m:] if window == "W coupling" else base[:, 41:41 + m]
+    assert x.stride() == (parent, 1)
+    assert x.data_ptr() % 16 == (0 if window == "W coupling" else 8)
+    dense = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    _check_f64_spmm(
+        lambda z, t: spmm.dia_spmm(op.values, op.offsets_t, z, t),
+        lambda z, t: spmm.dia_spmm_reference(op.values, op.offsets_t, z, t),
+        lambda z, t: spmm.dia_spmm_reference(op.values.abs(), op.offsets_t,
+                                             z, t),
+        x, False, "dia_f64", spmm.LAUNCHES, dense)
+    v32 = op.values.float()
+    xt, _ = _operand("cg", n, m, torch.float32, cuda, m)
+    assert xt.stride() == (1, m)
+    got = spmm.dia_spmm(v32, op.offsets_t, xt, True)
+    assert torch.equal(got, spmm.dia_spmm(v32, op.offsets_t, xt, True))
+    assert got.stride() == (1, m)
+    ref = spmm.dia_spmm_reference(v32, op.offsets_t, xt, True)
+    scale = spmm.dia_spmm_reference(v32.abs(), op.offsets_t, xt.abs(),
+                                    True).max()
+    assert float((got - ref).abs().max()) <= 1e-6 * float(scale)
+
+
 @pytest.mark.parametrize("m", [1, 10, 100])
 @pytest.mark.parametrize("kind", ["even", "odd"] + _LAYOUTS)
 def test_dia_f64_kernel_runs_and_edges(cuda, m, kind):
@@ -262,9 +300,14 @@ def _check_tall(a, b, c):
     assert torch.equal(y, y2)
 
 
-# the main path's shape classes: Gram (p x q) and expand (n x p)(p x q)
+# the main path's shape classes: Gram (p x q) and expand (n x p)(p x q),
+# at nev=50 (m=120) and at the production widths nev=200 (m=480, block 40)
+# and nev=400 (m=960, block 80)
 @pytest.mark.parametrize("p,q", [(120, 10), (110, 10), (10, 10), (100, 100),
-                                 (120, 100), (120, 120)])
+                                 (120, 100), (120, 120),
+                                 (480, 40), (440, 40), (40, 40), (400, 400),
+                                 (480, 400), (960, 80), (880, 80), (80, 80),
+                                 (800, 800), (960, 800)])
 @pytest.mark.parametrize("n", [3001, 1000, 64, 5, 0])
 def test_tall_kernels_main_path_shapes(cuda, n, p, q):
     """Every main-path shape class at small n, n not a multiple of a row

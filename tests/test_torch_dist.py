@@ -496,6 +496,34 @@ def test_one_rank_mesh_equals_no_mesh_bit_for_bit(four, name):
     assert got[name] is True
 
 
+def test_cli_mesh_matches_undistributed_driver(four, tmp_path, capsys):
+    """``utils.cli.main(... -mesh 1)`` on four ranks (the 27-point stencil
+    from a ``.mtx``, a starting block from ``-resume``) gives the
+    undistributed driver's count and eigenvalues within 1e-12, every
+    rank the full eigenvectors; only rank 0 prints, the undistributed
+    driver's lines and the rank count."""
+    from gcge_tpu_torch.utils import cli
+
+    out, _ = four
+    parts = w.result(out, "four", "cli")
+    plain = cli.main(w.cli_inputs(str(tmp_path), "plain"))
+    printed = capsys.readouterr().out.splitlines()
+    ev = plain.eval[:w.CLI_NEV]
+    for p in parts:
+        assert p["nev_conv"] == plain.nev_conv >= w.CLI_NEV
+        assert np.max(np.abs(p["eval"][:w.CLI_NEV] - ev) / np.abs(ev)) \
+            <= 1e-12
+        assert p["evec"].shape == tuple(plain.evec.shape)
+    lines = parts[0]["stdout"].splitlines()
+    lines.remove("distributed over 4 ranks")
+
+    def heads(text):
+        return [line.split()[0] for line in text if line.strip()]
+
+    assert heads(lines) == heads(printed)
+    assert all(p["stdout"] == "" for p in parts[1:])
+
+
 # ---------------------------------------------------------------------------
 # two ranks: the one-call frontend and per-rank ingestion
 # ---------------------------------------------------------------------------

@@ -236,14 +236,16 @@ def test_eigsh_cpu():
 
 
 def test_port_never_imports_jax():
-    """With ``jax`` unimportable, the port imports and runs a tiny CPU
-    solve; no module of gcge_tpu or jax is loaded."""
+    """With ``jax`` unimportable, the port imports (the command-line
+    driver and the sweep too) and runs a tiny CPU solve; no module of
+    gcge_tpu or jax is loaded."""
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
         "import numpy as np, scipy.sparse as sps",
         "import gcge_tpu_torch",
         "from gcge_tpu_torch.utils.convert import operator_from_numpy",
+        "from gcge_tpu_torch.utils import cli, sweep",
         "n = 60",
         "a = sps.diags([-np.ones(n-1), 2*np.ones(n), -np.ones(n-1)],"
         " [-1, 0, 1], format='csr')",

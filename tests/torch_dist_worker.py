@@ -18,6 +18,7 @@ import pickle
 import socket
 import time
 import traceback
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -719,13 +720,58 @@ def task_grid_two(mesh):
     return out
 
 
+CLI_NX, CLI_NEV = 8, 6      # n = 512: four blocks of 128 rows
+
+
+def cli_inputs(outdir: str, tag: str):
+    """The command line's input files in ``outdir``: the 27-point stencil
+    at ``CLI_NX`` as MatrixMarket and a seeded starting block of
+    ``2 CLI_NEV`` vectors as a checkpoint; and the flags of the driver
+    runs, without ``-mesh``."""
+    import scipy.io
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch.io.stencil import build_3d27
+    from gcge_tpu_torch.utils.checkpoint import save_checkpoint
+
+    rows, cols, vals, n = build_3d27(CLI_NX)
+    mtx = os.path.join(outdir, f"cli_{tag}.mtx")
+    ck = os.path.join(outdir, f"cli_x0_{tag}.npz")
+    scipy.io.mmwrite(mtx, sps.coo_matrix((vals, (rows, cols)), shape=(n, n)))
+    x0 = np.random.default_rng(7).standard_normal((n, 2 * CLI_NEV))
+    save_checkpoint(ck, SimpleNamespace(eval=np.zeros(2 * CLI_NEV), evec=x0,
+                                        nev_conv=0, num_iter=0))
+    return ["-filename_matA", mtx, "-resume", ck, "-device", "cpu",
+            "-nevConv", str(CLI_NEV), "-blockSize", "3",
+            "-gcge_print_conv", "0", "-gcge_print_evec", "1"]
+
+
+def task_cli(mesh):
+    """``gcge_tpu_torch.utils.cli.main(... -mesh 1)`` on every rank: the
+    result and what the rank printed."""
+    import contextlib
+    import io
+    import tempfile
+
+    from gcge_tpu_torch.utils import cli
+
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(printed):
+        res = cli.main(cli_inputs(tmp, f"rank{mesh.rank}") + ["-mesh", "1"])
+    return {"eval": res.eval, "nev_conv": res.nev_conv,
+            "num_iter": res.num_iter, "evec": res.evec.numpy(),
+            "stdout": printed.getvalue()}
+
+
 TASKS = {
     "four": {"matvecs": task_matvecs, "solves": task_solves,
              "one_rank": task_one_rank, "mg_transfers": task_mg_transfers,
              "mg_gcg": task_mg_gcg, "pas": task_pas,
              "mg_one_rank": task_mg_one_rank,
              "hybrid_mesh": task_hybrid_mesh, "grid": task_grid,
-             "grid_pas": task_grid_pas, "grid_api": task_grid_api},
+             "grid_pas": task_grid_pas, "grid_api": task_grid_api,
+             "cli": task_cli},
     "two": {"api_solve": task_api_solve, "host_blocks": task_host_blocks,
             "divisibility": task_divisibility, "mg_api": task_mg_api,
             "grid_two": task_grid_two},
