@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (gcge_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --tall [--root DIR]
 
 Nine kernels, four solves (the headline and the irregular problem, each by
 the phased and by the fused loop), the two kernel measurement scripts, the
@@ -165,7 +166,10 @@ Phases, each of which raises on failure:
     shapes those solves hand them (kernel 1 at ``V[:, m - bs:m]`` and the
     residual window ``ritz[:, 41:41 + bs]`` of the (n, 2 nev) Ritz block,
     kernel 2 at the CG's ``(bs, n)`` operand, kernels 3
-    and 4 at every shape class), then one row of ``utils.sweep`` (warm-up
+    and 4 at every shape class, the expand of the restarts (n x 2 nev)
+    (2 nev x 2 nev) among them; then each class that takes the wide path
+    of kernels 3 and 4 on the narrow path and on the wide path in turns, beside
+    the library call), then one row of ``utils.sweep`` (warm-up
     and timed solve): walls, iterations and converged count beside the C
     reference's, peak device memory, launches and host waits an
     iteration, kernels 3/4 by shape class; the headline gates on the
@@ -180,6 +184,13 @@ Phases, each of which raises on failure:
     same matrix in its mesh ordering through the driver, under the same
     gates, with the layout the driver chose and its wall beside the first
     run's.
+
+``--tall`` runs phase 1 and then kernels 3 and 4 alone: every class of
+the headline and the two wide solves, timed as in phases 2 and 19, the two
+paths back to back, and the device time of one call by launch
+(``torch.profiler``); ``--root DIR`` imports the package from DIR instead
+of beside this script (a parent commit unpacked there), so that two trees
+are timed in one call, in turns.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; the whole wide
@@ -567,11 +578,13 @@ def twice_equal(torch, fn, label):
 
 
 def kernels_tall(torch, log, n, gen, primary, grams=GRAM_CLASSES,
-                 expands=EXPAND_CLASSES, width=120):
+                 expands=EXPAND_CLASSES, width=120, col_major=()):
     """Kernels 3 and 4 against their plain versions at every shape class a
     solve of size n gives them (default: nev=50, block 10), with equal bits
     across two launches.  The tall operands are column views of a basis of
-    ``width`` columns, as the solver's are."""
+    ``width`` columns, as the solver's are; the expand classes of
+    ``col_major`` take a column-major C, as the solver's Rayleigh-Ritz
+    eigenvectors are (``torch.linalg.eigh``'s layout)."""
     from gcge_tpu_torch.ops import osgemm
 
     def randn(*shape):
@@ -592,8 +605,10 @@ def kernels_tall(torch, log, n, gen, primary, grams=GRAM_CLASSES,
                 cls=("gram", n, p, q))
     # kernel 4: tall expand; error relative to max (|a| |c|)
     for k, q in expands:
-        a, c = basis[:, :k], randn(k, q)
-        label = f"tall_expand n={n} (n x {k})({k} x {q})"
+        a = basis[:, :k]
+        c = randn(q, k).T if (k, q) in col_major else randn(k, q)
+        label = f"tall_expand n={n} (n x {k})({k} x {q})" + (
+            ", C column-major" if (k, q) in col_major else "")
         twice_equal(torch, lambda: osgemm.tall_expand(a, c), label)
         log.run("expand", label, lambda: osgemm.tall_expand(a, c),
                 lambda: osgemm.tall_expand_reference(a, c),
@@ -2342,11 +2357,195 @@ def wide_classes(nev: int):
     """``(m, block, Gram classes, expand classes)`` of a solve with
     ``utils.sweep``'s settings for ``nev`` (block nev/5, nevMax 2 nev): the
     classes of :data:`GRAM_CLASSES` and :data:`EXPAND_CLASSES` at its
-    widths."""
+    widths, and the expand (n x 2 nev)(2 nev x 2 nev) of its Rayleigh-Ritz
+    restarts (4 a solve)."""
     bs, size_x = nev // 5, 2 * nev
     m = size_x + 2 * bs
     return (m, bs, ((m, bs), (m - bs, bs), (bs, bs), (size_x, size_x)),
-            ((m, size_x), (m, bs), (m - bs, bs), (bs, bs)))
+            ((m, size_x), (m, bs), (m - bs, bs), (bs, bs),
+             (size_x, size_x)))
+
+
+def eigenvector_classes(nev: int):
+    """The expand classes of :func:`wide_classes` whose C is a block of the
+    Rayleigh-Ritz eigenvectors (``c[:, :size_x]``, the restarts'
+    (2 nev x 2 nev)): column-major, as ``torch.linalg.eigh`` returns them."""
+    expands = wide_classes(nev)[3]
+    return (expands[0], expands[-1])
+
+
+def tall_paths_back_to_back(torch, n, width, grams, expands, gen,
+                            col_major=()):
+    """Kernels 3 and 4 at each class of ``grams`` and ``expands`` that takes
+    the wide path, the narrow path (``path="narrow"``) against the wide one in
+    turns (narrow, wide, wide, narrow), each a median of REPS after the L2
+    flush, beside the library call of the same run and the bound.  The
+    operands are the solver's views: columns of an (n, width) basis and a
+    (k x q) block of a (width x width) matrix, column-major for the expand
+    classes of ``col_major``."""
+    from gcge_tpu_torch.ops import osgemm
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device=DEVICE)
+
+    basis, square = randn(n, width), randn(width, width)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    for kernel, classes in ((3, grams), (4, expands)):
+        for p, q in classes:
+            if osgemm.tall_path(p, q) != "wide":
+                continue
+            a = basis[:, :p]
+            if kernel == 3:
+                b = randn(n, q)
+                shape = f"({p}x{q})"
+
+                def fn(path, a=a, b=b):
+                    return osgemm.tall_gram(a, b, path=path)
+
+                def library(a=a, b=b):
+                    return a.T @ b
+            else:
+                c = (square.T if (p, q) in col_major else square)[:p, :q]
+                shape = f"(n x {p})({p} x {q})" + (
+                    ", C column-major" if (p, q) in col_major else "")
+
+                def fn(path, a=a, c=c):
+                    return osgemm.tall_expand(a, c, path=path)
+
+                def library(a=a, c=c):
+                    return a @ c
+            times = {"narrow": [], "wide": []}
+            for path in ("narrow", "wide", "wide", "narrow"):
+                times[path].append(median_ms(torch, lambda: fn(path),
+                                             flush=flush))
+            lib_ms = median_ms(torch, library, flush=flush)
+            bound_ms, bound_by = bound(*tall_cost(n, p, q))
+            wide_ms = min(times["wide"])
+            print(f"kernel {kernel} {shape} n={n} back to back: the narrow path "
+                  f"{times['narrow'][0]:.4f} / {times['narrow'][1]:.4f} ms, "
+                  f"wide path {times['wide'][0]:.4f} / "
+                  f"{times['wide'][1]:.4f} ms; library call {lib_ms:.4f} "
+                  f"ms; bound {bound_ms:.4g} ms by {bound_by}; wide / "
+                  f"library {wide_ms / lib_ms:.2f}, {100 * bound_ms / wide_ms:.0f}"
+                  f" % of the bound")
+
+
+# the device functions of csrc/tall_gemm.cu that a call of kernel 3 or 4
+# launches
+TALL_KERNEL_NAMES = ("tall_expand_wide", "tall_expand_dmma", "tall_gram_wide",
+                     "tall_gram_dmma", "tall_gram_reduce")
+
+
+def tall_phases(torch, gen):
+    """Where a call of kernels 3 and 4 spends its device time at the widest
+    classes (nev=400, n=85,184), by launch, under torch.profiler: kernel 4
+    at (n x 960)(960 x 800) on the narrow path (its q-tile x k-chunk launches,
+    by k-chunk: the first writes Y, the later ones read it back and add)
+    and on the wide path; kernel 3 at (800 x 800) and (880 x 80), the
+    partial sums against the chunk sum.  Then the narrow path's expand at one row tile
+    a block (n = 64 x SMs), whose launches are its fixed cost: C staged
+    into shared memory and the ring filled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcge_tpu_torch.ops import _build, osgemm
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device=DEVICE)
+
+    n = C_REFERENCE[400][0] ** 3
+    basis, square, other = randn(n, 960), randn(960, 960), randn(n, 800)
+    tiny = 64 * _build.sm_count(torch.device(DEVICE))
+    cases = (
+        ("kernel 4 (n x 960)(960 x 800), C column-major", n, 960, 800,
+         lambda path: osgemm.tall_expand(basis, square.T[:, :800],
+                                         path=path)),
+        ("kernel 3 (800 x 800)", n, 800, 800,
+         lambda path: osgemm.tall_gram(basis[:, :800], other, path=path)),
+        ("kernel 3 (880 x 80)", n, 880, 80,
+         lambda path: osgemm.tall_gram(basis[:, :880], other[:, :80],
+                                       path=path)),
+        ("kernel 4 (n x 960)(960 x 800), one row tile a block", tiny, 960,
+         800, lambda path: osgemm.tall_expand(basis[:tiny],
+                                              square.T[:, :800], path=path)))
+    for label, rows, p, q, fn in cases:
+        library = (lambda: basis[:rows, :p] @ square.T[:p, :q]) \
+            if label.startswith("kernel 4") else \
+            (lambda: basis[:, :p].T @ other[:, :q])
+        library()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            library()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA})
+        print(f"phases of {label} n={rows}, the library call's kernels: "
+              + "; ".join(names))
+        for path in ("narrow", "wide"):
+            fn(path)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(path)
+                torch.cuda.synchronize()
+            runs = collections.defaultdict(list)
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    name = next((k for k in TALL_KERNEL_NAMES if k in e.name),
+                                e.name[:60])
+                    runs[name].append(e.time_range.elapsed_us())
+            total = sum(sum(v) for v in runs.values())
+            if not runs:                       # the profiler saw no kernel
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(path)
+                end.record()
+                end.synchronize()
+                runs["(CUDA events, all launches)"] = [
+                    1e3 * start.elapsed_time(end)]
+                total = runs["(CUDA events, all launches)"][0]
+            parts = "; ".join(
+                f"{name} {len(us)} x, {sum(us) / 1e3:.4f} ms (mean "
+                f"{np.mean(us) / 1e3:.4f}, min {min(us) / 1e3:.4f}, max "
+                f"{max(us) / 1e3:.4f})" for name, us in runs.items())
+            print(f"phases of {label} n={rows} on the {path} path: "
+                  f"{total / 1e3:.4f} ms on the device: {parts}")
+            if path == "narrow" and p * q > 128 * 128:
+                plan = osgemm.expand_plan(rows, p, q, _build.sm_count(
+                    torch.device(DEVICE)))
+                k_chunks = -(-p // plan.k_chunk)
+                launches = runs.get("tall_expand_dmma", [])
+                if launches:
+                    by_chunk = [np.mean(launches[i::k_chunks]) / 1e3
+                                for i in range(k_chunks)]
+                    print(f"phases of {label} n={rows}, the narrow path: "
+                          f"{len(launches)} launches (q-tile {plan.q_tile}, "
+                          f"k-chunk {plan.k_chunk}); mean ms by k-chunk "
+                          + ", ".join(f"{t:.4f}" for t in by_chunk))
+
+
+def phase_tall(torch, has_paths: bool):
+    """``--tall``: kernels 3 and 4 alone, at every class of the nev=50
+    headline solve and of the two production widths, against their plain
+    versions, timed as in the kernel phases; with a package that has both
+    paths, also the two paths back to back and the phases of both.  With
+    ``--root DIR`` the package is imported from DIR (a parent commit
+    unpacked there), so that two trees can be timed in one call."""
+    log = KernelLog(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    kernels_tall(torch, log, NX ** 3, gen, primary=True)
+    for nev in WIDE_NEVS:
+        m, _, grams, expands = wide_classes(nev)
+        n = C_REFERENCE[nev][0] ** 3
+        cols = eigenvector_classes(nev)
+        kernels_tall(torch, log, n, gen, primary=False, grams=grams,
+                     expands=expands, width=m, col_major=cols)
+        if has_paths:
+            tall_paths_back_to_back(torch, n, m, grams, expands, gen, cols)
+    if has_paths:
+        tall_phases(torch, gen)
 
 
 def phase_kernels_wide(torch, log, nev: int):
@@ -2375,8 +2574,10 @@ def phase_kernels_wide(torch, log, nev: int):
               a_csr.nnz, 4 * ndiag * n + 4 * ndiag,
               csr_tensor(torch, a_csr, torch.float32), [f"cg{bs}"], 1e-5,
               gen, tag=tag)
+    cols = eigenvector_classes(nev)
     kernels_tall(torch, log, n, gen, primary=False, grams=grams,
-                 expands=expands, width=m)
+                 expands=expands, width=m, col_major=cols)
+    tall_paths_back_to_back(torch, n, m, grams, expands, gen, cols)
 
 
 def phase_wide(torch, log, nev: int):
@@ -2664,11 +2865,23 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
+    root = argv[argv.index("--root") + 1] if "--root" in argv else HERE
+    sys.path.insert(0, os.path.abspath(root))
     import gcge_tpu_torch  # noqa: F401  (fails here, before any output, without the package)
 
     card = phase_build()
     phase_fragment_check(torch)
+    if "--tall" in argv:
+        import inspect
+
+        from gcge_tpu_torch.ops import osgemm
+
+        phase_tall(torch, "path" in inspect.signature(
+            osgemm.tall_gram).parameters)
+        print(f"chip_smoke --tall ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
     log = KernelLog(torch)
     (rows, cols, vals, n), a_csr = stencil(NX)
     paths = {}

@@ -41,6 +41,10 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _P, _P, _P),
     "gcge_tall_expand_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P, _P),
+    "gcge_tall_gram_wide_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P),
+    "gcge_tall_expand_wide_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _P, _P),
     "gcge_dmma_tile_check": (_P, _P, _P, _P),
     "gcge_csr_spmm_f64": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P,
                           _I, _I, _P, _I, _I, _I, _I, _I, _P),

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kConsumers = 8;  // warps that multiply
@@ -512,6 +514,403 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- the wide path of kernels 3 and 4 ---------------------------------------
+// For the classes of the production widths with both sides wide (a p, q or
+// k above 128 and the other at least 64: the (880 x 80) to (960 x 800)
+// products of nev = 400, (400 x 400) and (480 x 400) of nev = 200), which
+// are bound by their f64 operations or by bytes too wide for the resident
+// designs above.  A block multiplies one kBM x kBN output tile with WM x WN
+// warps of MT x NT m16n8k8 mma tiles (a warp's m-tiles wm, wm + WM, ...,
+// its n-tiles wn, wn + WN, ...: a ragged last tile leaves every warp a
+// share, and tiles past the operand are skipped whole), accumulators in
+// registers across the whole contraction; each A fragment feeds NT mmas,
+// each B fragment MT.  All threads copy (cp.async, 16 bytes where VEC = 2,
+// with a per-thread plan computed once: StageCopy) into a STAGES-deep ring
+// of k-slices of K, and all multiply; MINB blocks share an SM.
+//
+// The tensor pipe is fed from registers without a gap: a warp loads the
+// fragments of its next k-step while the mmas of this one run (B into the
+// other of two buffers, A m-tile by m-tile right after the mmas that read
+// it), and the ring has no block-wide barrier (wide_loop).  What holds this
+// loop on the H100 is neither the f64 mma rate (mma.sync reaches its peak
+// from registers with a few warps an SM) nor the copy rate from L2, but the
+// latency of copies and fragment loads that 8 warps an SM do not hide, so
+// the loop has no __syncthreads (a block-wide barrier a slice stalls every
+// warp on the slowest) and the copies a per-thread plan (a general row walk
+// spends the issue slots the mmas need).  Blocks of 2 x 2 warps (the
+// shapes cuBLAS's DGEMM takes here, several blocks an SM) and blocks of 16
+// warps of 2 x 4 mma tiles (which spill) measured slower than this block
+// at every class.
+//
+// Blocks are not persistent: the hardware hands a block to the SM that
+// frees first, which evens out tiles of unequal size, and consecutive
+// blocks share an operand band in L2 (expand: the q-tiles of one row band
+// of A; Gram: the p- and q-tiles of one chunk of rows).
+//
+// Shared memory (bank-conflict free):
+//   expand, A stage [kBM rows][kPitchA]: a thread reads 16 bytes (k = 2t,
+//     2t + 1 of its row, the same map as kernel 4 above); kPitchA = 8 (mod
+//     16) puts rows g and g + 1 of a quarter warp on distinct banks;
+//   [K rows][kPitchM or kPitchN] for the Gram's A and B and the expand's C:
+//     a thread reads rows 2t and 2t + 1 of its column g, 8 bytes each; a
+//     pitch = 2 (mod 8) puts the 16 lanes of a half warp on distinct banks.
+template <int WM, int WN, int MT, int NT, int K, int STAGES, int MINB>
+struct Wide {
+  static constexpr int kWM = WM, kWN = WN, kMT = MT, kNT = NT;
+  static constexpr int kK = K, kStages = STAGES, kMinBlocks = MINB;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kBM = 16 * MT * WM;  // rows of the output tile
+  static constexpr int kBN = 8 * NT * WN;   // its columns
+  static constexpr int kSteps = K / 8;
+  static constexpr int kPitchA = K + 8;
+  static constexpr int kPitchM = kBM + 2;
+  static constexpr int kPitchN = kBN + 2;
+  static constexpr int kStageA = kBM * kPitchA;  // doubles, expand
+  // C's stage: [K][kPitchN], or [kBN][K] for a column-major C
+  static constexpr int kStageC = K * kPitchN > kBN * K ? K * kPitchN : kBN * K;
+  static constexpr int kStageGram = K * (kPitchM + kPitchN);
+  static constexpr int kSmemExpand = 8 * STAGES * (kStageA + kStageC);
+  static constexpr int kSmemGram = 8 * STAGES * kStageGram;
+  static_assert(kSteps % 2 == 0, "B fragments alternate by k-step parity");
+  static_assert(kPitchA % 16 == 8 && kPitchM % 8 == 2 && kPitchN % 8 == 2,
+                "conflict-free pitches");
+};
+
+// the block both wide kernels launch (osgemm.WIDE): 8 warps of 4 x 4 mma
+// tiles over a 128 x 128 tile, k-slices of 32 through 3 stages (222,720
+// bytes), one block an SM
+using WideShape = Wide<2, 4, 4, 4, 32, 3, 1>;
+
+// The copies of one operand's stage, [ROWS][WIDTH] doubles at row pitch
+// PITCH, from a strided source: thread tid of THREADS copies chunk
+// tid % kPerRow of VEC doubles of rows tid / kPerRow + i kRowStep.  The
+// thread's source and shared address are computed once; a stage then costs
+// a few instructions a copy (a general row walk with 64-bit index
+// arithmetic takes tens).  SWZ: the
+// 16-byte chunk c of row r lands at chunk c ^ 4 (r & 1), so that rows g and
+// g + 1 of a quarter warp read distinct banks without a padded pitch.
+template <int VEC, int THREADS, int ROWS, int WIDTH, int PITCH,
+          bool SWZ = false>
+struct StageCopy {
+  static constexpr int kPerRow = WIDTH / VEC;
+  static constexpr int kRowStep = THREADS / kPerRow;
+  static constexpr int kPasses = ROWS / kRowStep;
+  static_assert(THREADS % kPerRow == 0 && ROWS % kRowStep == 0,
+                "a stage is whole passes of the block");
+  static_assert(!SWZ || (VEC == 2 && kRowStep % 2 == 0 && WIDTH % 16 == 0),
+                "a swizzled row keeps its parity across passes");
+  const double* src;  // the thread's first chunk, at shift 0
+  unsigned dst;       // its shared address in ring slot 0
+
+  __device__ __forceinline__ StageCopy(const double* g, int64_t rs,
+                                       int64_t cs, const double* ring) {
+    const int row = threadIdx.x / kPerRow;
+    const int col = (threadIdx.x % kPerRow) * VEC;
+    src = g + row * rs + col * cs;
+    dst = smem_u32(ring + row * PITCH +
+                   (SWZ ? ((col >> 1) ^ ((row & 1) << 2)) << 1 : col));
+  }
+
+  // the stage at src + shift into the slot `slot_bytes` past slot 0; rows
+  // at or past rows_valid and columns at or past cols_valid are zeros
+  __device__ __forceinline__ void operator()(int64_t shift, int64_t rs,
+                                             unsigned slot_bytes,
+                                             int rows_valid,
+                                             int cols_valid) const {
+    const int row = threadIdx.x / kPerRow;
+    int valid = cols_valid - (int)(threadIdx.x % kPerRow) * VEC;
+    valid = valid < 0 ? 0 : (valid > VEC ? VEC : valid);
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int bytes = row + i * kRowStep < rows_valid ? 8 * valid : 0;
+      const double* s = src + shift + (int64_t)(i * kRowStep) * rs;
+      const unsigned d = dst + slot_bytes + i * kRowStep * PITCH * 8;
+      if (VEC == 2)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         d),
+                     "l"(bytes ? s : src), "r"(bytes)
+                     : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                         d),
+                     "l"(bytes ? s : src), "r"(bytes)
+                     : "memory");
+    }
+  }
+};
+
+// The main loop of both wide kernels over `slices` k-slices.  copy(j, slot)
+// issues this thread's cp.async copies of slice j into ring slot `slot`;
+// load_a(slot, step, i, a) and load_b(slot, step, b) read a warp's
+// fragments of k-step `step` of the slot.  No block-wide barrier: each
+// slot has a full barrier (every thread's copies landed) and an empty one
+// (every warp past its reads), and a thread refills the slot of slice j - 1
+// with slice j + STAGES - 1 during slice j, so warps drift apart by up to
+// a slice.  The copies issue in the last k-step of a slice, after its
+// first NT mmas.
+template <class S, class Copy, class LoadA, class LoadB>
+__device__ __forceinline__ void wide_loop(int slices, int mt_live,
+                                          int nt_live, Copy copy,
+                                          LoadA load_a, LoadB load_b,
+                                          double (&acc)[S::kMT][S::kNT][4]) {
+  __shared__ uint64_t full[S::kStages], empty[S::kStages];
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      bar_init(&full[s], S::kThreads);
+      bar_init(&empty[s], S::kThreads / 32);
+    }
+  }
+  __syncthreads();
+  auto fill = [&](int j) {  // slice j into slot j % kStages
+    const int slot = j % S::kStages;
+    if (j >= S::kStages) bar_wait(&empty[slot], (j / S::kStages - 1) & 1);
+    copy(j, slot);
+    bar_arrive_copies(&full[slot]);
+  };
+  double fa[S::kMT][4], fb[2][S::kNT][2];
+#pragma unroll
+  for (int j = 0; j < S::kStages - 1; ++j)
+    if (j < slices) fill(j);
+  bar_wait(&full[0], 0);
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+    if (i < mt_live) load_a(0, 0, i, fa[i]);
+  load_b(0, 0, fb[0]);
+  for (int j = 0; j < slices; ++j) {
+    const int slot = j % S::kStages;
+#pragma unroll
+    for (int s = 0; s < S::kSteps; ++s) {
+      int next_slot = slot, next_step = s + 1;
+      const bool more = s < S::kSteps - 1 || j + 1 < slices;
+      if (s == S::kSteps - 1) {
+        // this warp is past its reads of slot j; slice j + 1 must be in
+        __syncwarp();
+        if (lane == 0) bar_arrive(&empty[slot]);
+        next_slot = (j + 1) % S::kStages;
+        next_step = 0;
+        if (more) bar_wait(&full[next_slot], ((j + 1) / S::kStages) & 1);
+      }
+      if (more) load_b(next_slot, next_step, fb[(s + 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < S::kMT; ++i) {
+        if (i < mt_live) {
+#pragma unroll
+          for (int jn = 0; jn < S::kNT; ++jn)
+            if (jn < nt_live)
+              dmma(acc[i][jn], fa[i][0], fa[i][1], fa[i][2], fa[i][3],
+                   fb[s & 1][jn][0], fb[s & 1][jn][1]);
+          if (more) load_a(next_slot, next_step, i, fa[i]);
+        }
+        if (s == S::kSteps - 1 && i == 0 && j + S::kStages - 1 < slices)
+          fill(j + S::kStages - 1);
+      }
+    }
+  }
+}
+
+// Stores a warp's accumulators into rows r0 + (m-tile rows) below r_end and
+// columns c0 + (n-tile columns) below c_end of out (row pitch `ld`, 16-byte
+// stores where ld is even).
+template <class S>
+__device__ __forceinline__ void wide_store(
+    const double (&acc)[S::kMT][S::kNT][4], double* __restrict__ out,
+    int64_t ld, int64_t r0, int64_t r_end, int c0, int c_end, int wm,
+    int wn, int g, int t) {
+  const bool vec_out = (ld & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i) {
+#pragma unroll
+    for (int jn = 0; jn < S::kNT; ++jn) {
+      const int col = c0 + (wn + S::kWN * jn) * 8 + 2 * t;
+      if (col >= c_end) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = r0 + (wm + S::kWM * i) * 16 + g + 8 * h;
+        if (row >= r_end) continue;
+        double* dst = out + row * ld + col;
+        if (vec_out && col + 1 < c_end) {
+          *reinterpret_cast<double2*>(dst) =
+              make_double2(acc[i][jn][2 * h], acc[i][jn][2 * h + 1]);
+        } else {
+          dst[0] = acc[i][jn][2 * h];
+          if (col + 1 < c_end) dst[1] = acc[i][jn][2 * h + 1];
+        }
+      }
+    }
+  }
+}
+
+// tiles of a warp below `count` tiles of the block: w, w + WARPS, ...
+template <int WARPS, int MAX>
+__device__ __forceinline__ int live_tiles(int count, int w) {
+  const int live = (count - w + WARPS - 1) / WARPS;
+  return live < 0 ? 0 : (live > MAX ? MAX : live);
+}
+
+// Y = A C for the output tile (row band, q-tile) of block x (q-tiles
+// fastest), over all of k; band <= kBM, q_tile <= kBN.  VEC: A's copies.
+// C_MODE: 1, C's rows start on 16 bytes and are contiguous (16-byte copies
+// into [K][kPitchN]); 2, C is column-major with columns on 16 bytes (as
+// eigh returns its eigenvectors: 16-byte copies of C's columns into a
+// swizzled [kBN][K] stage, and one 16-byte load a B fragment); 0, any
+// strides (8-byte copies into [K][kPitchN]).
+template <int VEC, int C_MODE, class S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+    tall_expand_wide(const double* __restrict__ a, int64_t as0, int64_t as1,
+                     const double* __restrict__ c, int64_t cs0, int64_t cs1,
+                     int64_t n, int k, int q, int band, int q_tile,
+                     double* __restrict__ y) {
+  extern __shared__ __align__(16) double smem[];
+  double* ring_a = smem;
+  double* ring_c = smem + S::kStages * S::kStageA;
+  const int q_tiles = (q + q_tile - 1) / q_tile;
+  const int64_t r0 = (int64_t)(blockIdx.x / q_tiles) * band;
+  const int q0 = (int)(blockIdx.x % q_tiles) * q_tile;
+  const int rows = (int)(n - r0 < band ? n - r0 : band);
+  const int qc = min(q_tile, q - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % S::kWM, wn = warp / S::kWM;
+  const int nt_count = (qc + 7) / 8;
+
+  const StageCopy<VEC, S::kThreads, S::kBM, S::kK, S::kPitchA> copy_a(
+      a + r0 * as0, as0, as1, ring_a);
+  using CopyC = std::conditional_t<
+      C_MODE == 2, StageCopy<2, S::kThreads, S::kBN, S::kK, S::kK, true>,
+      StageCopy<C_MODE == 1 ? 2 : 1, S::kThreads, S::kK, S::kBN,
+                S::kPitchN>>;
+  // a column-major C is copied as C^T, whose rows are C's columns
+  const int64_t c_rows = C_MODE == 2 ? cs1 : cs0;
+  const CopyC copy_c(c + q0 * cs1, c_rows, C_MODE == 2 ? cs0 : cs1, ring_c);
+  auto copy = [&](int j, int slot) {
+    const int k0 = j * S::kK, kc = min(S::kK, k - k0);
+    copy_a(k0 * as1, as0, slot * S::kStageA * 8, rows, kc);
+    if (C_MODE == 2)
+      copy_c(k0 * cs0, c_rows, slot * S::kStageC * 8, qc, kc);
+    else
+      copy_c(k0 * cs0, c_rows, slot * S::kStageC * 8, kc, qc);
+  };
+  auto load_a = [&](int slot, int s, int i, double (&fa)[4]) {
+    const double* pa = ring_a + slot * S::kStageA +
+                       ((wm + S::kWM * i) * 16 + g) * S::kPitchA + 8 * s +
+                       2 * t;
+    const double2 lo = *reinterpret_cast<const double2*>(pa);
+    const double2 hi =
+        *reinterpret_cast<const double2*>(pa + 8 * S::kPitchA);
+    fa[0] = lo.x;
+    fa[1] = hi.x;
+    fa[2] = lo.y;
+    fa[3] = hi.y;
+  };
+  auto load_b = [&](int slot, int s, double (&fb)[S::kNT][2]) {
+    if (C_MODE == 2) {  // row n of C^T, chunk 4s + t (k = 8s + 2t, + 1)
+      const double* pb = ring_c + slot * S::kStageC + (wn * 8 + g) * S::kK +
+                         (((4 * s + t) ^ ((g & 1) << 2)) << 1);
+#pragma unroll
+      for (int jn = 0; jn < S::kNT; ++jn) {
+        if (wn + S::kWN * jn < nt_count) {
+          const double2 v = *reinterpret_cast<const double2*>(
+              pb + 8 * S::kWN * jn * S::kK);
+          fb[jn][0] = v.x;
+          fb[jn][1] = v.y;
+        }
+      }
+    } else {
+      const double* pb = ring_c + slot * S::kStageC +
+                         (8 * s + 2 * t) * S::kPitchN + wn * 8 + g;
+#pragma unroll
+      for (int jn = 0; jn < S::kNT; ++jn) {
+        if (wn + S::kWN * jn < nt_count) {
+          fb[jn][0] = pb[8 * S::kWN * jn];
+          fb[jn][1] = pb[8 * S::kWN * jn + S::kPitchN];
+        }
+      }
+    }
+  };
+
+  double acc[S::kMT][S::kNT][4];
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::kNT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0;
+  wide_loop<S>((k + S::kK - 1) / S::kK,
+               live_tiles<S::kWM, S::kMT>((rows + 15) / 16, wm),
+               live_tiles<S::kWN, S::kNT>(nt_count, wn), copy, load_a,
+               load_b, acc);
+  wide_store<S>(acc, y, q, r0, r0 + rows, q0, q0 + qc, wm, wn, g, t);
+}
+
+// The partial C = A^T B of one chunk of rows for the output tile (p-tile,
+// q-tile) of block x (tiles fastest), into part[chunk]; tall_gram_reduce
+// adds the chunks in order.
+template <int VEC, class S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+    tall_gram_wide(const double* __restrict__ a, int64_t as0, int64_t as1,
+                   const double* __restrict__ b, int64_t bs0, int64_t bs1,
+                   int64_t n, int p, int q, int64_t rows_per_chunk,
+                   double* __restrict__ part) {
+  extern __shared__ __align__(16) double smem[];
+  const int q_tiles = (q + S::kBN - 1) / S::kBN;
+  const int tiles = ((p + S::kBM - 1) / S::kBM) * q_tiles;
+  const int64_t chunk = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x % tiles);
+  const int p0 = (tile / q_tiles) * S::kBM, q0 = (tile % q_tiles) * S::kBN;
+  const int pc = min(S::kBM, p - p0), qc = min(S::kBN, q - q0);
+  const int64_t r0 = chunk * rows_per_chunk;
+  const int64_t r1 = r0 + rows_per_chunk < n ? r0 + rows_per_chunk : n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % S::kWM, wn = warp / S::kWM;
+  const int nt_count = (qc + 7) / 8;
+  double* ring_b = smem + S::kK * S::kPitchM;
+
+  const StageCopy<VEC, S::kThreads, S::kK, S::kBM, S::kPitchM> copy_a(
+      a + p0 * as1 + r0 * as0, as0, as1, smem);
+  const StageCopy<VEC, S::kThreads, S::kK, S::kBN, S::kPitchN> copy_b(
+      b + q0 * bs1 + r0 * bs0, bs0, bs1, ring_b);
+  auto copy = [&](int j, int slot) {
+    const int64_t r = (int64_t)j * S::kK;
+    const int rows = (int)(r1 - r0 - r < S::kK ? r1 - r0 - r : S::kK);
+    copy_a(r * as0, as0, slot * S::kStageGram * 8, rows, pc);
+    copy_b(r * bs0, bs0, slot * S::kStageGram * 8, rows, qc);
+  };
+  auto load_a = [&](int slot, int s, int i, double (&fa)[4]) {
+    const double* pa = smem + slot * S::kStageGram +
+                       (8 * s + 2 * t) * S::kPitchM +
+                       (wm + S::kWM * i) * 16 + g;
+    fa[0] = pa[0];
+    fa[1] = pa[8];
+    fa[2] = pa[S::kPitchM];
+    fa[3] = pa[S::kPitchM + 8];
+  };
+  auto load_b = [&](int slot, int s, double (&fb)[S::kNT][2]) {
+    const double* pb = ring_b + slot * S::kStageGram +
+                       (8 * s + 2 * t) * S::kPitchN + wn * 8 + g;
+#pragma unroll
+    for (int jn = 0; jn < S::kNT; ++jn) {
+      if (wn + S::kWN * jn < nt_count) {
+        fb[jn][0] = pb[8 * S::kWN * jn];
+        fb[jn][1] = pb[8 * S::kWN * jn + S::kPitchN];
+      }
+    }
+  };
+
+  double acc[S::kMT][S::kNT][4];
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::kNT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0;
+  wide_loop<S>((int)((r1 - r0 + S::kK - 1) / S::kK),
+               live_tiles<S::kWM, S::kMT>((pc + 15) / 16, wm),
+               live_tiles<S::kWN, S::kNT>(nt_count, wn), copy, load_a,
+               load_b, acc);
+  wide_store<S>(acc, part + chunk * (int64_t)p * q, q, p0, p0 + pc, q0,
+                q0 + qc, wm, wn, g, t);
+}
+
 // One 16 x 8 x 8 tile through dmma(), fragments read straight from device
 // memory: the check of the fragment layout the two kernels rely on.
 __global__ void dmma_tile_check(const double* __restrict__ a,
@@ -568,6 +967,40 @@ int launch_expand(int64_t grid, int64_t smem, cudaStream_t s,
   if (err != 0) return err;
   tall_expand_dmma<VEC, NTW, SETS><<<(unsigned)grid, kThreads, smem, s>>>(
       a, as0, as1, c, cs0, cs1, n, kc, qc, y, ys0, accumulate);
+  return (int)cudaGetLastError();
+}
+
+// an SM's 233,472 bytes of shared memory, 1 KB of it kept for each block
+static_assert(WideShape::kMinBlocks * (WideShape::kSmemExpand + 1024) <=
+                      233472 &&
+                  WideShape::kSmemExpand <= kMaxDynamicSmem,
+              "the wide rings of kMinBlocks blocks fit an SM");
+
+template <int VEC>
+int launch_gram_wide(int64_t blocks, cudaStream_t s, const double* a,
+                     int64_t as0, int64_t as1, const double* b, int64_t bs0,
+                     int64_t bs1, int64_t n, int p, int q, int64_t rows,
+                     double* part) {
+  static bool done[kMaxDevices];
+  int err = allow_smem(tall_gram_wide<VEC, WideShape>, done);
+  if (err != 0) return err;
+  tall_gram_wide<VEC, WideShape>
+      <<<(unsigned)blocks, WideShape::kThreads, WideShape::kSmemGram, s>>>(
+          a, as0, as1, b, bs0, bs1, n, p, q, rows, part);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC, int C_MODE>
+int launch_expand_wide(int64_t blocks, cudaStream_t s, const double* a,
+                       int64_t as0, int64_t as1, const double* c, int64_t cs0,
+                       int64_t cs1, int64_t n, int k, int q, int band,
+                       int q_tile, double* y) {
+  static bool done[kMaxDevices];
+  int err = allow_smem(tall_expand_wide<VEC, C_MODE, WideShape>, done);
+  if (err != 0) return err;
+  tall_expand_wide<VEC, C_MODE, WideShape>
+      <<<(unsigned)blocks, WideShape::kThreads, WideShape::kSmemExpand, s>>>(
+          a, as0, as1, c, cs0, cs1, n, k, q, band, q_tile, y);
   return (int)cudaGetLastError();
 }
 
@@ -651,6 +1084,64 @@ extern "C" int gcge_tall_expand_f64(const void* a, int64_t as0, int64_t as1,
     }
   }
   return 0;
+}
+
+// The wide path of C = A^T B: chunks x tiles blocks of WideShape's kBM x
+// kBN, then the chunk sum in chunk order.
+extern "C" int gcge_tall_gram_wide_f64(const void* a, int64_t as0,
+                                       int64_t as1, const void* b,
+                                       int64_t bs0, int64_t bs1, int64_t n,
+                                       int64_t p, int64_t q, int64_t nchunks,
+                                       int64_t rows_per_chunk, int64_t vec,
+                                       void* part, void* c, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t blocks = nchunks *
+                         ((p + WideShape::kBM - 1) / WideShape::kBM) *
+                         ((q + WideShape::kBN - 1) / WideShape::kBN);
+  const double* ad = (const double*)a;
+  const double* bd = (const double*)b;
+  double* pd = (double*)part;
+  const int err =
+      vec == 2 ? launch_gram_wide<2>(blocks, s, ad, as0, as1, bd, bs0, bs1, n,
+                                     (int)p, (int)q, rows_per_chunk, pd)
+               : launch_gram_wide<1>(blocks, s, ad, as0, as1, bd, bs0, bs1, n,
+                                     (int)p, (int)q, rows_per_chunk, pd);
+  if (err != 0) return err;
+  const int64_t pq = p * q;
+  tall_gram_reduce<<<(unsigned)((pq + 31) / 32), 256, 0, s>>>(pd, nchunks, pq,
+                                                              (double*)c);
+  return (int)cudaGetLastError();
+}
+
+// The wide path of Y = A C: one launch, a block for each (row band, q-tile)
+// of Y, q-tiles fastest; Y written once.  vec: A's copies; c_mode: C's
+// layout (tall_expand_wide).
+extern "C" int gcge_tall_expand_wide_f64(const void* a, int64_t as0,
+                                         int64_t as1, const void* c,
+                                         int64_t cs0, int64_t cs1, int64_t n,
+                                         int64_t k, int64_t q, int64_t band,
+                                         int64_t q_tile, int64_t vec,
+                                         int64_t c_mode, void* y,
+                                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t blocks = ((n + band - 1) / band) * ((q + q_tile - 1) / q_tile);
+  const double* ad = (const double*)a;
+  const double* cd = (const double*)c;
+  double* yd = (double*)y;
+#define GCGE_EXPAND_WIDE(V, M)                                                \
+  launch_expand_wide<V, M>(blocks, s, ad, as0, as1, cd, cs0, cs1, n, (int)k, \
+                           (int)q, (int)band, (int)q_tile, yd)
+  int err;
+  if (vec == 2)
+    err = c_mode == 2   ? GCGE_EXPAND_WIDE(2, 2)
+          : c_mode == 1 ? GCGE_EXPAND_WIDE(2, 1)
+                        : GCGE_EXPAND_WIDE(2, 0);
+  else
+    err = c_mode == 2   ? GCGE_EXPAND_WIDE(1, 2)
+          : c_mode == 1 ? GCGE_EXPAND_WIDE(1, 1)
+                        : GCGE_EXPAND_WIDE(1, 0);
+#undef GCGE_EXPAND_WIDE
+  return err;
 }
 
 extern "C" int gcge_dmma_tile_check(const void* a, const void* b, void* d,

@@ -12,8 +12,19 @@ same two products directly (``csrc/tall_gemm.cu``):
   ``c (k, q)`` (kernel 4: C resident in shared memory, persistent blocks
   over row tiles of A).
 
+Each kernel has two paths (:func:`tall_path`).  The ``"narrow"`` path is
+the design above, for the classes of a nev=50 solve (p, q, k at most
+128), which are bound by their bytes.  The ``"wide"`` path takes the
+classes with one side above 128 and the other at least 64 (the
+production widths, m = 480 and 960, bound by their f64 operations where
+both sides are wide): 128 x 128 output tiles of register-blocked mma
+warps over the whole contraction, in one launch (the expand) or one
+launch and the ordered chunk sum (the Gram).
+
 Every launch decision is a Python function of shapes, strides and
-``data_ptr()`` (:func:`copy_vec`, :func:`gram_plan`, :func:`expand_plan`),
+``data_ptr()`` (:func:`copy_vec`, :func:`c_mode`, :func:`tall_path`,
+:func:`gram_plan`, :func:`expand_plan`, :func:`wide_gram_plan`,
+:func:`wide_expand_plan`),
 so that the CPU tests reach it.  On CUDA tensors the wrappers launch the
 kernels; on CPU tensors they run the plain versions,
 :func:`tall_gram_reference` (the chunked
@@ -48,6 +59,54 @@ EXPAND_ROWS = 64       # kERows: rows of a row tile of kernel 4
 EXPAND_RING = STAGES * EXPAND_ROWS * 40 * 8    # kEPitch = 40 doubles
 EXPAND_Q_TILE = 128    # 16 n-tiles: 8 a warp, two warps across
 _WARPS = 8             # kConsumers: the warps that multiply
+WIDE_FROM = 128       # a side above this takes the wide path ...
+WIDE_MIN_SIDE = 64    # ... where the other side is at least this wide
+WIDE_MIN_ROWS = 1024  # fewest rows a wide Gram chunk is given
+
+
+@dataclass(frozen=True)
+class WideShape:
+    """A block of the wide path, ``Wide<WM, WN, MT, NT, K, STAGES, MINB>``
+    of ``csrc/tall_gemm.cu``: WM x WN warps of MT x NT mma tiles (16 x 8),
+    k-slices of K through a ring of STAGES, MINB blocks an SM."""
+    wm: int
+    wn: int
+    mt: int
+    nt: int
+    k: int
+    stages: int
+    per_sm: int
+
+    @property
+    def bm(self) -> int:          # rows of the output tile
+        return 16 * self.mt * self.wm
+
+    @property
+    def bn(self) -> int:          # its columns
+        return 8 * self.nt * self.wn
+
+    @property
+    def pitches(self) -> tuple[int, int, int]:
+        """Row pitches in doubles of the expand's A stage [bm][k + 8] and
+        of the [k][bm + 2] and [k][bn + 2] stages."""
+        return self.k + 8, self.bm + 2, self.bn + 2
+
+    @property
+    def smem_expand(self) -> int:
+        pa, _, pn = self.pitches
+        return 8 * self.stages * (self.bm * pa + self.k * pn)
+
+    @property
+    def smem_gram(self) -> int:
+        _, pm, pn = self.pitches
+        return 8 * self.stages * self.k * (pm + pn)
+
+
+# the block both wide kernels launch (WideShape of tall_gemm.cu): 128 x 128
+# tiles of 8 warps, k-slices of 32 through 3 stages, one block an SM
+WIDE = WideShape(2, 4, 4, 4, 32, 3, 1)
+SM_SMEM = 233_472     # shared memory of an SM, 1 KB of it kept a block
+PATHS = ("narrow", "wide")
 
 
 def tall_gram_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -71,6 +130,21 @@ def copy_vec(*ts: torch.Tensor) -> int:
                 or (cols > 1 and t.stride(1) != 1):
             return 1
     return 2
+
+
+def c_mode(c: torch.Tensor) -> int:
+    """How the wide expand copies C: 1, 16-byte copies of its rows (rows on
+    16 bytes, columns contiguous); 2, 16-byte copies of its columns into a
+    transposed stage (column-major with columns on 16 bytes, the layout
+    ``torch.linalg.eigh`` gives its eigenvectors, so the solver's
+    ``c[:, :size_x]``); else 0, 8-byte copies (any strides)."""
+    if copy_vec(c) == 2:
+        return 1
+    k, q = c.shape
+    if c.data_ptr() % 16 == 0 and (k <= 1 or c.stride(0) == 1) \
+            and (q <= 1 or c.stride(1) % 2 == 0):
+        return 2
+    return 0
 
 
 def _pitch(width: int) -> int:
@@ -142,6 +216,81 @@ def expand_plan(n: int, k: int, q: int, sms: int) -> ExpandPlan:
     return ExpandPlan(q_tile, k_chunk, nt, grid, smem)
 
 
+def tall_path(p: int, q: int) -> str:
+    """The path of kernel 3 at ``(p x q)`` or of kernel 4 at ``(n x p)(p x
+    q)``: ``"wide"`` where one side exceeds the narrow path's resident tile
+    (WIDE_FROM) and the other is at least WIDE_MIN_SIDE; else ``"narrow"``
+    (the resident designs above: every class of a nev=50 solve, and the
+    (480 x 40) and (440 x 40) classes of nev=200, where most of the wide
+    path's warps would idle and it measured slower)."""
+    return "wide" if max(p, q) > WIDE_FROM and min(p, q) >= WIDE_MIN_SIDE \
+        else "narrow"
+
+
+def _makespan(units: int, slots: int, size: float) -> float:
+    """Time of ``units`` equal blocks of ``size`` on ``slots`` blocks that
+    run at once."""
+    return _cdiv(units, slots) * size
+
+
+@dataclass(frozen=True)
+class WideGramPlan:
+    chunks: int          # chunks of rows; blocks = chunks x tiles
+    rows: int            # rows per chunk
+    tiles: int           # output tiles of WIDE.bm x WIDE.bn
+    smem: int            # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def wide_gram_plan(n: int, p: int, q: int, sms: int) -> WideGramPlan:
+    """Launch plan of kernel 3's wide path: the chunk count whose blocks
+    (chunks x tiles, WIDE.per_sm an SM at a time) finish soonest,
+    chunks of at least WIDE_MIN_ROWS rows, the fewest chunks within 2 % of
+    the best (each chunk costs a partial of p q doubles)."""
+    tiles = _cdiv(p, WIDE.bm) * _cdiv(q, WIDE.bn)
+    most = max(1, min(n // WIDE_MIN_ROWS, GRAM_MAX_CHUNKS))
+    cost = {c: _makespan(tiles * c, sms * WIDE.per_sm, _cdiv(n, c))
+            for c in range(1, most + 1)}
+    best = min(cost.values())
+    chunks = min(c for c, v in cost.items() if v <= 1.02 * best)
+    rows = _cdiv(n, chunks)
+    return WideGramPlan(_cdiv(n, rows), rows, tiles, WIDE.smem_gram)
+
+
+@dataclass(frozen=True)
+class WideExpandPlan:
+    band: int            # rows of Y a block (a multiple of 16)
+    q_tile: int          # columns of Y a block (a multiple of 8)
+    blocks: int          # one launch: bands x q-tiles, q-tiles fastest
+    smem: int            # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def wide_expand_plan(n: int, k: int, q: int, sms: int) -> WideExpandPlan:
+    """Launch plan of kernel 4's wide path: one launch over all of k and
+    q.  The q-tiles are WIDE.bn wide (the last one narrower); the row
+    band, a multiple of 16 from WIDE.bm down to half of it, is the one
+    whose blocks finish soonest, the widest within 2 % of the best (a
+    wider band reads C fewer times)."""
+    q_tile = min(WIDE.bn, 8 * _cdiv(q, 8))
+    q_tiles = _cdiv(q, q_tile)
+    cost = {band: _makespan(_cdiv(n, band) * q_tiles, sms * WIDE.per_sm,
+                            band)
+            for band in range(WIDE.bm, WIDE.bm // 2 - 1, -16)}
+    best = min(cost.values())
+    band = max(b for b, v in cost.items() if v <= 1.02 * best)
+    return WideExpandPlan(band, q_tile, _cdiv(n, band) * q_tiles,
+                          WIDE.smem_expand)
+
+
+def _path(path, p: int, q: int) -> str:
+    if path is None:
+        return tall_path(p, q)
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
+    return path
+
+
 def _check_cuda(name: str, *ts: torch.Tensor) -> None:
     dev = ts[0].device
     if dev.type != "cuda":
@@ -154,59 +303,87 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
                             f"got {t.dtype}")
 
 
-def tall_gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a^T b`` ((n, p), (n, q) -> (p, q)); operands may be strided views."""
+def tall_gram(a: torch.Tensor, b: torch.Tensor, path: str | None = None
+              ) -> torch.Tensor:
+    """``a^T b`` ((n, p), (n, q) -> (p, q)); operands may be strided views.
+    ``path``: None picks it by :func:`tall_path`; ``"narrow"`` or
+    ``"wide"`` forces one (for measurements and tests only)."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"tall_gram: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not contract")
+    n, p = a.shape
+    q = b.shape[1]
+    path = _path(path, p, q)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return tall_gram_reference(a, b)
     _check_cuda("tall_gram", a, b)
-    n, p = a.shape
-    q = b.shape[1]
     c = torch.empty((p, q), dtype=a.dtype, device=a.device)
     if p * q == 0:
         return c
     if n == 0:
         return c.zero_()
-    plan = gram_plan(n, p, q, _build.sm_count(a.device))
+    sms = _build.sm_count(a.device)
+    plan = gram_plan(n, p, q, sms) if path == "narrow" \
+        else wide_gram_plan(n, p, q, sms)
     part = torch.empty((plan.chunks, p, q), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _build.lib().gcge_tall_gram_f64(
-            a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(), b.stride(0),
-            b.stride(1), n, p, q, plan.chunks, plan.rows, plan.bk,
-            plan.pitch_a, plan.pitch_b, plan.wm, plan.nt, plan.smem,
-            copy_vec(a, b),
-            part.data_ptr(), c.data_ptr(), stream)
-    _build.check("gcge_tall_gram_f64", err)
+        if path == "narrow":
+            name = "gcge_tall_gram_f64"
+            err = _build.lib().gcge_tall_gram_f64(
+                a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+                b.stride(0), b.stride(1), n, p, q, plan.chunks, plan.rows,
+                plan.bk, plan.pitch_a, plan.pitch_b, plan.wm, plan.nt,
+                plan.smem, copy_vec(a, b),
+                part.data_ptr(), c.data_ptr(), stream)
+        else:
+            name = "gcge_tall_gram_wide_f64"
+            err = _build.lib().gcge_tall_gram_wide_f64(
+                a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+                b.stride(0), b.stride(1), n, p, q, plan.chunks, plan.rows,
+                copy_vec(a, b), part.data_ptr(), c.data_ptr(), stream)
+    _build.check(name, err)
     LAUNCHES["gram"] += 1
     return c
 
 
-def tall_expand(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a @ c`` ((n, k), (k, q) -> (n, q)); operands may be strided views."""
+def tall_expand(a: torch.Tensor, c: torch.Tensor, path: str | None = None
+                ) -> torch.Tensor:
+    """``a @ c`` ((n, k), (k, q) -> (n, q)); operands may be strided views.
+    ``path`` as for :func:`tall_gram`."""
     if a.dim() != 2 or c.dim() != 2 or a.shape[1] != c.shape[0]:
         raise ValueError(f"tall_expand: shapes {tuple(a.shape)} and "
                          f"{tuple(c.shape)} do not contract")
+    n, k = a.shape
+    q = c.shape[1]
+    path = _path(path, k, q)
     if a.device.type == "cpu" and c.device.type == "cpu":
         return tall_expand_reference(a, c)
     _check_cuda("tall_expand", a, c)
-    n, k = a.shape
-    q = c.shape[1]
     y = torch.empty((n, q), dtype=a.dtype, device=a.device)
     if n * q == 0:
         return y
     if k == 0:
         return y.zero_()
-    plan = expand_plan(n, k, q, _build.sm_count(a.device))
+    sms = _build.sm_count(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _build.lib().gcge_tall_expand_f64(
-            a.data_ptr(), a.stride(0), a.stride(1), c.data_ptr(), c.stride(0),
-            c.stride(1), n, k, q, plan.q_tile, plan.k_chunk, plan.nt,
-            plan.grid, plan.smem, copy_vec(a), y.data_ptr(), stream)
-    _build.check("gcge_tall_expand_f64", err)
+        if path == "narrow":
+            name = "gcge_tall_expand_f64"
+            plan = expand_plan(n, k, q, sms)
+            err = _build.lib().gcge_tall_expand_f64(
+                a.data_ptr(), a.stride(0), a.stride(1), c.data_ptr(),
+                c.stride(0), c.stride(1), n, k, q, plan.q_tile, plan.k_chunk,
+                plan.nt, plan.grid, plan.smem, copy_vec(a), y.data_ptr(),
+                stream)
+        else:
+            name = "gcge_tall_expand_wide_f64"
+            wide = wide_expand_plan(n, k, q, sms)
+            err = _build.lib().gcge_tall_expand_wide_f64(
+                a.data_ptr(), a.stride(0), a.stride(1), c.data_ptr(),
+                c.stride(0), c.stride(1), n, k, q, wide.band, wide.q_tile,
+                copy_vec(a), c_mode(c), y.data_ptr(), stream)
+    _build.check(name, err)
     LAUNCHES["expand"] += 1
     return y
 

@@ -369,9 +369,9 @@ def test_sweep_main_prints_nev_sweep_rows(capsys):
 
 def test_wide_kernel_rows_time_the_classes_a_wide_solve_calls():
     """``chip_smoke.wide_classes`` (the kernel 3/4 shapes the card run
-    times for a wide solve) holds the classes a solve with the sweep's
-    settings calls, at CPU scale (nev=30, block 6, m=72): every call but
-    the few of the final Rayleigh-Ritz expand (size_x x size_x)."""
+    times for a wide solve) holds every class a solve with the sweep's
+    settings calls, at CPU scale (nev=30, block 6, m=72), the expand
+    (size_x x size_x) of its restarts among them."""
     import sys
 
     sys.path.insert(0, REPO)
@@ -387,5 +387,5 @@ def test_wide_kernel_rows_time_the_classes_a_wide_solve_calls():
                                                for c in expands}
     untimed = {k: v for k, v in tall.calls.items() if k not in timed}
     assert tall.iterations == 2 * row.result.num_iter
-    assert set(untimed) <= {("expand", 60, 60)}
-    assert sum(untimed.values()) <= 0.02 * sum(tall.calls.values())
+    assert not untimed
+    assert tall.calls["expand", 60, 60] > 0

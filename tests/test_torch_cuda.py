@@ -280,18 +280,21 @@ def _tall_operands(cuda, n, p, q, seed, view="contiguous"):
     return a, randn(n, q)
 
 
-def _check_tall(a, b, c):
-    """Kernels 3/4 against the plain versions within 1e-13 (Gram: of
-    ||a_i|| ||b_j|| per entry; expand: of max |a| |c|), and equal bits
-    across two launches."""
-    got, again = osgemm.tall_gram(a, b), osgemm.tall_gram(a, b)
+def _check_tall(a, b, c, path=None):
+    """Kernels 3/4 (on ``path``, None: the one :func:`osgemm.tall_path`
+    picks) against the plain versions within 1e-13 (Gram: of ||a_i||
+    ||b_j|| per entry; expand: of max |a| |c|), and equal bits across two
+    launches."""
+    got = osgemm.tall_gram(a, b, path=path)
+    again = osgemm.tall_gram(a, b, path=path)
     ref = osgemm.tall_gram_reference(a, b)
     norms = a.norm(dim=0)[:, None] * b.norm(dim=0)[None, :] + 1e-300
     assert got.shape == ref.shape and got.is_contiguous()
     if got.numel():
         assert float(((got - ref).abs() / norms).max()) <= 1e-13
     assert torch.equal(got, again)
-    y, y2 = osgemm.tall_expand(a, c), osgemm.tall_expand(a, c)
+    y = osgemm.tall_expand(a, c, path=path)
+    y2 = osgemm.tall_expand(a, c, path=path)
     yref = osgemm.tall_expand_reference(a, c)
     assert y.shape == yref.shape and y.is_contiguous()
     if y.numel():
@@ -329,8 +332,10 @@ def test_tall_kernels_on_unaligned_views(cuda, view):
 
 def test_tall_expand_transposed_c_and_c_beyond_shared_memory(cuda):
     """A transposed C (column stride != 1), and a (480 x 400) C whose
-    k q 8 bytes exceed the shared memory: the expand loops over q-tiles and
-    k-chunks, later k-chunks adding into Y."""
+    k q 8 bytes exceed the shared memory: on the narrow path the expand loops
+    over q-tiles and k-chunks, later k-chunks adding into Y (the wide path
+    takes this class by default: ``path="narrow"`` keeps the loop
+    checked)."""
     a, b = _tall_operands(cuda, 1500, 120, 100, seed=3)
     ct = torch.randn((100, 120), dtype=torch.float64, device=cuda).T
     _check_tall(a, b, ct)
@@ -343,7 +348,96 @@ def test_tall_expand_transposed_c_and_c_beyond_shared_memory(cuda):
                      device=cuda)
     plan = osgemm.expand_plan(900, 480, 400, 132)
     assert plan.q_tile < 400 and plan.k_chunk < 480     # several launches
-    _check_tall(a2, b2, c2)
+    _check_tall(a2, b2, c2, path="narrow")
+
+
+# the wide classes of the production widths (nev=400: m=960, block 80, 2 nev
+# = 800; nev=200: m=480, 2 nev = 400) at a small n, not a multiple of a
+# row band
+_WIDE_CLASSES = [(960, 800), (800, 800), (960, 80), (880, 80), (480, 400),
+                 (400, 400)]
+
+
+def _wide_operands(cuda, p, q, view, n=4099, seed=0):
+    """a = columns 0..p-1 of an (n, m) basis (row stride m, as the solver's
+    V[:, :k]), b (n, q), and c a (p x q) block of an (m x m) matrix (the
+    eigenvector block's c[:, :size_x]); ``view="odd column offset"`` moves
+    a and c one column right, so no row of theirs starts on 16 bytes."""
+    g = torch.Generator(device=cuda).manual_seed(seed + p + q)
+    m = 960 if max(p, q) > 480 else 480
+    off = 1 if view == "odd column offset" else 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=cuda)
+
+    a = randn(n, m + off)[:, off:off + p]
+    c = randn(m + off, m + off)[:p, off:off + q]
+    if view == "column-major c":     # c[:, :size_x] of eigh's eigenvectors
+        c = randn(m, m).T[:p, :q]
+    return a, randn(n, q), c
+
+
+@pytest.mark.parametrize("view", ["strided", "odd column offset",
+                                  "column-major c"])
+@pytest.mark.parametrize("p,q", _WIDE_CLASSES)
+def test_tall_kernels_wide_path_at_the_wide_classes(cuda, p, q, view):
+    """Kernels 3 and 4 take the wide path at the production classes, and
+    hold 1e-13 against the plain versions with equal bits across two
+    launches, on the solver's strided views (16-byte copies), on views at
+    an odd column offset (8-byte copies) and with a column-major C (the
+    eigenvector block's layout: a transposed stage); the narrow path stays
+    reachable with ``path="narrow"`` and agrees to the same tolerance."""
+    assert osgemm.tall_path(p, q) == "wide"
+    a, b, c = _wide_operands(cuda, p, q, view)
+    assert osgemm.copy_vec(a) == (1 if view == "odd column offset" else 2)
+    assert osgemm.c_mode(c) == {"strided": 1, "odd column offset": 0,
+                                "column-major c": 2}[view]
+    before = dict(osgemm.LAUNCHES)
+    _check_tall(a, b, c)
+    assert osgemm.LAUNCHES["gram"] == before["gram"] + 2
+    assert osgemm.LAUNCHES["expand"] == before["expand"] + 2
+    _check_tall(a, b, c, path="narrow")
+
+
+@pytest.mark.parametrize("p,q", _WIDE_CLASSES)
+def test_tall_kernels_wide_path_in_a_cuda_graph(cuda, p, q):
+    """The wide path captured in a CUDA graph and replayed gives the bits
+    of the eager launches: no atomics, no counter that outlives a call (C
+    column-major, as the solver's eigenvector block)."""
+    a, b, c = _wide_operands(cuda, p, q, "column-major c", seed=1)
+    eager_c, eager_y = osgemm.tall_gram(a, b), osgemm.tall_expand(a, c)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            got_c, got_y = osgemm.tall_gram(a, b), osgemm.tall_expand(a, c)
+    for _ in range(2):
+        got_c.zero_()
+        got_y.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, eager_c) and torch.equal(got_y, eager_y)
+
+
+def test_wide_path_raises_when_its_launch_fails(cuda, monkeypatch):
+    """A wide-path launch that reports a CUDA error raises; nothing falls
+    back to the narrow path, torch.matmul or the plain version."""
+    a, b, c = _wide_operands(cuda, 960, 800, "strided", n=300)
+    lib = _build.lib()
+
+    class Failing:
+        def __getattr__(self, name):
+            if name.endswith("_wide_f64"):
+                return lambda *args: 1        # cudaErrorInvalidValue
+            return getattr(lib, name)
+
+    monkeypatch.setattr(_build, "lib", lambda: Failing())
+    with pytest.raises(RuntimeError, match="wide"):
+        osgemm.tall_gram(a, b)
+    with pytest.raises(RuntimeError, match="wide"):
+        osgemm.tall_expand(a, c)
 
 
 def test_dmma_fragment_layout(cuda):

@@ -8,6 +8,7 @@ The CUDA kernels themselves are checked on the card by
 """
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -269,6 +270,141 @@ def test_expand_plan_covers_each_row_once_and_fits(n, k, q):
         assert plan.q_tile >= q and plan.k_chunk >= k
 
 
+# ---- the wide path of kernels 3 and 4 ---------------------------------------
+
+# the wide classes of the production widths (nev=200: m=480, block 40;
+# nev=400: m=960, block 80) at their n and at the card tests' small n, and
+# ragged shapes
+_WIDE_SHAPES = [(85_184, 960, 800), (85_184, 800, 800), (85_184, 960, 80),
+                (85_184, 880, 80), (157_464, 480, 400), (157_464, 400, 400),
+                (157_464, 480, 40), (157_464, 440, 40), (4_099, 960, 800),
+                (4_099, 880, 80), (4_099, 800, 800), (4_099, 480, 400),
+                (5, 129, 3), (1, 300, 7), (1000, 7, 200), (3001, 130, 129)]
+# the classes of a nev=50 solve (m=120, block 10, 100 Ritz vectors):
+# Gram (p x q) and expand (n x k)(k x q)
+_NEV50_GRAMS = [(120, 10), (110, 10), (10, 10), (100, 100)]
+_NEV50_EXPANDS = [(120, 100), (120, 10), (110, 10), (10, 10)]
+
+
+def _wide_expand_blocks(plan, n, q):
+    """(rows, columns) of Y each block of the wide expand writes, by the
+    kernel's block index (q-tiles fastest)."""
+    q_tiles = -(-q // plan.q_tile)
+    for blk in range(plan.blocks):
+        r0, q0 = (blk // q_tiles) * plan.band, (blk % q_tiles) * plan.q_tile
+        yield range(r0, min(n, r0 + plan.band)), range(q0, min(q,
+                                                               q0 + plan.q_tile))
+
+
+@pytest.mark.parametrize("n,k,q", _WIDE_SHAPES)
+def test_wide_expand_plan_covers_y_once_in_one_launch(n, k, q):
+    """The blocks of the one launch cover every (row, column) of Y exactly
+    once, over all of k (no k-chunk); bands of whole m-tiles at most one
+    tile high, q-tiles of whole n-tiles at most one tile wide."""
+    plan = osgemm.wide_expand_plan(n, k, q, 132)
+    wide = osgemm.WIDE
+    assert plan.band % 16 == 0 and wide.bm // 2 <= plan.band <= wide.bm
+    assert plan.q_tile % 8 == 0 and plan.q_tile <= wide.bn
+    assert plan.blocks == -(-n // plan.band) * -(-q // plan.q_tile)
+    hits = np.zeros((n, q), dtype=np.int64)
+    for rows, cols in _wide_expand_blocks(plan, n, q):
+        assert len(rows) and len(cols)
+        hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (hits == 1).all()
+    assert not hasattr(plan, "k_chunk")
+
+
+@pytest.mark.parametrize("n,p,q", _WIDE_SHAPES)
+@pytest.mark.parametrize("sms", [132, 1])
+def test_wide_gram_plan_covers_c_once_a_chunk(n, p, q, sms):
+    """Every chunk's tiles cover every entry of C exactly once, the chunks
+    cover rows 0..n-1 once, and the blocks are chunks x tiles."""
+    plan = osgemm.wide_gram_plan(n, p, q, sms)
+    bm, bn = osgemm.WIDE.bm, osgemm.WIDE.bn
+    assert plan.tiles == -(-p // bm) * -(-q // bn)
+    assert 1 <= plan.chunks <= osgemm.GRAM_MAX_CHUNKS
+    assert (plan.chunks - 1) * plan.rows < n <= plan.chunks * plan.rows
+    if plan.chunks > 1:
+        assert plan.rows >= osgemm.WIDE_MIN_ROWS
+    hits = np.zeros((plan.chunks, p, q), dtype=np.int64)
+    q_tiles = -(-q // bn)
+    for blk in range(plan.chunks * plan.tiles):      # tiles fastest
+        chunk, t = divmod(blk, plan.tiles)
+        p0, q0 = (t // q_tiles) * bm, (t % q_tiles) * bn
+        hits[chunk, p0:p0 + bm, q0:q0 + bn] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("plan_of,smem", [
+    (osgemm.wide_gram_plan, osgemm.WIDE.smem_gram),
+    (osgemm.wide_expand_plan, osgemm.WIDE.smem_expand)])
+@pytest.mark.parametrize("n,p,q", _WIDE_SHAPES[:8])
+def test_wide_ring_fits_shared_memory(plan_of, smem, n, p, q):
+    """The wide ring (STAGES k-slices of the operands, rows padded to the
+    bank-conflict-free pitches) of WIDE.per_sm blocks fits an SM, and one
+    block's fits a block's dynamic shared memory; WIDE is the shape that
+    csrc/tall_gemm.cu launches."""
+    wide = osgemm.WIDE
+    plan = plan_of(n, p, q, 132)
+    assert plan.smem == smem <= osgemm.SMEM_BLOCK
+    assert wide.per_sm * (smem + 1024) <= osgemm.SM_SMEM
+    pitch_a, pitch_m, pitch_n = wide.pitches
+    assert pitch_a % 16 == 8 and pitch_m % 8 == 2 and pitch_n % 8 == 2
+    assert wide.smem_gram == 8 * wide.stages * wide.k * (pitch_m + pitch_n)
+    assert wide.smem_expand == 8 * wide.stages * (wide.bm * pitch_a
+                                                  + wide.k * pitch_n)
+    src = open(os.path.join(os.path.dirname(osgemm.__file__), "csrc",
+                            "tall_gemm.cu")).read()
+    shape = re.search(r"using WideShape = Wide<([\d, ]+)>;", src).group(1)
+    assert tuple(int(v) for v in shape.split(",")) == (
+        wide.wm, wide.wn, wide.mt, wide.nt, wide.k, wide.stages, wide.per_sm)
+
+
+@pytest.mark.parametrize("nev,n", [(200, 157_464), (400, 85_184)])
+def test_wide_classes_take_the_wide_path(nev, n):
+    """The classes of a production-width solve with one side above 128 and
+    the other at least 64 take the wide path, the rest the narrow one; the expand
+    (n x m)(m x 2 nev) is one launch."""
+    bs, size_x = nev // 5, 2 * nev
+    m = size_x + 2 * bs
+    for p, q in [(m, bs), (m - bs, bs), (size_x, size_x), (m, size_x),
+                 (bs, bs)]:
+        want = "wide" if max(p, q) > 128 and min(p, q) >= 64 else "narrow"
+        assert osgemm.tall_path(p, q) == want
+    assert osgemm.tall_path(size_x, size_x) == "wide"
+    plan = osgemm.wide_expand_plan(n, m, size_x, 132)
+    assert plan.blocks == -(-n // plan.band) * -(-size_x // plan.q_tile)
+    assert osgemm.tall_path(bs, bs) == "narrow"
+
+
+@pytest.mark.parametrize("p,q", _NEV50_GRAMS + _NEV50_EXPANDS)
+def test_nev50_classes_keep_the_narrow_path(p, q):
+    """The nev=50 classes stay on the narrow path's resident designs, with the plans
+    they had: C resident in one launch, one output tile a Gram block."""
+    assert osgemm.tall_path(p, q) == "narrow"
+    plan = osgemm.expand_plan(157_464, p, q, 132)
+    assert plan.q_tile >= q and plan.k_chunk >= p
+    assert osgemm.gram_plan(157_464, p, q, 132).tiles == 1
+
+
+@pytest.mark.parametrize("path", [None, "narrow", "wide"])
+def test_tall_gemm_path_argument_on_cpu(path):
+    """On CPU tensors every path runs the plain version; an unknown path
+    raises."""
+    rng = np.random.default_rng(11)
+    a, b = rng.standard_normal((50, 130)), rng.standard_normal((50, 4))
+    c = rng.standard_normal((130, 4))
+    got = osgemm.tall_gram(torch.as_tensor(a), torch.as_tensor(b), path=path)
+    np.testing.assert_array_equal(got.numpy(), osgemm.tall_gram_reference(
+        torch.as_tensor(a), torch.as_tensor(b)).numpy())
+    y = osgemm.tall_expand(torch.as_tensor(a), torch.as_tensor(c), path=path)
+    np.testing.assert_array_equal(y.numpy(), osgemm.tall_expand_reference(
+        torch.as_tensor(a), torch.as_tensor(c)).numpy())
+    with pytest.raises(ValueError, match="path"):
+        osgemm.tall_expand(torch.as_tensor(a), torch.as_tensor(c),
+                           path="resident")
+
+
 def _views():
     base = torch.zeros((64, 121), dtype=torch.float64)
     return {
@@ -298,6 +434,30 @@ def test_copy_vec_takes_16_bytes_only_on_aligned_rows(name):
     assert osgemm.copy_vec(t, _views()["odd row stride"][0]) == 1
     if vec == 2:
         assert aligned
+
+
+def _c_layouts():
+    square = torch.zeros((482, 482), dtype=torch.float64)
+    eigh_layout = torch.zeros((482, 482), dtype=torch.float64).T
+    return {
+        "row-major": (square[:480, :400], 1),
+        "row-major, odd column offset": (square[:480, 1:401], 0),
+        "column-major (eigh's eigenvectors)": (eigh_layout[:480, :400], 2),
+        "column-major, odd row offset": (eigh_layout[1:481, :400], 0),
+        "column-major, odd column stride": (
+            torch.zeros((401, 481), dtype=torch.float64).T[:480, :400], 0),
+        "one column of a column-major block": (eigh_layout[:480, :1], 2),
+    }
+
+
+@pytest.mark.parametrize("name", list(_c_layouts()))
+def test_c_mode_by_layout(name):
+    """The wide expand copies C's rows 16 bytes at a time where they start
+    on 16 bytes (1), C's columns into a transposed stage where C is
+    column-major with columns on 16 bytes (2), as the solver's eigenvector
+    block is, and 8 bytes at a time otherwise (0)."""
+    c, mode = _c_layouts()[name]
+    assert osgemm.c_mode(c) == mode
 
 
 def test_dmma_tile_check_plain_on_cpu():
