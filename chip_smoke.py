@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --tall [--root DIR]
+    python3 chip_smoke.py --dia [--root DIR]
 
 Nine kernels, four solves (the headline and the irregular problem, each by
 the phased and by the fused loop), the two kernel measurement scripts, the
@@ -165,7 +166,8 @@ Phases, each of which raises on failure:
     at nx=44 (block 80, nevMax 800, m=960): kernels 1-4 timed at the
     shapes those solves hand them (kernel 1 at ``V[:, m - bs:m]`` and the
     residual window ``ritz[:, 41:41 + bs]`` of the (n, 2 nev) Ritz block,
-    kernel 2 at the CG's ``(bs, n)`` operand, kernels 3
+    kernel 2 at the CG's ``(bs, n)`` operand, each also on the narrow and
+    the wide path in turns, their bits compared, kernels 3
     and 4 at every shape class, the expand of the restarts (n x 2 nev)
     (2 nev x 2 nev) among them; then each class that takes the wide path
     of kernels 3 and 4 on the narrow path and on the wide path in turns, beside
@@ -192,6 +194,16 @@ paths back to back, and the device time of one call by launch
 of beside this script (a parent commit unpacked there), so that two trees
 are timed in one call, in turns.
 
+``--dia`` runs phase 1 and then kernels 1 and 2 alone, at every operand a
+solve hands them (at the headline and at both production widths the CG's
+operand, the windows of V and of the Ritz block, the f64 refresh, the
+gathered residual window and the initial Rayleigh-Ritz; FEM level 0 and
+the halo rows), each on the plan's path against the plain version and the
+library call, the narrow and the wide path back to back with their bits
+compared; then the two wide solves' walls and kernel 1/2 calls by
+operand; ``--root DIR`` as for ``--tall`` (a parent tree: the plan's path
+only).
+
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; the whole wide
 solves; 10 iterations of each AMG-preconditioned solve and one PAS solve
@@ -214,6 +226,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -453,7 +466,7 @@ def follows(y, x) -> bool:
 
 
 def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
-              cases, tol, gen, tag="", n_in=None, parents=None):
+              cases, tol, gen, tag="", n_in=None, parents=None, after=None):
     """An SpMM kernel (``apply(x, transposed)``) against its plain version
     (``plain(x, transposed, absolute)``, on |A| where ``absolute``) and
     beside ``torch.sparse.mm`` on ``lib`` (the same values, in the (n, m)
@@ -464,16 +477,22 @@ def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
     x and y once each.  The first case is the primary one where ``tag`` is
     empty.  ``n_in``: the rows of x where the matrix is rectangular (its
     columns; default ``n``); ``parents``: the widths of the views'
-    parents, as in :func:`spmm_operand`."""
+    parents, as in :func:`spmm_operand`.  A case may also be an operand of
+    its own, ``(name, x, transposed)``.  ``after(label, x, transposed,
+    bound_ms)``, where given, runs after each row (:func:`dia_paths`)."""
     dtype = lib.dtype
     item = torch.empty((), dtype=dtype).element_size()
     n_in = n if n_in is None else n_in
-    for name in cases:
-        if name.startswith("cg"):
+    for case in cases:
+        if isinstance(case, tuple):
+            name, x, transposed = case
+        elif case.startswith("cg"):
+            name = case
             x = cg_operand(torch, lambda z: apply(z, True), n_in,
                            int(name[2:] or BS), gen)
             transposed = True
         else:
+            name = case
             x, transposed = spmm_operand(torch, name, n_in, dtype, gen,
                                          parents)
         m = x.shape[0] if transposed else x.shape[1]
@@ -492,7 +511,9 @@ def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
                 scale, tol, matrix_bytes + (n + n_in) * m * item,
                 2.0 * nnz * m,
                 library=lambda: torch.sparse.mm(lib, x_nm),
-                primary=not tag and name == cases[0])
+                primary=not tag and case == cases[0])
+        if after is not None:
+            after(label, x, transposed, log.last["bound_ms"])
 
 
 def launch_counters():
@@ -715,14 +736,15 @@ class TallCalls:
               f"ms")
 
 
-def dia_pair(values, offs):
+def dia_pair(values, offs, halo=(0, 0)):
     """Kernel 1 or 2 on a DIA matrix (``apply(x, transposed)``) and its plain
-    version (``plain(x, transposed, absolute)``), for :func:`spmm_rows`."""
+    version (``plain(x, transposed, absolute)``), for :func:`spmm_rows`;
+    ``halo`` as in ``spmm.dia_spmm``."""
     from gcge_tpu_torch.ops import spmm
 
-    return (lambda x, t: spmm.dia_spmm(values, offs, x, t),
+    return (lambda x, t: spmm.dia_spmm(values, offs, x, t, halo),
             lambda x, t, absolute: spmm.dia_spmm_reference(
-                values.abs() if absolute else values, offs, x, t))
+                values.abs() if absolute else values, offs, x, t, halo))
 
 
 def phase_kernels_headline(torch, log, rows, cols, vals, n):
@@ -1713,8 +1735,11 @@ def profile_solve(torch, label: str, run):
     for what, picks in (
             ("kernels 3+4 (the Gram's chunk sum among them)",
              lambda k: "tall_gram" in k or "tall_expand" in k),
-            ("kernel 1", lambda k: "dia_spmm_f64_staged" in k),
-            ("kernel 2", lambda k: "dia_spmm_f32_staged" in k),
+            # kernels 1 and 2: the narrow and the wide path
+            ("kernel 1", lambda k: "dia_spmm_f64_staged" in k
+             or "dia_spmm_wide<double" in k),
+            ("kernel 2", lambda k: "dia_spmm_f32_staged" in k
+             or "dia_spmm_wide<float" in k),
             # kernels 5 and 6 with the second launch of their split path
             ("kernel 5", lambda k: "csr_spmm_f32" in k
              or "csr_combine<float>" in k),
@@ -2548,13 +2573,252 @@ def phase_tall(torch, has_paths: bool):
         tall_phases(torch, gen)
 
 
+# --------------------------------------------------------------------------
+# kernels 1 and 2 alone (--dia): both paths at every operand a solve hands
+# them
+# --------------------------------------------------------------------------
+
+def dia_paths(torch, values, offs, lib, halo, label, x, transposed,
+              bound_ms):
+    """Kernel 1 or 2 on ``values`` at the operand ``x`` on the narrow path
+    and, where the wide path takes the layout, on the wide one, in turns
+    (narrow, wide, wide, narrow; each a median of REPS after the L2 flush),
+    beside the library call (``torch.sparse.mm`` of ``lib``) and
+    ``bound_ms``, with the bits of the two paths compared (a difference
+    raises); the ``after`` hook of :func:`spmm_rows`."""
+    from gcge_tpu_torch.ops import spmm
+
+    def kernel(path):
+        return spmm.dia_spmm(values, offs, x, transposed, halo, path=path)
+
+    m = x.shape[0] if transposed else x.shape[1]
+    narrow = kernel("narrow")
+    xs, ys = ((t.stride(1), t.stride(0)) if transposed else t.stride()
+              for t in (x, narrow))
+    plan = functools.partial(spmm.dia_plan, m, *xs, x.data_ptr() % 16, *ys,
+                             narrow.data_ptr() % 16, x.element_size())
+    chosen = "wide" if plan().wide else "narrow"
+    try:
+        plan(path="wide")
+        paths = ("narrow", "wide")
+    except ValueError:
+        paths = ("narrow",)
+    if len(paths) == 2 and not torch.equal(narrow, kernel("wide")):
+        raise AssertionError(f"{label}: the narrow and the wide path differ")
+    del narrow
+    lib_x = (x.T if transposed else x).contiguous()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    times = {p: [] for p in paths}
+    for p in paths + paths[::-1]:
+        times[p].append(median_ms(torch, lambda: kernel(p), flush=flush))
+    lib_ms = median_ms(torch, lambda: torch.sparse.mm(lib, lib_x),
+                       flush=flush)
+    parts = "; ".join(
+        f"{p} {t[0]:.4f} / {t[1]:.4f} ms ({lib_ms / min(t):.2f} times as "
+        f"fast as the library, {100 * bound_ms / min(t):.0f} % of the bound)"
+        for p, t in times.items())
+    speed = "" if len(paths) == 1 else \
+        f"; wide {min(times['narrow']) / min(times['wide']):.2f} times " \
+        "as fast as narrow, the same bits"
+    print(f"dia paths {label}: the plan takes {chosen}; {parts}; library "
+          f"{lib_ms:.4f} ms; bound {bound_ms:.4g} ms{speed}")
+
+
+def dia_operator(torch, rows, cols, vals, n, dtype):
+    """A DIA operator on the card and its library operand (a CSR tensor of
+    the same values), both in ``dtype``; ``(values, offsets, lib, nnz)``."""
+    import scipy.sparse as sps
+
+    from gcge_tpu_torch import make_operator
+
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    a_csr = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    return (op.values.to(dtype), op.offsets_t, csr_tensor(torch, a_csr, dtype),
+            a_csr.nnz)
+
+
+class DiaCalls:
+    """Counts the calls of kernel 1 (f64) and 2 (f32) by operand, and the
+    iterations, of the solves run inside it: ``operators.dia_spmm`` (where
+    ``DiaOperator`` reaches the wrapper) and ``gcg_solve`` are wrapped for
+    its duration.  A replay of the captured CG stage calls no wrapper: the
+    f32 count holds the capture and the eager stages only."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+        self.iterations = 0
+
+    def __enter__(self):
+        from gcge_tpu_torch import api
+        from gcge_tpu_torch.ops import operators
+        from gcge_tpu_torch.solvers import gcg
+
+        spmm_fn, solve = operators.dia_spmm, api.gcg_solve
+
+        def counted(values, offsets, x, transposed=False, *args, **kwargs):
+            m = x.shape[0] if transposed else x.shape[1]
+            xs = (x.stride(1), x.stride(0)) if transposed else x.stride()
+            dense = x.is_contiguous() or x.T.is_contiguous()
+            what = ("dense" if dense else f"view, rows {xs[0]} apart") + \
+                f", start {x.data_ptr() % 16} mod 16"
+            self.calls[str(x.dtype).split(".")[1], m, what] += 1
+            return spmm_fn(values, offsets, x, transposed, *args, **kwargs)
+
+        def counted_solve(*args, **kwargs):
+            res = solve(*args, **kwargs)
+            self.iterations += res.num_iter
+            return res
+
+        self.saved = [(operators, "dia_spmm", spmm_fn),
+                      (api, "gcg_solve", solve), (gcg, "gcg_solve", solve)]
+        operators.dia_spmm = counted
+        api.gcg_solve = gcg.gcg_solve = counted_solve
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def dia_solves(torch):
+    """The headline solve, phased and fused (``fuse=20``), and the two wide
+    solves (``utils.sweep`` rows at nev=200 and nev=400, warm-up and timed
+    walls): iterations, converged count, and the calls of kernels 1 and 2
+    by operand (a wide row's timed solve's, half of both)."""
+    import gcge_tpu_torch
+    from gcge_tpu_torch import make_operator
+    from gcge_tpu_torch.utils import sweep
+
+    def report(tag, calls, solves):
+        for (dtype, m, what), count in sorted(calls.calls.items()):
+            print(f"dia {tag}: {dtype} (n, {m}) {what}: "
+                  f"{count / solves:g} calls a solve")
+
+    _, a_csr = stencil(NX)
+    for fuse in (0, 20):
+        with DiaCalls() as calls:
+            _, _, nev_conv = gcge_tpu_torch.solve(
+                a_csr, None, verbose=0,
+                **dict(HEADLINE_KWARGS, device=DEVICE, fuse=fuse))
+        print(f"dia headline solve fuse={fuse}: {calls.iterations} "
+              f"iterations, {nev_conv} converged")
+        report(f"headline solve fuse={fuse}", calls, 1)
+    for nev in WIDE_NEVS:
+        nx = C_REFERENCE[nev][0]
+        (rows, cols, vals, n), _ = stencil(nx)
+        op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+        params = sweep.production_params(nev, op)
+        with DiaCalls() as calls:
+            row = sweep.run_row(op, params)
+        res = row.result
+        print(f"dia wide solve nev={nev} (n={n}): warm-up {row.warmup_s:.3f}"
+              f" s, timed {row.wall_s:.3f} s; {res.num_iter} iterations, "
+              f"{res.nev_conv} converged")
+        report(f"wide solve nev={nev}", calls, 2)
+
+
+def phase_dia(torch, has_paths: bool):
+    """``--dia``: kernels 1 and 2 alone at every operand a solve hands them,
+    each against its plain version beside the library call
+    (:func:`spmm_rows`) and, with a package that has both paths, on both in
+    turns (:func:`dia_paths`): at the headline (n = 157,464) kernel 1's
+    ``V[:, 110:120]`` (the W coupling), ``ritz[:, 40:60]`` and
+    ``ritz[:, 41:61]`` (the phased loop's residual window at an even and
+    an odd offset), ``(n, 10)`` (the inner solve's refresh),
+    ``(n, 20)`` (the fused loop's gathered residual window) and
+    ``V[:, :100]`` (the initial Rayleigh-Ritz), kernel 2's CG ``(10, n)``;
+    a halo block of the headline operator; the FEM pair's level 0 (also
+    PAS's ``(n, 75)`` and ``(n, 150)`` in f64); at both production widths
+    the same operands at their widths.  Then the headline and the two wide
+    solves (:func:`dia_solves`).  ``--root DIR`` (a parent tree, one path):
+    the plan's choice only."""
+    log = KernelLog(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+
+    def rows(values, offs, lib, nnz, cases, tag, halo=(0, 0), n_in=None,
+             parents=None):
+        f64 = values.dtype == torch.float64
+        key = "dia_f64" if f64 else "dia_f32"
+        spmm_rows(torch, log, key, *dia_pair(values, offs, halo),
+                  values.shape[1], nnz,
+                  values.element_size() * values.numel() + 4 * len(offs),
+                  lib, cases, 1e-14 if f64 else 1e-5, gen, tag, n_in,
+                  parents, after=functools.partial(
+                      dia_paths, torch, values, offs, lib, halo)
+                  if has_paths else None)
+
+    def wide_cases(f64, bs, m, size_x):
+        if not f64:
+            return [f"cg{bs}"]
+        return [f"V[:, {m - bs}:{m}]", f"ritz[:, 41:{41 + bs}]",
+                f"(n, {bs})", f"(n, {2 * bs})", f"V[:, :{size_x}]"]
+
+    (srows, scols, svals, n), _ = stencil(NX)
+    for dtype in (torch.float64, torch.float32):
+        values, offs, lib, nnz = dia_operator(torch, srows, scols, svals, n,
+                                              dtype)
+        f64 = dtype == torch.float64
+        # the phased loop's residual window is 2 BS columns of the Ritz
+        # block, at an even or an odd offset
+        rows(values, offs, lib, nnz,
+             ["V[:, 110:120]", "ritz[:, 40:60]", "ritz[:, 41:61]",
+              f"(n, {BS})", f"(n, {2 * BS})", "V[:, :100]"] if f64
+             else ["cg"], f" headline n={n}")
+        # a halo block: the first of HALO_BLOCKS row blocks and its window,
+        # (nw, 10) in memory as the sharded operator assembles it, zeros
+        # before the operator's first row; kernel 2 at the CG stage's
+        # layout, (10, nw) in shape
+        hl, hr = -int(offs.min()), int(offs.max())
+        ln = n // HALO_BLOCKS
+        vb = values[:, :ln].contiguous()
+        win = torch.randn((ln + hl + hr, BS), generator=gen, dtype=dtype,
+                          device=DEVICE)
+        win[:hl] = 0
+        i = torch.arange(ln, device=DEVICE).repeat(vb.shape[0])
+        j = i + hl + offs.long().repeat_interleave(ln)
+        keep = vb.reshape(-1) != 0
+        blib = torch.sparse_coo_tensor(
+            torch.stack([i[keep], j[keep]]), vb.reshape(-1)[keep],
+            (ln, ln + hl + hr)).coalesce().to_sparse_csr()
+        rows(vb, offs, blib, int(keep.sum()),
+             [("halo window", win, False) if f64 else
+              ("CG halo window", win.T, True)],
+             f" halo block ({ln} rows, halo ({hl}, {hr}))", (hl, hr),
+             ln + hl + hr)
+    fem_a, _ = build_fem(FEM_NX)
+    coo = fem_a.tocoo()
+    for dtype in (torch.float64, torch.float32):
+        fn = fem_a.shape[0]
+        values, offs, lib, nnz = dia_operator(torch, coo.row, coo.col,
+                                              coo.data, fn, dtype)
+        # PAS's blocks at level 0 (A and B both DIA there): its working
+        # block and the span [X | N] of its Rayleigh-Ritz
+        rows(values, offs, lib, nnz,
+             ["V[:, 110:120]", f"(n, {BS})", f"(n, {PAS_WIDTH})",
+              f"(n, {2 * PAS_WIDTH})"] if dtype == torch.float64 else ["cg"],
+             f" FEM level 0 ({values.shape[0]} diagonals, n={fn})")
+    del fem_a, coo
+    for nev in WIDE_NEVS:
+        m, bs = wide_classes(nev)[:2]
+        (srows, scols, svals, n), _ = stencil(C_REFERENCE[nev][0])
+        for dtype in (torch.float32, torch.float64):
+            values, offs, lib, nnz = dia_operator(torch, srows, scols, svals,
+                                                  n, dtype)
+            rows(values, offs, lib, nnz,
+                 wide_cases(dtype == torch.float64, bs, m, 2 * nev),
+                 f" nev={nev} n={n}", parents={"V": m, "ritz": 2 * nev})
+            del values, lib
+    dia_solves(torch)
+
+
 def phase_kernels_wide(torch, log, nev: int):
     """Kernels 1-4 at the shapes a solve with ``utils.sweep``'s settings for
     ``nev`` hands them, against their plain versions, beside the library
     call, as the headline rows: kernel 1 at the W coupling ``V[:, m - bs:
     m]`` of the (n, m) basis and at the residual window ``ritz[:, 41:41 +
     bs]`` of the (n, 2 nev) Ritz block, at an odd offset,
-    kernel 2 at the CG's ``(bs, n)`` operand with strides ``(1, bs)``, and
+    kernel 2 at the CG's ``(bs, n)`` operand with strides ``(1, bs)``, each
+    also on the narrow and the wide path in turns (:func:`dia_paths`), and
     kernels 3 and 4 at every shape class of :func:`wide_classes`."""
     from gcge_tpu_torch import make_operator
 
@@ -2565,15 +2829,19 @@ def phase_kernels_wide(torch, log, nev: int):
     op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
     offs, ndiag = op.offsets_t, op.values.shape[0]
     tag = f" nev={nev} (nx={nx})"
+    lib64 = csr_tensor(torch, a_csr, torch.float64)
+    lib32 = csr_tensor(torch, a_csr, torch.float32)
     spmm_rows(torch, log, "dia_f64", *dia_pair(op.values, offs), n,
-              a_csr.nnz, 8 * ndiag * n + 4 * ndiag,
-              csr_tensor(torch, a_csr, torch.float64),
+              a_csr.nnz, 8 * ndiag * n + 4 * ndiag, lib64,
               [f"V[:, {m - bs}:{m}]", f"ritz[:, 41:{41 + bs}]"], 1e-14, gen,
-              tag=tag, parents={"V": m, "ritz": 2 * nev})
-    spmm_rows(torch, log, "dia_f32", *dia_pair(op.values.float(), offs), n,
-              a_csr.nnz, 4 * ndiag * n + 4 * ndiag,
-              csr_tensor(torch, a_csr, torch.float32), [f"cg{bs}"], 1e-5,
-              gen, tag=tag)
+              tag=tag, parents={"V": m, "ritz": 2 * nev},
+              after=functools.partial(dia_paths, torch, op.values, offs,
+                                      lib64, (0, 0)))
+    v32 = op.values.float()
+    spmm_rows(torch, log, "dia_f32", *dia_pair(v32, offs), n, a_csr.nnz,
+              4 * ndiag * n + 4 * ndiag, lib32, [f"cg{bs}"], 1e-5, gen,
+              tag=tag, after=functools.partial(dia_paths, torch, v32, offs,
+                                               lib32, (0, 0)))
     cols = eigenvector_classes(nev)
     kernels_tall(torch, log, n, gen, primary=False, grams=grams,
                  expands=expands, width=m, col_major=cols)
@@ -2871,6 +3139,17 @@ def main(argv) -> int:
 
     card = phase_build()
     phase_fragment_check(torch)
+    if "--dia" in argv:
+        import inspect
+
+        from gcge_tpu_torch.ops import spmm
+
+        phase_dia(torch, "path" in inspect.signature(
+            spmm.dia_spmm).parameters)
+        print(f"chip_smoke --dia ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
     if "--tall" in argv:
         import inspect
 

@@ -37,6 +37,10 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P),
     "gcge_dia_spmm_f32": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I,
                           _I, _I, _I, _I, _I, _P),
+    "gcge_dia_spmm_wide_f64": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "gcge_dia_spmm_wide_f32": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "gcge_tall_gram_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P, _P, _P),
     "gcge_tall_expand_f64": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,

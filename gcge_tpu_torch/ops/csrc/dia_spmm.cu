@@ -81,6 +81,49 @@
 //   plane of the stencil (three runs: 39 % fewer window bytes, but a 59 KB
 //   ring and three blocks an SM) each measured no faster at m = 10.
 //
+// The wide path (dia_spmm_wide, both types): the narrow design above holds
+// one column tile of at most kItems groups, 20 floats or 10 doubles, so an
+// operand wider than that (the wide solves' CG operands, m = 40 and 80, and
+// kernel 1's operands there) leaves its flat copy for 4-byte copies (f32),
+// stages the value rows once a tile and reads a window element from shared
+// memory once a term.  On the H100 (80GB HBM3, 700 W; PERF.md) kernel 2
+// took 0.18-0.19 ms at (40, n) and (80, n), slower than
+// torch.sparse.mm at (80, n), and its window copies held it (left out:
+// 0.06 of 0.18 ms).  A block of the wide path holds all columns of its rows,
+// up to a slab of kSlab (wider operands, such as the initial
+// Rayleigh-Ritz's V[:, :size_x], in slabs of whole 16-byte groups, the
+// values staged once a slab):
+//   * thread t takes column group g = t % G of the block's G = width / VEC
+//     and the ITEMS consecutive rows of row block t / G; a run of k offsets
+//     reads each of the ITEMS + k - 1 window rows it needs from shared
+//     memory once, into registers, and adds it into the k rows it serves
+//     (a thread's rows rt apart, each term read anew, measured 35-60 %
+//     slower at every wide operand);
+//   * window rows are ld elements apart, each block of ITEMS rows `skew`
+//     more, so that the threads of a warp, which span several row blocks,
+//     read 16 bytes each from different banks;
+//   * the window of a run is copied in 16-byte pieces only, each row's
+//     segment from its 16-byte floor (x's rows a multiple of 16 bytes
+//     apart: the CG operand at m % 4 == 0, views of V, the Ritz block), a
+//     piece's row, column and source stepped without a division or a
+//     multiplication; an odd-offset window (`ritz`) keeps its phase `sh` in
+//     shared memory and is read one element at a time (VEC 1);
+//   * blocks of 128 threads, registers bounded so that 5 or 6 fit an SM
+//     (kWideMinBlocks), a ring of two runs (35-38 KB; above 48 KB a block
+//     would opt in once, at its first launch, which comes before any
+//     capture: the captured stage runs once eagerly first).  256 threads,
+//     no register bound, a third ring stage, 16 rows a thread and value
+//     rows read 16 bytes at a time each measured slower.
+// Each output element sums the same terms in the same order with the same
+// fused multiply-adds as on the narrow path: the two paths give the same
+// bits.  spmm.dia_plan picks the path and its plan.  What holds it now
+// (parts left out on the H100 80GB HBM3 at 700 W, PERF.md): at kernel 1's
+// V windows and refresh the multiply-adds with their shared-memory reads
+// and the window copies in about equal parts (0.085 and 0.073 ms of 0.115
+// left when the other is out); at the odd-offset windows the copies (0.132
+// of 0.142 ms), which run faster at some pieces a row than at others (not
+// understood; a warp a row measured slower at every operand).
+//
 // Plain C interface (built with nvcc, loaded with ctypes): each entry point
 // returns cudaGetLastError() after the launch.
 
@@ -508,6 +551,328 @@ int launch_staged(const T* values, const int* offsets, int ndiag, int64_t n,
   return (int)cudaGetLastError();
 }
 
+// ---- the wide path ------------------------------------------------------
+
+constexpr int kSlab = 80;               // most columns of a wide block
+constexpr int kWideThreads = 128;       // most threads of a wide block
+constexpr int kWideStages = 2;          // runs in the wide ring
+constexpr int kMaxDevices = 64;
+
+// blocks an SM the registers of a wide block allow (__launch_bounds__): 5
+// where a thread reads 16 bytes at once, 6 where it reads fewer (8-byte
+// reads of an odd-offset window), the fastest of 4-7 on the H100 (PERF.md);
+// without the bound the compiler kept 115-179 registers, and 2-3
+// blocks fit an SM
+template <typename T, int VEC>
+constexpr int kWideMinBlocks = VEC * (int)sizeof(T) == 16 ? 5 : 6;
+
+// rows a thread of the wide path holds: 8, twice that where a read is
+// narrower than 16 bytes
+template <typename T, int VEC>
+constexpr int kWideItems = VEC * (int)sizeof(T) < 16 ? 16 : 8;
+
+// log2 of kWideItems
+template <typename T, int VEC>
+constexpr int kWideItemsLog2 = kWideItems<T, VEC> == 16 ? 4 : 3;
+
+// Where window row a of a wide stage starts: rows ld elements apart, and
+// every block of ITEMS rows `skew` elements further on, so that the
+// threads of a warp, one row block of ITEMS rows after another, read
+// different banks (spmm.DiaWidePlan.skew)
+template <int LOG2_ITEMS>
+__device__ __forceinline__ int wide_row(int a, int ld, int skew) {
+  return a * ld + (a >> LOG2_ITEMS) * skew;
+}
+
+// elements of a wide stage: the window, R + kRun - 1 rows of ld and their
+// skews, rounded to 16 bytes; then kRun value rows of R
+template <typename T>
+__host__ __device__ constexpr int wide_window_elems(int R, int ld, int skew,
+                                                   int items) {
+  return ((R + kRun - 1) * ld + ((R + kRun - 1) / items + 1) * skew +
+          kPer16<T> - 1) /
+         kPer16<T> * kPer16<T>;
+}
+
+template <typename T>
+__host__ __device__ constexpr int wide_stage_elems(int R, int ld, int skew,
+                                                  int items) {
+  return wide_window_elems<T>(R, ld, skew, items) + kRun * R;
+}
+
+// Issue the 16-byte copies of the window of rows [w0, w0 + rows) and
+// columns [c0, c0 + mt) of x (nx rows) into `s`: each row's segment starts
+// `sh` elements past a 16-byte boundary (the same for every row, x's rows a
+// multiple of 16 bytes apart), and is copied from that boundary to s +
+// wide_row(a), its element c landing at s + wide_row(a) + sh + c.  A piece
+// lies in a 16-byte line that holds an element of the segment, so no copy
+// leaves x's pages.  Rows outside [0, nx) are not copied.
+template <typename T, int LOG2_ITEMS>
+__device__ __forceinline__ void stage_window_wide(
+    T* s, const T* __restrict__ x, int64_t nx, int64_t xs_i, int64_t w0,
+    int rows, int c0, int mt, int ld, int skew, int sh) {
+  constexpr int P = kPer16<T>;
+  const int nt = blockDim.x;
+  // piece q of row a, stepped by nt pieces without a division
+  const int pieces = (sh + mt + P - 1) / P;
+  const int da = nt / pieces, dq = nt - da * pieces;
+  int a = threadIdx.x / pieces, q = threadIdx.x - a * pieces;
+  const T* src = x + c0 - sh + (w0 + a) * xs_i + q * P;
+  const int64_t step = da * xs_i + dq * P, wrap = xs_i - pieces * P;
+  if (w0 >= 0 && w0 + rows <= nx) {       // every row inside x
+    while (a < rows) {
+      cp_async16(s + wide_row<LOG2_ITEMS>(a, ld, skew) + q * P, src, 16);
+      a += da;
+      q += dq;
+      src += step;
+      if (q >= pieces) {
+        q -= pieces;
+        ++a;
+        src += wrap;
+      }
+    }
+    return;
+  }
+  while (a < rows) {
+    const int64_t r = w0 + a;
+    if (r >= 0 && r < nx)
+      cp_async16(s + wide_row<LOG2_ITEMS>(a, ld, skew) + q * P, src, 16);
+    a += da;
+    q += dq;
+    src += step;
+    if (q >= pieces) {
+      q -= pieces;
+      ++a;
+      src += wrap;
+    }
+  }
+}
+
+// Issue the copies of values[d0 + e, i0 : i0 + R) for e < k into `s`, row e
+// at s + e R (R a multiple of 16 bytes' worth of elements); vec16 as in
+// stage_values.
+template <typename T>
+__device__ __forceinline__ void stage_values_wide(
+    T* s, const T* __restrict__ values, int64_t n, int d0, int k, int64_t i0,
+    int R, int vec16) {
+  constexpr int P = kPer16<T>;
+  const int nt = blockDim.x;
+  if (vec16) {
+    const int per = R / P;
+    for (int c = threadIdx.x; c < k * per; c += nt) {
+      const int e = c / per;
+      const int64_t i = i0 + P * (c - e * per);
+      if (i < n)
+        cp_async16(s + e * R + (i - i0), values + (int64_t)(d0 + e) * n + i,
+                   16);
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < k * R; c += nt) {
+    const int e = c / R;
+    const int64_t i = i0 + (c - e * R);
+    if (i < n) cp_async_elem<T>(s + c, values + (int64_t)(d0 + e) * n + i);
+  }
+}
+
+// VEC elements of a window row from shared memory
+template <int VEC>
+__device__ __forceinline__ Vec<float, VEC> load_vec(const float* p) {
+  Vec<float, VEC> v;
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v.v[0] = t.x, v.v[1] = t.y, v.v[2] = t.z, v.v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v.v[0] = t.x, v.v[1] = t.y;
+  } else {
+    v.v[0] = p[0];
+  }
+  return v;
+}
+
+template <int VEC>
+__device__ __forceinline__ Vec<double, VEC> load_vec(const double* p) {
+  Vec<double, VEC> v;
+  if constexpr (VEC == 2) {
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    v.v[0] = t.x, v.v[1] = t.y;
+  } else {
+    v.v[0] = p[0];
+  }
+  return v;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void fma_reg(Vec<T, VEC>& acc, T a,
+                                        const Vec<T, VEC>& x) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    if constexpr (sizeof(T) == 4)
+      acc.v[e] = fmaf(a, x.v[e], acc.v[e]);
+    else
+      acc.v[e] = fma(a, x.v[e], acc.v[e]);
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y) takes rows [R bx, R bx + R) and the slab of
+// columns [slab by, slab by + slab) (the last one may be narrower).  Thread
+// t takes column group g = t % G and the ITEMS rows b ITEMS + r of row
+// block b = t / G.  A run of k offsets reads its window rows b ITEMS + w,
+// w < ITEMS + k - 1, once each, and adds each into the rows it serves (row
+// r takes term e from window row r + e): every row's terms still come in
+// the order of the offsets.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T, VEC>)
+    dia_spmm_wide(const T* __restrict__ values,
+                  const int* __restrict__ offsets, int ndiag, int64_t n,
+                  int64_t m, const T* __restrict__ x, int64_t hl, int64_t nx,
+                  int64_t xs_i, T* __restrict__ y, int64_t ys_i,
+                  int64_t ys_j, int slab, int rt, int ld, int skew, int sh,
+                  int vec16) {
+  constexpr int ITEMS = kWideItems<T, VEC>;
+  constexpr int L2I = kWideItemsLog2<T, VEC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int R = rt * ITEMS;
+  const int slot = wide_stage_elems<T>(R, ld, skew, ITEMS);
+  const int win = wide_window_elems<T>(R, ld, skew, ITEMS);
+  const int64_t i0 = (int64_t)blockIdx.x * R;
+  const int c0 = blockIdx.y * slab;
+  const int mt = (int)(m - c0 < slab ? m - c0 : slab);
+  const int G = mt / VEC;
+  const bool active = (int)threadIdx.x < G * rt;
+  const int b = threadIdx.x / G;
+  const int g = threadIdx.x - b * G;
+  const int rows = (int)(n - i0 < R ? n - i0 : R);
+  const int a0 = b * ITEMS;             // the thread's first row
+
+  Vec<T, VEC> acc[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[j].v[e] = T(0);
+
+  int d_issue = 0;
+  auto issue = [&](int stage) {
+    if (d_issue < ndiag) {
+      const int k = run_length(offsets, ndiag, d_issue);
+      T* s = smem + stage * slot;
+      stage_window_wide<T, L2I>(s, x, nx, xs_i,
+                                hl + i0 + __ldg(offsets + d_issue), R + k - 1,
+                                c0, mt, ld, skew, sh);
+      stage_values_wide<T>(s + win, values, n, d_issue, k, i0, R, vec16);
+      d_issue += k;
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kWideStages - 1; ++st) issue(st);
+  int stage = 0;
+  for (int d0 = 0; d0 < ndiag;) {
+    issue(stage == 0 ? kWideStages - 1 : stage - 1);
+    cp_wait<kWideStages - 1>();
+    __syncthreads();
+    const int k = run_length(offsets, ndiag, d0);
+    const int64_t w0 = hl + i0 + __ldg(offsets + d0);
+    const T* s = smem + stage * slot + sh + g * VEC;
+    const T* sv = smem + stage * slot + win + a0;
+    // inside x, every row's every term is in range: no checks
+    const bool inside = rows == R && w0 >= 0 && w0 + R + k - 1 <= nx;
+    if (!active) {
+    } else if (inside) {
+#pragma unroll
+      for (int w = 0; w < ITEMS + kRun - 1; ++w) {
+        if (w < ITEMS + k - 1) {
+          const Vec<T, VEC> xv =
+              load_vec<VEC>(s + wide_row<L2I>(a0 + w, ld, skew));
+#pragma unroll
+          for (int e = 0; e < kRun; ++e)      // row w - e takes term e
+            if (w - e >= 0 && w - e < ITEMS && e < k)
+              fma_reg<T, VEC>(acc[w - e], sv[e * R + w - e], xv);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int w = 0; w < ITEMS + kRun - 1; ++w) {
+        const int64_t c = w0 + a0 + w;   // the row of x that w holds
+        if (w < ITEMS + k - 1 && c >= 0 && c < nx) {
+          const Vec<T, VEC> xv =
+              load_vec<VEC>(s + wide_row<L2I>(a0 + w, ld, skew));
+#pragma unroll
+          for (int e = 0; e < kRun; ++e)
+            if (w - e >= 0 && w - e < ITEMS && e < k && a0 + w - e < rows)
+              fma_reg<T, VEC>(acc[w - e], sv[e * R + w - e], xv);
+        }
+      }
+    }
+    __syncthreads();     // this stage is refilled on the next step
+    d0 += k;
+    stage = stage == kWideStages - 1 ? 0 : stage + 1;
+  }
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j)
+    if (a0 + j < rows)
+      store_vec<VEC>(y + (i0 + a0 + j) * ys_i +
+                         (int64_t)(c0 + g * VEC) * ys_j,
+                     acc[j]);
+}
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize, set once per instantiation
+// and device, at its first launch with a ring above 48 KB
+template <typename Kernel>
+int allow_smem(Kernel kernel, bool (&done)[kMaxDevices], size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (err == 0 && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <typename T, int VEC>
+int launch_wide(const T* values, const int* offsets, int ndiag, int64_t n,
+                int64_t m, const T* x, int64_t hl, int64_t nx, int64_t xs_i,
+                T* y, int64_t ys_i, int64_t ys_j, int slab, int rt, int ld,
+                int skew, int sh, int vec16, cudaStream_t stream) {
+  constexpr int ITEMS = kWideItems<T, VEC>;
+  constexpr int P = kPer16<T>;
+  const int R = rt * ITEMS;
+  const int G = slab / VEC;
+  const int64_t row_blocks = (n + R - 1) / R;
+  const int64_t nslabs = (m + slab - 1) / slab;
+  const int threads = (G * rt + 31) / 32 * 32;
+  // the slabs are whole 16-byte groups (or one slab of all m), a window
+  // row holds its segment and phase on 16 bytes, R rows of values are
+  // whole pieces
+  if (slab <= 0 || slab > kSlab || slab % VEC != 0 || m % VEC != 0 ||
+      (nslabs > 1 && slab % P != 0) || rt <= 0 || threads > kWideThreads ||
+      sh < 0 || sh >= P || sh % VEC != 0 || skew < 0 || skew % P != 0 ||
+      ld < sh + (slab < m ? slab : m) || ld % P != 0 ||
+      row_blocks > 0x7fffffff || nslabs > 0xffff)
+    return (int)cudaErrorInvalidValue;
+  // the 16-byte copies' source lines, and VEC elements of y at once
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if ((xa - sh * sizeof(T)) % 16 != 0 || xs_i * sizeof(T) % 16 != 0 ||
+      (VEC > 1 && (ys_j != 1 || ys_i % VEC != 0 ||
+                   reinterpret_cast<uintptr_t>(y) % (VEC * sizeof(T)) != 0)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kWideStages * sizeof(T) * wide_stage_elems<T>(R, ld, skew, ITEMS);
+  static bool done[kMaxDevices];
+  int err = allow_smem(dia_spmm_wide<T, VEC>, done, smem);
+  if (err != 0) return err;
+  dia_spmm_wide<T, VEC>
+      <<<dim3((unsigned)row_blocks, (unsigned)nslabs), threads, smem,
+         stream>>>(values, offsets, ndiag, n, m, x, hl, nx, xs_i, y, ys_i,
+                   ys_j, slab, rt, ld, skew, sh, vec16);
+  return (int)cudaGetLastError();
+}
+
 // a plan the kernels cannot take: vec not one of T's widths, a column tile
 // that is not a positive multiple of vec up to kItems vec, vec not dividing
 // m, row_fast with vec > 1
@@ -563,5 +928,49 @@ extern "C" int gcge_dia_spmm_f32(const void* values, const void* offsets,
   return fn((const float*)values, (const int*)offsets, (int)ndiag, n, m,
             (const float*)x, hl, nx, xs_i, xs_j, (float*)y, ys_i, ys_j,
             (int)col_tile, (int)copy16, (int)vec16, (int)row_fast,
+            (cudaStream_t)stream);
+}
+
+// The wide path of kernel 1 (f64) and kernel 2 (f32): x's and y's columns
+// adjacent (unit column stride); vec: 2 or 1 (f64), 4, 2 or 1 (f32); slab:
+// columns a block holds; rt: rows a pass of the block's threads covers
+// (R = rt kWideItems rows a block); ld: elements a window row takes in
+// shared memory; skew: elements between blocks of kWideItems window rows
+// beyond ld (see wide_row); sh: the phase of x's row segments; vec16: see
+// stage_values.  The launch plan is spmm.dia_plan's
+// (DiaWidePlan).
+extern "C" int gcge_dia_spmm_wide_f64(const void* values, const void* offsets,
+                                      int64_t ndiag, int64_t n, int64_t m,
+                                      const void* x, int64_t hl, int64_t nx,
+                                      int64_t xs_i, void* y, int64_t ys_i,
+                                      int64_t ys_j, int64_t vec, int64_t slab,
+                                      int64_t rt, int64_t ld, int64_t skew,
+                                      int64_t sh, int64_t vec16,
+                                      void* stream) {
+  if ((vec != 1 && vec != 2) || hl < 0 || nx < n + hl)
+    return (int)cudaErrorInvalidValue;
+  const auto fn = vec == 2 ? launch_wide<double, 2> : launch_wide<double, 1>;
+  return fn((const double*)values, (const int*)offsets, (int)ndiag, n, m,
+            (const double*)x, hl, nx, xs_i, (double*)y, ys_i, ys_j, (int)slab,
+            (int)rt, (int)ld, (int)skew, (int)sh, (int)vec16,
+            (cudaStream_t)stream);
+}
+
+extern "C" int gcge_dia_spmm_wide_f32(const void* values, const void* offsets,
+                                      int64_t ndiag, int64_t n, int64_t m,
+                                      const void* x, int64_t hl, int64_t nx,
+                                      int64_t xs_i, void* y, int64_t ys_i,
+                                      int64_t ys_j, int64_t vec, int64_t slab,
+                                      int64_t rt, int64_t ld, int64_t skew,
+                                      int64_t sh, int64_t vec16,
+                                      void* stream) {
+  if ((vec != 1 && vec != 2 && vec != 4) || hl < 0 || nx < n + hl)
+    return (int)cudaErrorInvalidValue;
+  const auto fn = vec == 4   ? launch_wide<float, 4>
+                  : vec == 2 ? launch_wide<float, 2>
+                             : launch_wide<float, 1>;
+  return fn((const float*)values, (const int*)offsets, (int)ndiag, n, m,
+            (const float*)x, hl, nx, xs_i, (float*)y, ys_i, ys_j, (int)slab,
+            (int)rt, (int)ld, (int)skew, (int)sh, (int)vec16,
             (cudaStream_t)stream);
 }

@@ -6,7 +6,12 @@
 (``transposed=True``, :meth:`DiaOperator.matvec_t`).  On a CUDA tensor it
 launches kernel 1 (f64) or kernel 2 (f32) of ``csrc/dia_spmm.cu``, one
 staged design in two types, on the launch plan of :func:`dia_plan`; on a CPU
-tensor it runs :func:`dia_spmm_reference`, the plain PyTorch version.
+tensor it runs :func:`dia_spmm_reference`, the plain PyTorch version.  Each
+kernel has two paths with the same bits: the ``"narrow"`` one holds a column
+tile of at most ``DIA_ITEMS`` groups (all of m = 10), the ``"wide"`` one all
+columns of its rows up to a slab of ``DIA_SLAB`` (:class:`DiaWidePlan`),
+for operands past one tile whose columns are adjacent (the wide solves' CG
+operands and windows of V, m = 40 and 80).
 
 Both SpMM wrappers of the port (this one and ``onehot.csr_spmm``) return
 ``y`` in the memory order of ``x``: :func:`empty_in_order_of` and
@@ -38,6 +43,13 @@ LAUNCHES = {"dia_f64": 0, "dia_f32": 0}
 
 DIA_ITEMS = 5          # kItems of csrc/dia_spmm.cu: column groups of a
                        # block's column tile
+# the wide path (csrc/dia_spmm.cu, dia_spmm_wide): kSlab, kWideThreads,
+# kWideStages, kRun
+DIA_SLAB = 80
+DIA_WIDE_THREADS = 128
+DIA_WIDE_STAGES = 2
+DIA_RUN = 4
+PATHS = ("narrow", "wide")
 
 
 def column_major(t: torch.Tensor) -> bool:
@@ -87,6 +99,78 @@ def row_fast(m: int, ys_i: int, ys_j: int) -> bool:
     return ys_i == 1 and ys_j != 1 and m > 1
 
 
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def wide_items(item: int, vec: int) -> int:
+    """Rows a thread of the wide path holds (``kWideItems`` of
+    csrc/dia_spmm.cu): 8, twice that where a read is narrower than 16
+    bytes."""
+    return 8 * (2 if vec * item < 16 else 1)
+
+
+@dataclass(frozen=True)
+class DiaWidePlan:
+    """A launch of the wide path: blocks of ``rows`` rows and one slab of
+    columns each; thread t takes column group ``t % G`` of its slab (G =
+    slab width / vec) and the ``items`` consecutive rows of row block ``t //
+    G``."""
+    item: int         # bytes of an element
+    vec: int          # elements a thread reads and writes at once
+    slab: int         # columns of a block (the last slab may be narrower)
+    rt: int           # row blocks of ``items`` rows in a block
+    ld: int           # elements a window row takes in shared memory
+    skew: int         # elements between row blocks of the window beyond ld
+    sh: int           # x's row segments start sh elements past 16 bytes
+
+    @property
+    def items(self) -> int:
+        return wide_items(self.item, self.vec)
+
+    @property
+    def rows(self) -> int:          # R: rows of a block
+        return self.rt * self.items
+
+    @property
+    def threads(self) -> int:       # a block's threads, whole warps
+        return _round_up(self.slab // self.vec * self.rt, 32)
+
+    def window_row(self, a: int) -> int:
+        """Where window row ``a`` starts in a stage (``wide_row``)."""
+        return a * self.ld + a // self.items * self.skew
+
+    def stage_elems(self) -> int:
+        """Elements of a ring stage (``wide_stage_elems``): the window's
+        rows + kRun - 1 rows and their skews, rounded to 16 bytes, then
+        kRun value rows."""
+        rows = self.rows + DIA_RUN - 1
+        window = _round_up(rows * self.ld + (rows // self.items + 1)
+                           * self.skew, 16 // self.item)
+        return window + DIA_RUN * self.rows
+
+    @property
+    def smem(self) -> int:          # bytes of shared memory a block asks
+        return DIA_WIDE_STAGES * self.item * self.stage_elems()
+
+    def slabs(self, m: int) -> list[tuple[int, int]]:
+        """The ``(first column, width)`` of each slab."""
+        return [(c0, min(self.slab, m - c0))
+                for c0 in range(0, m, self.slab)]
+
+
+def wide_skew(item: int, vec: int, groups: int, ld: int) -> int:
+    """The skew (in elements, a multiple of 16 bytes) that makes a warp's
+    window reads conflict-free: thread t reads ``vec`` elements of row block
+    ``t // groups`` at column group ``t % groups``, and the shared memory
+    serves ``128 / (vec item)`` such reads at once from different banks when
+    their addresses, in reads, are t modulo that count."""
+    lanes = 128 // (vec * item)           # reads served together
+    per = 16 // item // vec               # reads in 16 bytes
+    want = (groups - wide_items(item, vec) * ld // vec) % lanes
+    return _round_up(want, per) % lanes * vec
+
+
 @dataclass(frozen=True)
 class DiaPlan:
     vec: int          # elements a thread reads from a window and writes to y
@@ -96,32 +180,76 @@ class DiaPlan:
                             # bytes, 16-byte copies
     row_fast: bool = False  # y's rows are adjacent: a thread's items are one
                             # row's column groups
+    wide: DiaWidePlan | None = None     # the wide path's launch, if taken
+
+
+def _wide_plan(m: int, xs_i: int, xs_j: int, x_ptr16: int, ys_i: int,
+               ys_j: int, y_ptr16: int, item: int) -> DiaWidePlan | None:
+    """The wide path's plan, or None where it cannot take the layout: x's
+    and y's columns must be adjacent and x's rows a multiple of 16 bytes
+    apart (every row segment of the window at one 16-byte phase)."""
+    if m > 1 and (xs_j != 1 or ys_j != 1) or xs_i * item % 16:
+        return None
+    per16 = 16 // item
+    nslabs = -(-m // DIA_SLAB)
+    slab = m if nslabs == 1 else _round_up(-(-m // nslabs), per16)
+    # vec: the stores to y and the reads of a window row, both aligned
+    vec = vec_width(m, (ys_i, ys_j, y_ptr16), (xs_i, 1, x_ptr16), item=item)
+    sh = x_ptr16 // item % per16
+    ld = _round_up(sh + slab, per16)
+    groups = slab // vec
+    return DiaWidePlan(item, vec, slab, max(1, DIA_WIDE_THREADS // groups),
+                       ld, wide_skew(item, vec, groups, ld), sh)
 
 
 @functools.lru_cache(maxsize=None)
 def dia_plan(m: int, xs_i: int, xs_j: int, x_ptr16: int, ys_i: int,
-             ys_j: int, y_ptr16: int, item: int = 4) -> DiaPlan:
+             ys_j: int, y_ptr16: int, item: int = 4,
+             path: str | None = None) -> DiaPlan:
     """Launch plan of kernel 2 (``item`` 4, f32) or kernel 1 (``item`` 8,
     f64) for the logical ``(n, m)`` views of ``x`` and ``y`` given by their
-    strides and their ``data_ptr() % 16``.  ``vec`` follows the stores to
-    ``y`` (:func:`vec_width`); a column tile holds at most ``DIA_ITEMS``
-    groups of ``vec`` columns and is all of ``m`` where it can be.  The f32
-    window copy is flat where x's rows are contiguous and adjacent and x
-    starts on 16 bytes; the f64 one copies 16-byte pieces of each row where
-    every tile's row segment starts on 16 bytes (unit column stride, an even
-    row stride, x on 16 bytes and tiles of an even width or one tile).
-    ``row_fast`` (kernel 1 only): see :func:`row_fast`."""
+    strides and their ``data_ptr() % 16``.  The narrow path's fields: ``vec``
+    follows the stores to ``y`` (:func:`vec_width`); a column tile holds at
+    most ``DIA_ITEMS`` groups of ``vec`` columns and is all of ``m`` where it
+    can be.  The f32 window copy is flat where x's rows are contiguous and
+    adjacent and x starts on 16 bytes; the f64 one copies 16-byte pieces of
+    each row where every tile's row segment starts on 16 bytes (unit column
+    stride, an even row stride, x on 16 bytes and tiles of an even width or
+    one tile).  ``row_fast`` (kernel 1 only): see :func:`row_fast`.
+
+    ``wide``: the wide path's plan (:func:`_wide_plan`) where the path is
+    ``"wide"``.  ``path`` None takes it where it can and m needs more than
+    one narrow tile, else the narrow path; ``"narrow"`` or ``"wide"``
+    forces one (a layout the wide path cannot take raises ``ValueError``).
+    On an H100 80GB HBM3 at 700 W (PERF.md) the wide path measured 1.46-2.7
+    times as fast as the narrow one at every operand past one tile (m = 20
+    to 800).  At m = 10 it measured 0.88-1.00 times as fast at every
+    operand of 148,877 or 157,464 rows, whatever the layout; only a halo
+    block of 39,366 rows measured 1.10 times, and the plan cannot tell that
+    case by the layout it sees, so every m = 10 operand keeps the narrow
+    path."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
     vec = vec_width(m, (ys_i, ys_j, y_ptr16), item=item)
     col_tile = min(m, DIA_ITEMS * vec)
     unit = xs_j == 1 or m == 1
     fast = row_fast(m, ys_i, ys_j)
+    wide = None
+    if path != "narrow":
+        wide = _wide_plan(m, xs_i, xs_j, x_ptr16, ys_i, ys_j, y_ptr16, item)
+        if wide is None and path == "wide":
+            raise ValueError(f"the wide path cannot take x strides "
+                             f"({xs_i}, {xs_j}) and y strides ({ys_i}, "
+                             f"{ys_j}) at m = {m}")
+        if path is None and col_tile == m:
+            wide = None
     if item == 4:
         # kernel 2 keeps its column-group-fastest items (csrc/dia_spmm.cu)
         flat = col_tile == m and unit and xs_i == m and x_ptr16 == 0
-        return DiaPlan(vec, col_tile, flat)
+        return DiaPlan(vec, col_tile, flat, wide=wide)
     rows16 = unit and xs_i % 2 == 0 and x_ptr16 == 0 and \
         (col_tile % 2 == 0 or col_tile == m)
-    return DiaPlan(vec, col_tile, False, rows16, fast)
+    return DiaPlan(vec, col_tile, False, rows16, fast, wide)
 
 
 def dia_spmm_reference(values: torch.Tensor, offsets: torch.Tensor,
@@ -147,8 +275,8 @@ def dia_spmm_reference(values: torch.Tensor, offsets: torch.Tensor,
 
 
 def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
-             transposed: bool = False, halo: tuple[int, int] = (0, 0)
-             ) -> torch.Tensor:
+             transposed: bool = False, halo: tuple[int, int] = (0, 0),
+             path: str | None = None) -> torch.Tensor:
     """``A x`` for DIA ``values`` (ndiag, n) and int32 ``offsets`` (ndiag,).
 
     ``x`` is ``(n + hl + hr, m)``, or ``(m, n + hl + hr)`` when
@@ -156,7 +284,11 @@ def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
     docstring).  The result is ``(n, m)`` or ``(m, n)``, freshly allocated,
     in the memory order of ``x``: like ``torch.empty_like(x)`` for a dense
     ``x``, else contiguous in the logical layout
-    (:func:`empty_in_order_of`)."""
+    (:func:`empty_in_order_of`).  ``path``: None picks the kernel's path by
+    :func:`dia_plan`, ``"narrow"`` or ``"wide"`` forces one (measurements
+    and tests); both give the same bits."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
     hl, hr = (int(h) for h in halo)
     ndiag, n = values.shape
     if hl < 0 or hr < 0:
@@ -194,19 +326,25 @@ def dia_spmm(values: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
         ys_i, ys_j = y.stride(0), y.stride(1)
     item = x.element_size()
     plan = dia_plan(m, xs_i, xs_j, x.data_ptr() % 16, ys_i, ys_j,
-                    y.data_ptr() % 16, item)
+                    y.data_ptr() % 16, item, path)
     # the value rows in 16-byte pieces: n a multiple of 16 bytes' worth
     vec16 = n % (16 // item) == 0 and values.data_ptr() % 16 == 0
-    entry, counter = ("gcge_dia_spmm_f64", "dia_f64") if item == 8 else \
-        ("gcge_dia_spmm_f32", "dia_f32")
+    kind = "f64" if item == 8 else "f32"
+    head = (values.data_ptr(), offsets.data_ptr(), ndiag, n, m, x.data_ptr(),
+            hl, nx, xs_i)
+    w = plan.wide
+    if w is not None:
+        entry = f"gcge_dia_spmm_wide_{kind}"
+        args = (*head, y.data_ptr(), ys_i, ys_j, w.vec, w.slab, w.rt, w.ld,
+                w.skew, w.sh, int(vec16))
+    else:
+        entry = f"gcge_dia_spmm_{kind}"
+        args = (*head, xs_j, y.data_ptr(), ys_i, ys_j, plan.vec,
+                plan.col_tile, int(plan.flat or plan.rows16), int(vec16),
+                int(plan.row_fast))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(_build.lib(), entry)(
-            values.data_ptr(), offsets.data_ptr(), ndiag, n, m, x.data_ptr(),
-            hl, nx, xs_i, xs_j, y.data_ptr(), ys_i, ys_j, plan.vec,
-            plan.col_tile,
-            int(plan.flat or plan.rows16), int(vec16), int(plan.row_fast),
-            stream)
+        err = getattr(_build.lib(), entry)(*args, stream)
     _build.check(entry, err)
-    LAUNCHES[counter] += 1
+    LAUNCHES["dia_" + kind] += 1
     return y

@@ -219,6 +219,65 @@ def test_dia_kernels_at_the_wide_solve_operands(cuda, width, size_x, m,
     assert float((got - ref).abs().max()) <= 1e-6 * float(scale)
 
 
+def _wide_operand(kind, n, m, dtype, device, seed, halo=(0, 0)):
+    """x for the wide path at m columns and n + hl + hr rows, as ``(x,
+    transposed)``: ``cg`` the mixed inner CG's (m, n) with strides (1, m),
+    ``dense`` a contiguous (n, m) (the f64 refresh), ``even`` / ``odd`` the
+    column view of a wider basis at an even (V's W coupling) or odd (the
+    Ritz block's residual window) offset."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = n + sum(halo)
+    if kind == "cg":
+        return torch.randn((rows, m), generator=g, dtype=dtype,
+                           device=device).T, True
+    if kind == "dense":
+        return torch.randn((rows, m), generator=g, dtype=dtype,
+                           device=device), False
+    base = torch.randn((rows, m + 44), generator=g, dtype=dtype,
+                       device=device)
+    off = 40 if kind == "even" else 41
+    return base[:, off:off + m], False
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14),
+                                       (torch.float32, 1e-6)])
+@pytest.mark.parametrize("m", [40, 80])
+@pytest.mark.parametrize("kind", ["cg", "dense", "even", "odd", "halo"])
+def test_dia_wide_path_has_the_narrow_bits(cuda, dtype, tol, m, kind):
+    """The wide path of kernels 1 and 2 against the narrow path, bit for
+    bit, and within tol of max |A||x| of the plain version, at m = 40 and
+    80 on the 27-point Laplacian at nx = 12 (blocks of the wide path
+    part-full at the end): the CG operand, a contiguous (n, m), column
+    views at an even and an odd offset, and a halo window (CG layout in
+    f32, contiguous in f64); the plan takes the wide path there, and two
+    launches give the same bits."""
+    rows, cols, vals, n = _laplacian_27(12)
+    op = make_operator(rows, cols, vals, (n, n), dtype=dtype, device=cuda)
+    halo = (111, 120) if kind == "halo" else (0, 0)
+    layout = kind if kind != "halo" else \
+        ("cg" if dtype == torch.float32 else "dense")
+    x, transposed = _wide_operand(layout, n, m, dtype, cuda, m, halo)
+
+    def run(path=None):
+        return spmm.dia_spmm(op.values, op.offsets_t, x, transposed, halo,
+                             path=path)
+
+    spmm.LAUNCHES["dia_f64"] = spmm.LAUNCHES["dia_f32"] = 0
+    wide, narrow = run("wide"), run("narrow")
+    assert torch.equal(wide, narrow)
+    assert torch.equal(run(), wide) and torch.equal(run(), wide)
+    assert sum(spmm.LAUNCHES.values()) == 4
+    xs = (x.stride(1), x.stride(0)) if transposed else x.stride()
+    ys = (wide.stride(1), wide.stride(0)) if transposed else wide.stride()
+    assert spmm.dia_plan(m, *xs, x.data_ptr() % 16, *ys,
+                         wide.data_ptr() % 16, x.element_size()).wide
+    ref = spmm.dia_spmm_reference(op.values, op.offsets_t, x, transposed,
+                                  halo)
+    scale = spmm.dia_spmm_reference(op.values.abs(), op.offsets_t, x.abs(),
+                                    transposed, halo).max()
+    assert float((wide - ref).abs().max()) <= tol * float(scale)
+
+
 @pytest.mark.parametrize("m", [1, 10, 100])
 @pytest.mark.parametrize("kind", ["even", "odd"] + _LAYOUTS)
 def test_dia_f64_kernel_runs_and_edges(cuda, m, kind):

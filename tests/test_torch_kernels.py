@@ -58,7 +58,7 @@ def _dia_scale(op, x_nm):
 
 
 @pytest.mark.parametrize("transposed", [False, True])
-@pytest.mark.parametrize("m", [3, 10])
+@pytest.mark.parametrize("m", [3, 10, 40])
 def test_dia_f64_plain_matches_df64_pallas(dia12, m, transposed):
     """Port's f64 DIA (plain) vs the df64 Pallas kernel: within 1e-13 of
     max |A||x| (df64 planes carry ~2^-48 relative error)."""
@@ -73,12 +73,15 @@ def test_dia_f64_plain_matches_df64_pallas(dia12, m, transposed):
     assert np.max(np.abs(got - ref)) <= 1e-13 * _dia_scale(dia12, x)
 
 
-@pytest.mark.parametrize("transposed", [False, True])
-def test_dia_f32_plain_matches_pallas(dia12, transposed):
+# (transposed, m): m = 40 is the nev=200 solve's CG operand, the wide path's
+@pytest.mark.parametrize("transposed,m", [(False, 10), (True, 10),
+                                          (False, 40), (True, 40)],
+                         ids=["False", "True", "False-m40", "True-m40"])
+def test_dia_f32_plain_matches_pallas(dia12, transposed, m):
     """Port's f32 DIA (plain) vs the f32 Pallas kernel: within 1e-5 of
     max |A||x| (f32 sums of 27 terms)."""
     n = dia12.shape[0]
-    x = np.random.default_rng(7).standard_normal((n, 10)).astype(np.float32)
+    x = np.random.default_rng(7).standard_normal((n, m)).astype(np.float32)
     v32 = dia12.values.float()
     ref = np.asarray(dia_spmm_pallas_t(jnp.asarray(v32.numpy()),
                                        dia12.offsets, jnp.asarray(x.T),
@@ -768,6 +771,149 @@ def test_dia_plan_transposed_layouts(item, m):
     assert plan.vec == 1 and plan.col_tile == min(m, spmm.DIA_ITEMS)
     assert plan.row_fast == (m > 1 and item == 8)
     assert not plan.rows16 and plan.flat == (m == 1 and item == 4)
+
+
+# ---- the wide path of kernels 1 and 2 (csrc/dia_spmm.cu, dia_spmm_wide) ----
+
+# (name, item, m, x strides, x data_ptr % 16, y strides) of the operands a
+# solve hands kernels 1 and 2, and the path the plan must take
+_SOLVE_OPERANDS = [
+    ("f32 CG m=10", 4, 10, (10, 1), 0, (10, 1), "narrow"),
+    ("f32 CG m=40", 4, 40, (40, 1), 0, (40, 1), "wide"),
+    ("f32 CG m=80", 4, 80, (80, 1), 0, (80, 1), "wide"),
+    ("f32 halo (nw, 10)", 4, 10, (10, 1), 0, (10, 1), "narrow"),
+    ("f64 V[:, 110:120]", 8, 10, (120, 1), 0, (10, 1), "narrow"),
+    ("f64 ritz[:, 41:51]", 8, 10, (100, 1), 8, (10, 1), "narrow"),
+    ("f64 refresh (n, 10)", 8, 10, (10, 1), 0, (10, 1), "narrow"),
+    ("f64 ritz[:, 40:60]", 8, 20, (100, 1), 0, (20, 1), "wide"),
+    ("f64 ritz[:, 41:61]", 8, 20, (100, 1), 8, (20, 1), "wide"),
+    ("f64 gathered (n, 20)", 8, 20, (20, 1), 0, (20, 1), "wide"),
+    ("f64 V[:, :100]", 8, 100, (120, 1), 0, (100, 1), "wide"),
+    ("f64 V[:, 440:480]", 8, 40, (480, 1), 0, (40, 1), "wide"),
+    ("f64 V[:, 880:960]", 8, 80, (960, 1), 0, (80, 1), "wide"),
+    ("f64 ritz[:, 41:81]", 8, 40, (400, 1), 8, (40, 1), "wide"),
+    ("f64 ritz[:, 41:121]", 8, 80, (800, 1), 8, (80, 1), "wide"),
+    ("f64 refresh (n, 40)", 8, 40, (40, 1), 0, (40, 1), "wide"),
+    ("f64 V[:, :400]", 8, 400, (480, 1), 0, (400, 1), "wide"),
+    ("f64 V[:, :800]", 8, 800, (960, 1), 0, (800, 1), "wide"),
+    ("f64 (100, n) transposed", 8, 100, (1, 5000), 0, (1, 5000), "narrow"),
+    ("f32 (40, n) contiguous", 4, 40, (1, 5000), 0, (1, 5000), "narrow"),
+]
+
+
+@pytest.mark.parametrize("case", _SOLVE_OPERANDS, ids=lambda c: c[0])
+def test_dia_plan_picks_the_wide_path_past_one_tile(case):
+    """The plan takes the wide path at the wide solves' operands (the CG's
+    (40, n) and (80, n), the windows of V and of the Ritz block, the f64
+    refresh, the initial Rayleigh-Ritz's V[:, :size_x]) and at the
+    headline's past one tile (the phased loop's 20-wide residual windows,
+    the gathered (n, 20), V[:, :100]), and keeps the narrow one at m = 10
+    (headline, FEM level 0, halo rows) and where columns are not adjacent;
+    the narrow fields are those of the narrow plan."""
+    _, item, m, (xs_i, xs_j), ptr, (ys_i, ys_j), want = case
+    plan = spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item)
+    assert ("wide" if plan.wide else "narrow") == want
+    narrow = spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item, "narrow")
+    assert narrow.wide is None
+    assert (plan.vec, plan.col_tile, plan.flat, plan.rows16,
+            plan.row_fast) == (narrow.vec, narrow.col_tile, narrow.flat,
+                               narrow.rows16, narrow.row_fast)
+    # the wide path takes it when asked where columns are adjacent and rows
+    # a multiple of 16 bytes apart
+    if xs_j == 1 and xs_i * item % 16 == 0:
+        assert spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item,
+                             "wide").wide is not None
+    else:
+        with pytest.raises(ValueError, match="wide path cannot"):
+            spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item, "wide")
+
+
+def _cover(w, n, m):
+    """How often the wide launch of plan ``w`` writes each entry of an
+    (n, m) product, by the kernel's own mapping: block (row block, slab),
+    thread t of G = width / vec column groups: group t % G, rows
+    (t // G) items + r."""
+    count = np.zeros((n, m), dtype=np.int64)
+    for i0 in range(0, n, w.rows):
+        for c0, width in w.slabs(m):
+            groups = width // w.vec
+            for t in range(min(w.threads, groups * w.rt)):
+                b, g = divmod(t, groups)
+                for r in range(w.items):
+                    a = i0 + b * w.items + r
+                    if a < n:
+                        c = c0 + g * w.vec
+                        count[a, c:c + w.vec] += 1
+    return count
+
+
+@pytest.mark.parametrize("m", [12, 40, 44, 80, 100, 800])
+@pytest.mark.parametrize("item,off", [(4, 0), (4, 1), (8, 0), (8, 1)])
+def test_dia_wide_plan_covers_each_entry_once(m, item, off):
+    """Forced onto the wide path, a column view at an even or odd offset of
+    a wider basis: every (row, column) of y is written by exactly one thread
+    of one block; slabs of whole 16-byte groups (or one of all m); at most
+    DIA_WIDE_THREADS threads; every window row starts on 16 bytes and holds
+    its segment; the ring of DIA_WIDE_STAGES stages fits what the block
+    asks and the card's limit."""
+    width = m + 8
+    plan = spmm.dia_plan(m, width, 1, off * item % 16, m, 1, 0, item, "wide")
+    w = plan.wide
+    per16 = 16 // item
+    n = 2 * w.rows + 5                 # a part-full last block
+    assert (_cover(w, n, m) == 1).all()
+    slabs = w.slabs(m)
+    assert sum(width for _, width in slabs) == m
+    assert len(slabs) == 1 or w.slab % per16 == 0
+    assert all(width % w.vec == 0 for _, width in slabs)
+    assert w.slab <= spmm.DIA_SLAB and w.threads <= spmm.DIA_WIDE_THREADS
+    assert w.sh == off * item % 16 // item and w.sh % w.vec == 0
+    rows = w.rows + spmm.DIA_RUN - 1
+    window = w.stage_elems() - spmm.DIA_RUN * w.rows
+    for a in range(rows):
+        assert w.window_row(a) % per16 == 0
+        assert w.window_row(a) + w.sh + w.slab <= window
+        assert w.window_row(a) + w.ld <= window
+    assert w.smem == spmm.DIA_WIDE_STAGES * item * w.stage_elems()
+    assert w.smem <= 227 * 1024       # what a block may opt in to (H100)
+
+
+@pytest.mark.parametrize("case", [c for c in _SOLVE_OPERANDS
+                                  if c[-1] == "wide"], ids=lambda c: c[0])
+def test_dia_wide_skew_spreads_a_warp_over_the_banks(case):
+    """At the wide solves' operands, the reads of one window row by a warp
+    (thread t: column group t % G of row block t // G) that shared memory
+    serves together (128 bytes' worth) touch 32 different banks."""
+    _, item, m, (xs_i, xs_j), ptr, (ys_i, ys_j), _ = case
+    w = spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item).wide
+    groups = w.slab // w.vec
+    active = groups * w.rt
+    width = w.vec * item                       # bytes a thread reads
+    for step in range(w.items + spmm.DIA_RUN - 1):
+        addr = []
+        for t in range(active):
+            b, g = divmod(t, groups)
+            addr.append((w.window_row(b * w.items + step) + w.sh
+                         + g * w.vec) * item)
+        for t0 in range(0, active - active % 32, 128 // width):
+            banks = [(a // 4 + k) % 32 for a in addr[t0:t0 + 128 // width]
+                     for k in range(width // 4)]
+            assert len(set(banks)) == len(banks) == 32
+
+
+def test_dia_path_argument_on_the_cpu(dia12):
+    """``path=`` on a CPU tensor takes the plain version whatever it asks,
+    counts no launch, and refuses a name it does not know."""
+    n = dia12.shape[0]
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal((n, 40)))
+    before = dict(spmm.LAUNCHES)
+    ref = spmm.dia_spmm_reference(dia12.values, dia12.offsets_t, x)
+    for path in (None, "narrow", "wide"):
+        got = spmm.dia_spmm(dia12.values, dia12.offsets_t, x, path=path)
+        assert torch.equal(got, ref)
+    assert spmm.LAUNCHES == before
+    with pytest.raises(ValueError, match="path"):
+        spmm.dia_spmm(dia12.values, dia12.offsets_t, x, path="tiles")
 
 
 @pytest.mark.parametrize("case", list(_row_cases()))
