@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --tall [--root DIR]
     python3 chip_smoke.py --dia [--root DIR]
+    python3 chip_smoke.py --pas [--root DIR]
 
 Nine kernels, four solves (the headline and the irregular problem, each by
 the phased and by the fused loop), the two kernel measurement scripts, the
@@ -102,8 +103,11 @@ Phases, each of which raises on failure:
     count, and holds its converged pairs to host residuals of 2e-8 (the
     solver's measure: ``||Ax - lambda Bx|| / |lambda|`` for B-orthonormal x,
     and ``X^T B X = I`` to 1e-10) and its 50 eigenvalues to 1e-9 of the plain
-    solve; then kernel 6 at the coarse levels' own operands (rows of more
-    than 256 entries on the split path), timed like the other rows, and
+    solve (the PAS solves through kernel 6's panel path); then kernel 6 at
+    the coarse levels' own operands (rows of more than 256 entries on the
+    split path; at PAS's (n, 75) on levels 2 A and 3 A the panel path),
+    timed like the other rows, the split and the panel path in turns with
+    a second bound (the records of x each gathers over the L2 rate), and
     each CSR level's middle third of rows as a CSR of its own, which must
     give the same bits as the rows of the whole product.
 
@@ -203,6 +207,15 @@ library call, the narrow and the wide path back to back with their bits
 compared; then the two wide solves' walls and kernel 1/2 calls by
 operand; ``--root DIR`` as for ``--tall`` (a parent tree: the plan's path
 only).
+
+``--pas`` runs phase 1 and then the PAS solve of the cube FEM pair alone
+(the multilevel path's solve at PAS's working block of 75 columns): its
+wall, sweeps and count, a ``torch.profiler`` run of it (busy, idle,
+kernels 1 and 6 device time), then kernel 6 at the AMG levels' CSR
+operands at ``(n, 10)`` and ``(n, 75)``, where the plan holds panels on
+the split and the panel path in turns, each beside the library call, the
+device-memory bound and the bound of its gathers of x over the L2 rate;
+``--root DIR`` as for ``--tall``.
 
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; the whole wide
@@ -904,10 +917,10 @@ def build_delaunay(g: int):
 
 
 def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag="",
-             parents=None):
+             parents=None, after=None):
     """Kernel 5 or 6 (by the dtype of ``vals``) on the CSR operator ``op``
     in its own plan: :func:`spmm_rows` with the library call on the scipy
-    matrix ``a_csr``."""
+    matrix ``a_csr`` (and its ``after`` hook)."""
     from gcge_tpu_torch.ops import onehot
 
     rowptr, colidx, plan = op.rowptr, op.colidx, op.plan
@@ -920,7 +933,7 @@ def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag="",
         op.shape[0], nnz,
         nnz * (4 + vals.element_size()) + 4 * (op.shape[0] + 1),
         csr_tensor(torch, a_csr, vals.dtype), cases, tol, gen, tag,
-        n_in=op.shape[1], parents=parents)
+        n_in=op.shape[1], parents=parents, after=after)
 
 
 def phase_kernels_irregular(torch, log, a_rcm):
@@ -1550,8 +1563,9 @@ def phase_pas(torch, a, b, ev_plain):
               f"{res.sweeps}, nev_conv {nev_conv} of {NEV}, launches "
               f"{launches}")
         fem_gates(tag, a, b, ev, evec, nev_conv, ev_plain)
+        # the working block (n, 75) at levels 2 A and 3 A: the panel path
         path_launched(tag, launches, ("dia_f64", "gram", "expand",
-                                      "csr_f64"))
+                                      "csr_f64", "csr_f64_panel"))
         out[tag] = launches
         if first is None:
             first = res
@@ -1563,10 +1577,11 @@ def kernels_amg_levels(torch, log, hier):
     transfers (an ``(n, 10)`` block), against its plain version and beside
     ``torch.sparse.mm``; rows of more than 256 entries run on the split
     path.  Where a level has such rows (level 2 A and R, level 3 A), also
-    at PAS's working block (``(n, 75)``, m / LV > 16: the staged kernel of
-    the split path).  Then each level's A, at both widths: its middle third
-    of rows as a CSR of its own gives the same bits as the whole product's
-    rows."""
+    at PAS's working block (``(n, 75)``: the panel path where the plan takes
+    it, level 2 A and level 3 A; else the split path's staged kernel), with
+    the split and the panel path in turns (:func:`csr_paths`).  Then each
+    level's A, at both widths: its middle third of rows as a CSR of its own
+    gives the same bits as the whole product's rows."""
     from gcge_tpu_torch.ops import onehot
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
@@ -1636,7 +1651,8 @@ def kernels_fem_level0(torch, log, a):
 def csr_operator_row(torch, log, op, what, gen, widths=(BS,)):
     """Kernel 6 on the CSR operator ``op`` at an ``(n, m)`` block of each
     width of ``widths`` (n its columns), against its plain version and
-    beside ``torch.sparse.mm``."""
+    beside ``torch.sparse.mm``; where its plan holds panels, on the split
+    and the panel path in turns (:func:`csr_paths`)."""
     import scipy.sparse as sps
 
     from gcge_tpu_torch.ops import onehot
@@ -1645,10 +1661,113 @@ def csr_operator_row(torch, log, op, what, gen, widths=(BS,)):
                             op.rowptr.cpu().numpy()), shape=op.shape)
     lengths = np.diff(a_csr.indptr)
     split = int((lengths > onehot.CSR_SPLIT).sum())
+    pn = getattr(op.plan, "panels", None)
+    panels = "" if pn is None else \
+        f", {pn.npanels} panels of 16 rows, {pn.kcol.shape[0]} tiles of 16 " \
+        f"x 8, {100 * pn.fill:.1f} % full, {pn.chunks} column chunks"
     csr_rows(torch, log, "csr_f64", op, op.values, a_csr,
-             [f"(n, {m})" for m in widths], 1e-14, gen, f" {what} {op.shape} ({a_csr.nnz} entries, rows up "
-             f"to {lengths.max()}, {split} of more than {onehot.CSR_SPLIT} "
-             f"on the split path, {op.plan.nsplit} blocks)")
+             [f"(n, {m})" for m in widths], 1e-14, gen,
+             f" {what} {op.shape} ({a_csr.nnz} entries, rows up to "
+             f"{lengths.max()}, {split} of more than {onehot.CSR_SPLIT} on "
+             f"the split path, {op.plan.nsplit} blocks{panels})",
+             after=None if pn is None else functools.partial(
+                 csr_paths, torch, op, a_csr))
+
+
+_L2_RATE = []
+
+
+def l2_rate(torch) -> float:
+    """Bytes a second the card moves through its L2 cache, measured once a
+    run: the fastest of three plain PyTorch streams over buffers that stay
+    in the 50 MB L2 (row sums of 16 MB, a copy of 8 MB, an add of two 4 MB
+    buffers; bytes read and written counted), each 100 times in one CUDA
+    graph so that no launch from the host sits between them, the median of
+    REPS replays."""
+    if not _L2_RATE:
+        def f64(*shape):
+            return torch.ones(shape, dtype=torch.float64, device=DEVICE)
+
+        mb = 2 ** 20
+        buf, rowsum = f64(2 ** 15, 64), f64(2 ** 15)
+        src, dst = f64(mb), f64(mb)
+        a, b, c = f64(mb // 2), f64(mb // 2), f64(mb // 2)
+        streams = {"row sums": (lambda: torch.sum(buf, 1, out=rowsum),
+                                16 * mb + mb // 4),
+                   "copy": (lambda: dst.copy_(src), 16 * mb),
+                   "add": (lambda: torch.add(a, b, out=c), 12 * mb)}
+        rates = {}
+        for name, (fn, nbytes) in streams.items():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(100):
+                    fn()
+            rates[name] = 100 * nbytes / (1e-3 * median_ms(torch,
+                                                            graph.replay))
+        _L2_RATE.append(max(rates.values()))
+        print("L2 rate (plain PyTorch streams within the L2 cache, 100 in "
+              "a CUDA graph): " + ", ".join(
+                  f"{name} {rate / 1e12:.2f} TB/s"
+                  for name, rate in rates.items())
+              + f"; the bound takes {_L2_RATE[0] / 1e12:.2f} TB/s")
+    return _L2_RATE[0]
+
+
+def csr_paths(torch, op, a_csr, label, x, transposed, bound_ms):
+    """Kernel 6 on the CSR operator ``op`` at the operand ``x`` on the split
+    and the panel path in turns (split, panel, panel, split; each a median
+    of REPS after the L2 flush), beside the library call, ``bound_ms`` (the
+    device-memory bound) and each path's second bound: the bytes of the
+    records of x it gathers (the split path: a record of m elements an
+    entry; the panel path: 8 records, padded to whole n-tiles of 8
+    columns, a tile of 16 x 8, the tile path's rows a record an entry) over
+    the fastest L2 rate seen (:func:`l2_rate`'s plain streams or either
+    path's own gathers at this row, whichever is faster: the card's L2
+    peak is not published, and a rate measured in the run only bounds it
+    from below); the ``after`` hook of :func:`spmm_rows`."""
+    from gcge_tpu_torch.ops import onehot
+
+    pn = op.plan.panels
+    m = x.shape[0] if transposed else x.shape[1]
+    chosen = onehot.csr_path(op.plan, op.values, m)
+
+    def kernel(path):
+        return onehot.csr_spmm(op.rowptr, op.colidx, op.values, x,
+                               transposed, op.plan, path)
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    times = {"split": [], "panel": []}
+    for path in ("split", "panel", "panel", "split"):
+        times[path].append(median_ms(torch, lambda: kernel(path),
+                                     flush=flush))
+    lib_x = (x.T if transposed else x).contiguous()
+    lib = csr_tensor(torch, a_csr, torch.float64)
+    lib_ms = median_ms(torch, lambda: torch.sparse.mm(lib, lib_x),
+                       flush=flush)
+    lengths = np.diff(a_csr.indptr)
+    short = int(lengths[lengths <= onehot.PANEL_MIN].sum())
+    gathered = {"split": 8.0 * a_csr.nnz * m,
+                "panel": 8.0 * (pn.kcol.shape[0] * 8 * 8 * -(-m // 8)
+                                + short * m)}
+    achieved = {p: gathered[p] / (1e-3 * min(t)) for p, t in times.items()}
+    rate = max(l2_rate(torch), *achieved.values())
+    parts = "; ".join(
+        f"{p} {t[0]:.4f} / {t[1]:.4f} ms ({lib_ms / min(t):.2f} times as "
+        f"fast as the library, {100 * bound_ms / min(t):.0f} % of the "
+        f"memory bound; gathers {gathered[p] / 1e9:.3f} GB at "
+        f"{achieved[p] / 1e12:.2f} TB/s, {1e3 * gathered[p] / rate:.4f} ms "
+        f"at the L2 rate of {rate / 1e12:.2f} TB/s, "
+        f"{100 * 1e3 * gathered[p] / rate / min(t):.0f} % of that bound)"
+        for p, t in times.items())
+    print(f"csr paths {label}: the plan takes {chosen}; {parts}; library "
+          f"{lib_ms:.4f} ms; memory bound {bound_ms:.4g} ms; panel "
+          f"{min(times['split']) / min(times['panel']):.2f} times as fast "
+          f"as split")
 
 
 def sync_check_amg(torch, a, hier):
@@ -1744,7 +1863,8 @@ def profile_solve(torch, label: str, run):
             ("kernel 5", lambda k: "csr_spmm_f32" in k
              or "csr_combine<float>" in k),
             ("kernel 6", lambda k: "csr_spmm_f64" in k
-             or "csr_combine<double>" in k),
+             or "csr_combine<double>" in k or "csr_panel_f64" in k),
+            ("kernel 6's panel path", lambda k: "csr_panel_f64" in k),
             # the f32 CG stage is the only f32 work of a solve
             ("PyTorch f32 elementwise and reductions (the CG stage's)",
              lambda k: ("elementwise" in k or "reduce_kernel" in k)
@@ -1823,6 +1943,40 @@ def profile_multilevel(torch, a, b):
     profile_solve(torch, "PAS solve (iterations: sweeps)",
                   lambda: sum(pas_solve(hier, NEV, tol_rel=1e-8, verbose=0,
                                         **PAS_KWARGS).sweeps))
+
+
+def phase_pas_alone(torch):
+    """``--pas``: the PAS solve of the cube FEM pair alone, on the
+    generalized hierarchy (built outside the window, as ``--profile``'s):
+    one solve for its wall, sweeps and count, one under torch.profiler
+    (:func:`profile_solve`: busy, idle, kernels 1 and 6 device time); then
+    kernel 6 at the CSR levels' operands, ``(n, 10)`` and PAS's ``(n,
+    75)`` (:func:`kernels_amg_levels`: with a package that has the panel
+    path, the split and the panel path in turns).  ``--root DIR`` (a parent
+    tree) times that tree's package."""
+    from gcge_tpu_torch.solvers.multigrid import build_hierarchy
+    from gcge_tpu_torch.solvers.pas import pas_solve
+
+    a, b = build_fem(FEM_NX)
+    coo = a.tocoo()
+    b_vals = np.asarray(b[coo.row, coo.col]).ravel()
+    t0 = time.perf_counter()
+    hier = build_hierarchy(coo.row, coo.col, coo.data, coo.shape[0],
+                           b_vals=b_vals, device=torch.device(DEVICE))
+    print_hierarchy("--pas", hier, time.perf_counter() - t0)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pas_solve(hier, NEV, tol_rel=1e-8, verbose=0, **PAS_KWARGS)
+    torch.cuda.synchronize()
+    print(f"--pas: PAS solve wall {time.perf_counter() - t0:.3f} s (set-up "
+          f"excluded), sweeps by level {res.sweeps}, nev_conv "
+          f"{res.nev_conv} of {NEV}, lam[:3] {res.eval[:3]}, launches "
+          f"{read_counters()}")
+    profile_solve(torch, "PAS solve (iterations: sweeps)",
+                  lambda: sum(pas_solve(hier, NEV, tol_rel=1e-8, verbose=0,
+                                        **PAS_KWARGS).sweeps))
+    kernels_amg_levels(torch, KernelLog(torch), hier)
 
 
 # --------------------------------------------------------------------------
@@ -2297,6 +2451,7 @@ def phase_distributed_pas(torch, a, b, hier, pas):
                              f"{pas.nev_conv}")
     fem_gates(tag, a, b, res.eval, res.evec, res.nev_conv, pas.eval)
     multilevel_path_gates(tag, counted)
+    path_launched(tag, launches, ("csr_f64_panel",))
     return launches
 
 
@@ -3147,6 +3302,12 @@ def main(argv) -> int:
         phase_dia(torch, "path" in inspect.signature(
             spmm.dia_spmm).parameters)
         print(f"chip_smoke --dia ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
+    if "--pas" in argv:
+        phase_pas_alone(torch)
+        print(f"chip_smoke --pas ({gcge_tpu_torch.__file__}): "
               f"{time.perf_counter() - T_START:.0f} s")
         print(card)
         return 0

@@ -10,7 +10,11 @@ then times ``matvec`` of each CSR operator in it (the levels' A, P and R) on
 an ``(n, m)`` block of each width, standard normal from seed 0 (10: the
 V-cycle of the AMG-preconditioned GCG; 75: PAS's working block at nev=50),
 min and median over ``--trials`` of the mean of ``--reps`` calls, beside
-``torch.sparse.mm`` on the same CSR matrix.  ``--solves`` then runs
+``torch.sparse.mm`` on the same CSR matrix; where the plan holds kernel 6's
+panels, also on the split and the panel path (``csr_spmm(..., path=)``).
+Run from the root of an older tree unpacked with ``git archive`` (the
+script copied into its ``gcge_tpu_torch/benchmarks/``), it times that
+tree's kernels.  ``--solves`` then runs
 ``pas_solve`` at nev=50 on that hierarchy with ``solve``'s PAS knobs (2
 sweeps a level, 16 on the finest, 8 V-cycles a correction), and on a card
 again on the hierarchy sharded over a one-rank NCCL row mesh, and prints
@@ -76,6 +80,16 @@ def time_levels(hier, widths, device, trials: int, reps: int) -> None:
                       f"{med:.4f} ms (min {lo:.4f}), library {lib_med:.4f} "
                       f"ms, rel err {err:.2e}, equal bits twice {twice}",
                       flush=True)
+                if getattr(op.plan, "panels", None) is None:
+                    continue
+                for path in ("split", "panel"):
+                    lo, med = min_median_ms(
+                        lambda: onehot.csr_spmm(op.rowptr, op.colidx,
+                                                op.values, x, False,
+                                                op.plan, path),
+                        device, trials, reps)
+                    print(f"level {i} {what} m={m} {path} path: median "
+                          f"{med:.4f} ms (min {lo:.4f})", flush=True)
 
 
 def _free_port() -> int:

@@ -54,6 +54,8 @@ SIGNATURES = {
                           _I, _I, _P, _I, _I, _I, _I, _I, _P),
     "gcge_csr_spmm_f32": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P,
                           _I, _I, _P, _I, _I, _I, _I, _I, _P),
+    "gcge_csr_panel_f64": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                           _I, _I, _P, _I, _I, _I, _I, _P),
     "gcge_onehot_mask_probe": (_P, _P, _P),
     "gcge_fma_probe": (_P, _P, _P, _P),
     "gcge_slice_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,

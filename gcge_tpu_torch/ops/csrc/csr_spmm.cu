@@ -87,6 +87,42 @@
 //     level 3 A and trails it by 10 % at level 2 A.  Tried there and slower:
 //     the warps taking the slabs of an entry side by side, one warp a slab
 //     over the whole part, and staging colidx alone.
+//   * Panel path (kernel 6 only: f64, m of at least onehot.CSR_PANEL_M,
+//     PAS's working block of 75 columns).  On the split path each entry
+//     gathers its whole record of x: at AMG level 2 A 12.86 M entries of
+//     600 bytes, 7.7 GB a call from L2, 1.06 ms on the H100 against a
+//     0.052 ms bound of device memory.  The coarse levels are banded (level
+//     2 A: 17,588 rows of about 731 entries in runs of adjacent columns,
+//     level 3 A 71 % dense), so neighbouring rows share records: in a
+//     matrix with split rows, the rows of more than onehot.PANEL_MIN
+//     entries, in row order, are cut into panels of 16 rows and the columns
+//     into k-groups of 8, and the plan (onehot.csr_panels, once per matrix
+//     on the host, from colidx and values) keeps each panel's k-groups that
+//     hold an entry as dense 16 x 8 tiles of values, zeros in place of the
+//     missing entries (28 % of a tile full at level 2 A, 71 % at level 3
+//     A), in the f64 mma's fragment order.  A warp takes a panel and 5
+//     n-tiles of 8 columns (2 where the panels are few) and walks the
+//     panel's k-groups in column order, one mma.sync m16n8k8 an n-tile:
+//     8 records of x serve 16 rows, and the tiles (32 bytes a lane) and
+//     records of the next two k-groups are in flight.  A matrix of few
+//     columns (the coarsest level) has too few panels for the card: its
+//     k-groups are cut into fixed chunks of columns, a warp each, whose sums
+//     csr_combine adds in chunk order.  A row's sum is the chain of mmas
+//     over its panel's k-groups in column order (chunk by chunk); a k-group
+//     where the row has no entry adds exact zeros, so a row's bits depend
+//     on its own entries, the columns and m alone, wherever it sits (a
+//     shard of rows that takes the panel path gives the rows' bits).  The
+//     other rows keep the tile path (a launch of the kernel above with no
+//     split blocks).  The wrapper takes the path where the tiles are at
+//     least onehot.PANEL_FILL full; at level 2 R (17 %) and at m = 10 it
+//     measured slower than the split path (PERF.md).  What holds it at
+//     level 2 A (0.44 ms on the H100): most likely its gathers of x, 1.9
+//     GB a call at about 58 % of the rate the split path reaches.  Each
+//     measured slower there: 8 x 4 tiles on m16n8k4 as y^T = x^T A^T (4
+//     records for 8 rows), blocks of 4 panels staging the union of their
+//     records in shared memory, tiles packed to their entries and a mask,
+//     10 n-tiles a warp (the tiles read once, more registers), and more
+//     k-groups in flight.
 //   Registers are the two paths' price for sharing a kernel: alone the tile
 //   path needs 40 in f64 and 32 in f32, with the split path the kernel took
 //   more, and the fewer blocks an SM slowed the short rows.  The
@@ -596,6 +632,101 @@ int launch(const int* rowptr, const int* colidx, const T* values, int64_t nnz,
   return (int)cudaGetLastError();
 }
 
+// d += A B for one 16 x 8 x 8 tile on the f64 tensor cores (the layout of
+// tall_gemm.cu's dmma, which osgemm.dmma_tile_check checks on the card).
+// With g = lane/4 and t = lane%4: a = (A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]), b = (B[t][g], B[t+4][g]), d = (D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]).
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4],
+                                     double b0, double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// The panel path (see the note at the top).  Warp w of block b takes panel
+// p = b * warps + w (rows rows[16 p + i], i < 16), the NT n-tiles of 8
+// columns from column 8 NT blockIdx.y and column chunk c = blockIdx.z, and
+// walks the chunk's k-groups of the panel, [ptr[p chunks + c], ptr[p
+// chunks + c + 1]), in column order: per k-group the lane's 4 values of the
+// 16 x 8 tile (vals[q], in fragment order, 32 bytes a lane) and for each
+// n-tile its 2 elements of x (rows kcol[q] + t and + 4), then NT mmas;
+// the fragments of the next D k-groups are in flight while a k-group's
+// mmas run.  One chunk: the sums go to y; else to row k chunks + c of
+// scratch ((nrows chunks, m)), for csr_combine to add in chunk order.
+template <int NT, int D>
+__global__ void __launch_bounds__(128)
+    csr_panel_f64(const int* __restrict__ rows, int64_t nrows,
+                  const int* __restrict__ ptr, int64_t npanels,
+                  int64_t chunks, const int* __restrict__ kcol,
+                  const double* __restrict__ vals, int64_t n_cols,
+                  int64_t m, const double* __restrict__ x, int64_t xs_i,
+                  int64_t xs_j, double* __restrict__ y, int64_t ys_i,
+                  int64_t ys_j, double* __restrict__ scratch) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t p =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (p >= npanels) return;
+  const int64_t pc = p * chunks + blockIdx.z;
+  const int64_t c0 = (int64_t)blockIdx.y * NT * 8 + g;   // the lane's column
+  double acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
+  const int64_t q0 = __ldg(ptr + pc), q1 = __ldg(ptr + pc + 1);
+  double a[D][4], b[D][NT][2];
+  const auto load = [&](int64_t q, int s) {
+    if (q >= q1) return;
+    const double2* tp =
+        reinterpret_cast<const double2*>(vals + q * 128 + lane * 4);
+    const double2 lo = __ldg(tp), hi = __ldg(tp + 1);
+    a[s][0] = lo.x, a[s][1] = lo.y, a[s][2] = hi.x, a[s][3] = hi.y;
+    const int64_t k0 = __ldg(kcol + q) + t;
+    const bool in0 = k0 < n_cols, in1 = k0 + 4 < n_cols;
+    const double* x0 = x + k0 * xs_i;
+    const double* x1 = x0 + 4 * xs_i;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int64_t c = c0 + 8 * j;
+      b[s][j][0] = in0 && c < m ? __ldg(x0 + c * xs_j) : 0.0;
+      b[s][j][1] = in1 && c < m ? __ldg(x1 + c * xs_j) : 0.0;
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < D; ++s) load(q0 + s, s);
+  for (int64_t q = q0; q < q1; q += D) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      if (q + s < q1) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          dmma(acc[j], a[s], b[s][j][0], b[s][j][1]);
+        load(q + s + D, s);
+      }
+    }
+  }
+  // d = (y[g][c], y[g][c + 1], y[g + 8][c], y[g + 8][c + 1]), c = 2t in
+  // each n-tile, rows g and g + 8 of the panel
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t k = p * 16 + g + 8 * h;
+    if (k >= nrows) continue;
+    const bool whole = chunks == 1;
+    double* out = whole ? y + (int64_t)__ldg(rows + k) * ys_i
+                        : scratch + (k * chunks + blockIdx.z) * m;
+    const int64_t cs = whole ? ys_j : 1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int64_t c = c0 - g + 8 * j + 2 * t;
+      if (c < m) out[c * cs] = acc[j][2 * h];
+      if (c + 1 < m) out[(c + 1) * cs] = acc[j][2 * h + 1];
+    }
+  }
+}
+
 // columns a lane of the split path gathers: a function of m and T alone
 template <typename T>
 int64_t lane_width(int64_t m) {
@@ -618,6 +749,48 @@ bool bad_plan(int64_t ntiles, int64_t budget, int64_t nsplit, int64_t nmulti,
 }
 
 }  // namespace
+
+// The panel path of kernel 6 (see the note at the top; onehot.csr_panels
+// makes the plan): rows (nrows,) the panels' rows in order; ptr (npanels
+// chunks + 1,) each panel's k-groups by column chunk; kcol (nkg,) a
+// k-group's first column; vals (nkg, 128) its 16 x 8 values in fragment
+// order, 16-byte aligned; multi (nrows, 4): (row, k chunks, chunks, 0) for
+// csr_combine where chunks > 1, with scratch (nrows chunks, m); warps:
+// panels a block (1 to 4); nt: n-tiles of 8 columns a warp (2 or 5).
+// Writes the rows `rows` of y.
+extern "C" int gcge_csr_panel_f64(const void* rows, int64_t nrows,
+                                  const void* ptr, int64_t npanels,
+                                  int64_t chunks, const void* kcol,
+                                  const void* vals, const void* multi,
+                                  void* scratch, int64_t n_cols, int64_t m,
+                                  const void* x, int64_t xs_i, int64_t xs_j,
+                                  void* y, int64_t ys_i, int64_t ys_j,
+                                  int64_t warps, int64_t nt, void* stream) {
+  const int64_t groups = (m + 8 * nt - 1) / (8 * nt);
+  if (warps < 1 || warps > 4 || (nt != 2 && nt != 5) || m < 1 ||
+      chunks < 1 || chunks > 0xffff || nrows > 16 * npanels ||
+      (chunks > 1 && (multi == nullptr || scratch == nullptr)) ||
+      reinterpret_cast<uintptr_t>(vals) % 16 != 0 ||
+      (npanels + warps - 1) / warps > (int64_t)0x7fffffff || groups > 0xffff)
+    return (int)cudaErrorInvalidValue;
+  if (npanels == 0) return 0;
+  const dim3 grid((unsigned)((npanels + warps - 1) / warps),
+                  (unsigned)groups, (unsigned)chunks);
+  // two k-groups in flight
+  const auto fn = nt == 5 ? csr_panel_f64<5, 2> : csr_panel_f64<2, 2>;
+  fn<<<grid, (unsigned)(32 * warps), 0, (cudaStream_t)stream>>>(
+      (const int*)rows, nrows, (const int*)ptr, npanels, chunks,
+      (const int*)kcol, (const double*)vals, n_cols, m, (const double*)x,
+      xs_i, xs_j, (double*)y, ys_i, ys_j, (double*)scratch);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || chunks == 1) return err;
+  const int64_t items = nrows * m;
+  csr_combine<double><<<(unsigned)((items + 255) / 256), 256, 0,
+                        (cudaStream_t)stream>>>(
+      (const int4*)multi, nrows, m, (const double*)scratch, (double*)y, ys_i,
+      ys_j);
+  return (int)cudaGetLastError();
+}
 
 // Kernels 5 (f32) and 6 (f64).  tiles: ntiles (first row, end) pairs of row
 // tiles (onehot.csr_plan); budget: entries of colidx and values a tile

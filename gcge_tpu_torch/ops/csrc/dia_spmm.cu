@@ -108,6 +108,14 @@
 //     piece's row, column and source stepped without a division or a
 //     multiplication; an odd-offset window (`ritz`) keeps its phase `sh` in
 //     shared memory and is read one element at a time (VEC 1);
+//   * f64 rows an odd number of doubles apart (PAS's contiguous (n, 75)
+//     block: rows 600 bytes apart) alternate between two 16-byte phases
+//     (TWO): each window row is still copied in 16-byte pieces from its own
+//     16-byte floor, so its element c lands at its own phase past the row's
+//     start in shared memory, and a thread, reading one element at a time
+//     (VEC 1), adds the phase of the row it reads: one of two, alternating
+//     row by row, the same for every thread of the block.  8-byte copies
+//     for the odd rows would have doubled their copies;
 //   * blocks of 128 threads, registers bounded so that 5 or 6 fit an SM
 //     (kWideMinBlocks), a ring of two runs (35-38 KB; above 48 KB a block
 //     would opt in once, at its first launch, which comes before any
@@ -600,19 +608,65 @@ __host__ __device__ constexpr int wide_stage_elems(int R, int ld, int skew,
   return wide_window_elems<T>(R, ld, skew, items) + kRun * R;
 }
 
+// The window copy of stage_window_wide where x's rows alternate between two
+// 16-byte phases: row a's segment (x row w0 + a, its element c0 at phase
+// ph(a), 0 or P / 2 elements past a 16-byte line) is copied from its own
+// 16-byte floor to s + wide_row(a), its element c landing at s +
+// wide_row(a) + ph(a) + c; a row of the lower phase skips the piece that
+// would lie past its segment.  A piece's row, column and row start are
+// stepped as in stage_window_wide, the floor and phase taken from the row
+// start's address.
+template <typename T, int LOG2_ITEMS>
+__device__ __forceinline__ void stage_window_two(
+    T* s, const T* __restrict__ x, int64_t nx, int64_t xs_i, int64_t w0,
+    int rows, int c0, int mt, int ld, int skew) {
+  constexpr int P = kPer16<T>;
+  const int nt = blockDim.x;
+  // pieces of a row at the higher phase, the most a row takes
+  const int pieces = (P / 2 + mt + P - 1) / P;
+  const int da = nt / pieces, dq = nt - da * pieces;
+  int a = threadIdx.x / pieces, q = threadIdx.x - a * pieces;
+  const T* row = x + c0 + (w0 + a) * xs_i;
+  const int64_t step = da * xs_i;
+  const bool all_in = w0 >= 0 && w0 + rows <= nx;
+  while (a < rows) {
+    const uintptr_t ra = reinterpret_cast<uintptr_t>(row);
+    const int ph = (int)(ra & 15) / (int)sizeof(T);
+    if (q * P < ph + mt && (all_in || (w0 + a >= 0 && w0 + a < nx)))
+      cp_async16(s + wide_row<LOG2_ITEMS>(a, ld, skew) + q * P,
+                 reinterpret_cast<const T*>((ra & ~(uintptr_t)15) + 16 * q),
+                 16);
+    a += da;
+    q += dq;
+    row += step;
+    if (q >= pieces) {
+      q -= pieces;
+      ++a;
+      row += xs_i;
+    }
+  }
+}
+
 // Issue the 16-byte copies of the window of rows [w0, w0 + rows) and
 // columns [c0, c0 + mt) of x (nx rows) into `s`: each row's segment starts
 // `sh` elements past a 16-byte boundary (the same for every row, x's rows a
 // multiple of 16 bytes apart), and is copied from that boundary to s +
 // wide_row(a), its element c landing at s + wide_row(a) + sh + c.  A piece
 // lies in a 16-byte line that holds an element of the segment, so no copy
-// leaves x's pages.  Rows outside [0, nx) are not copied.
-template <typename T, int LOG2_ITEMS>
+// leaves x's pages.  Rows outside [0, nx) are not copied.  TWO: x's rows
+// are 8 bytes past a multiple of 16 apart, and each row's own phase takes
+// the place of sh (stage_window_two).
+template <typename T, int LOG2_ITEMS, bool TWO>
 __device__ __forceinline__ void stage_window_wide(
     T* s, const T* __restrict__ x, int64_t nx, int64_t xs_i, int64_t w0,
     int rows, int c0, int mt, int ld, int skew, int sh) {
   constexpr int P = kPer16<T>;
   const int nt = blockDim.x;
+  if constexpr (TWO) {
+    stage_window_two<T, LOG2_ITEMS>(s, x, nx, xs_i, w0, rows, c0, mt, ld,
+                                    skew);
+    return;
+  }
   // piece q of row a, stepped by nt pieces without a division
   const int pieces = (sh + mt + P - 1) / P;
   const int da = nt / pieces, dq = nt - da * pieces;
@@ -721,8 +775,9 @@ __device__ __forceinline__ void fma_reg(Vec<T, VEC>& acc, T a,
 // block b = t / G.  A run of k offsets reads its window rows b ITEMS + w,
 // w < ITEMS + k - 1, once each, and adds each into the rows it serves (row
 // r takes term e from window row r + e): every row's terms still come in
-// the order of the offsets.
-template <typename T, int VEC>
+// the order of the offsets.  TWO: x's rows alternate between two 16-byte
+// phases (stage_window_two); a window row is read at its own phase.
+template <typename T, int VEC, bool TWO>
 __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T, VEC>)
     dia_spmm_wide(const T* __restrict__ values,
                   const int* __restrict__ offsets, int ndiag, int64_t n,
@@ -758,7 +813,7 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T, VEC>)
     if (d_issue < ndiag) {
       const int k = run_length(offsets, ndiag, d_issue);
       T* s = smem + stage * slot;
-      stage_window_wide<T, L2I>(s, x, nx, xs_i,
+      stage_window_wide<T, L2I, TWO>(s, x, nx, xs_i,
                                 hl + i0 + __ldg(offsets + d_issue), R + k - 1,
                                 c0, mt, ld, skew, sh);
       stage_values_wide<T>(s + win, values, n, d_issue, k, i0, R, vec16);
@@ -775,8 +830,13 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T, VEC>)
     __syncthreads();
     const int k = run_length(offsets, ndiag, d0);
     const int64_t w0 = hl + i0 + __ldg(offsets + d0);
-    const T* s = smem + stage * slot + sh + g * VEC;
+    const T* s = smem + stage * slot + (TWO ? 0 : sh) + g * VEC;
     const T* sv = smem + stage * slot + win + a0;
+    // TWO: the phase of the thread's first window row (x row w0 + a0), in
+    // elements; window row a0 + w is at phase ph(w), the other phase at odd w
+    constexpr int P = kPer16<T>;
+    const int pb = TWO ? (int)((sh + (w0 + a0) * xs_i + c0) & (P - 1)) : 0;
+    auto ph = [&](int w) { return TWO ? (pb + w * (P / 2)) & (P - 1) : 0; };
     // inside x, every row's every term is in range: no checks
     const bool inside = rows == R && w0 >= 0 && w0 + R + k - 1 <= nx;
     if (!active) {
@@ -785,7 +845,7 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T, VEC>)
       for (int w = 0; w < ITEMS + kRun - 1; ++w) {
         if (w < ITEMS + k - 1) {
           const Vec<T, VEC> xv =
-              load_vec<VEC>(s + wide_row<L2I>(a0 + w, ld, skew));
+              load_vec<VEC>(s + wide_row<L2I>(a0 + w, ld, skew) + ph(w));
 #pragma unroll
           for (int e = 0; e < kRun; ++e)      // row w - e takes term e
             if (w - e >= 0 && w - e < ITEMS && e < k)
@@ -798,7 +858,7 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T, VEC>)
         const int64_t c = w0 + a0 + w;   // the row of x that w holds
         if (w < ITEMS + k - 1 && c >= 0 && c < nx) {
           const Vec<T, VEC> xv =
-              load_vec<VEC>(s + wide_row<L2I>(a0 + w, ld, skew));
+              load_vec<VEC>(s + wide_row<L2I>(a0 + w, ld, skew) + ph(w));
 #pragma unroll
           for (int e = 0; e < kRun; ++e)
             if (w - e >= 0 && w - e < ITEMS && e < k && a0 + w - e < rows)
@@ -834,7 +894,7 @@ int allow_smem(Kernel kernel, bool (&done)[kMaxDevices], size_t bytes) {
   return err;
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool TWO>
 int launch_wide(const T* values, const int* offsets, int ndiag, int64_t n,
                 int64_t m, const T* x, int64_t hl, int64_t nx, int64_t xs_i,
                 T* y, int64_t ys_i, int64_t ys_j, int slab, int rt, int ld,
@@ -847,26 +907,29 @@ int launch_wide(const T* values, const int* offsets, int ndiag, int64_t n,
   const int64_t nslabs = (m + slab - 1) / slab;
   const int threads = (G * rt + 31) / 32 * 32;
   // the slabs are whole 16-byte groups (or one slab of all m), a window
-  // row holds its segment and phase on 16 bytes, R rows of values are
-  // whole pieces
+  // row holds its segment and phase on 16 bytes (TWO: at either phase, the
+  // higher sh | P / 2), R rows of values are whole pieces
+  const int ph_max = TWO ? (sh | (P / 2)) : sh;
   if (slab <= 0 || slab > kSlab || slab % VEC != 0 || m % VEC != 0 ||
       (nslabs > 1 && slab % P != 0) || rt <= 0 || threads > kWideThreads ||
       sh < 0 || sh >= P || sh % VEC != 0 || skew < 0 || skew % P != 0 ||
-      ld < sh + (slab < m ? slab : m) || ld % P != 0 ||
+      ld < ph_max + (slab < m ? slab : m) || ld % P != 0 ||
       row_blocks > 0x7fffffff || nslabs > 0xffff)
     return (int)cudaErrorInvalidValue;
-  // the 16-byte copies' source lines, and VEC elements of y at once
+  // the 16-byte copies' source lines (TWO: x's rows 8 bytes past a multiple
+  // of 16 apart, read one element at a time), and VEC elements of y at once
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  if ((xa - sh * sizeof(T)) % 16 != 0 || xs_i * sizeof(T) % 16 != 0 ||
+  if ((xa - sh * sizeof(T)) % 16 != 0 ||
+      xs_i * sizeof(T) % 16 != (TWO ? 8u : 0u) || (TWO && VEC != 1) ||
       (VEC > 1 && (ys_j != 1 || ys_i % VEC != 0 ||
                    reinterpret_cast<uintptr_t>(y) % (VEC * sizeof(T)) != 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       kWideStages * sizeof(T) * wide_stage_elems<T>(R, ld, skew, ITEMS);
   static bool done[kMaxDevices];
-  int err = allow_smem(dia_spmm_wide<T, VEC>, done, smem);
+  int err = allow_smem(dia_spmm_wide<T, VEC, TWO>, done, smem);
   if (err != 0) return err;
-  dia_spmm_wide<T, VEC>
+  dia_spmm_wide<T, VEC, TWO>
       <<<dim3((unsigned)row_blocks, (unsigned)nslabs), threads, smem,
          stream>>>(values, offsets, ndiag, n, m, x, hl, nx, xs_i, y, ys_i,
                    ys_j, slab, rt, ld, skew, sh, vec16);
@@ -936,9 +999,10 @@ extern "C" int gcge_dia_spmm_f32(const void* values, const void* offsets,
 // columns a block holds; rt: rows a pass of the block's threads covers
 // (R = rt kWideItems rows a block); ld: elements a window row takes in
 // shared memory; skew: elements between blocks of kWideItems window rows
-// beyond ld (see wide_row); sh: the phase of x's row segments; vec16: see
-// stage_values.  The launch plan is spmm.dia_plan's
-// (DiaWidePlan).
+// beyond ld (see wide_row); sh: the phase of x's row segments (f64 rows an
+// odd number of doubles apart: the phase of row 0's, the rows alternating
+// between two phases, vec 1); vec16: see stage_values.  The launch plan is
+// spmm.dia_plan's (DiaWidePlan).
 extern "C" int gcge_dia_spmm_wide_f64(const void* values, const void* offsets,
                                       int64_t ndiag, int64_t n, int64_t m,
                                       const void* x, int64_t hl, int64_t nx,
@@ -947,9 +1011,12 @@ extern "C" int gcge_dia_spmm_wide_f64(const void* values, const void* offsets,
                                       int64_t rt, int64_t ld, int64_t skew,
                                       int64_t sh, int64_t vec16,
                                       void* stream) {
-  if ((vec != 1 && vec != 2) || hl < 0 || nx < n + hl)
+  if ((vec != 1 && vec != 2) || (xs_i % 2 && vec != 1) || hl < 0 ||
+      nx < n + hl)
     return (int)cudaErrorInvalidValue;
-  const auto fn = vec == 2 ? launch_wide<double, 2> : launch_wide<double, 1>;
+  const auto fn = xs_i % 2     ? launch_wide<double, 1, true>
+                  : vec == 2     ? launch_wide<double, 2, false>
+                                 : launch_wide<double, 1, false>;
   return fn((const double*)values, (const int*)offsets, (int)ndiag, n, m,
             (const double*)x, hl, nx, xs_i, (double*)y, ys_i, ys_j, (int)slab,
             (int)rt, (int)ld, (int)skew, (int)sh, (int)vec16,
@@ -966,9 +1033,9 @@ extern "C" int gcge_dia_spmm_wide_f32(const void* values, const void* offsets,
                                       void* stream) {
   if ((vec != 1 && vec != 2 && vec != 4) || hl < 0 || nx < n + hl)
     return (int)cudaErrorInvalidValue;
-  const auto fn = vec == 4   ? launch_wide<float, 4>
-                  : vec == 2 ? launch_wide<float, 2>
-                             : launch_wide<float, 1>;
+  const auto fn = vec == 4   ? launch_wide<float, 4, false>
+                  : vec == 2 ? launch_wide<float, 2, false>
+                             : launch_wide<float, 1, false>;
   return fn((const float*)values, (const int*)offsets, (int)ndiag, n, m,
             (const float*)x, hl, nx, xs_i, (float*)y, ys_i, ys_j, (int)slab,
             (int)rt, (int)ld, (int)skew, (int)sh, (int)vec16,

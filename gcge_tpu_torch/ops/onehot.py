@@ -14,8 +14,13 @@ on the host and sorted by (row, column).
   :func:`csr_spmm_reference`, the plain PyTorch version.  Both kernels run
   on a plan made once per matrix on the host (:func:`csr_plan`): rows of at
   most ``CSR_SPLIT`` entries in row tiles (:func:`csr_tiles`), longer rows
-  on whole blocks (:func:`csr_split`).  It depends on ``rowptr`` alone and
-  serves both.
+  on whole blocks (:func:`csr_split`).  That part depends on ``rowptr``
+  alone and serves both.  Given ``colidx``, f64 ``values`` and the
+  columns as well, the plan of a matrix with long rows also holds its rows
+  of more than ``PANEL_MIN`` entries as dense 16 x 8 tiles
+  (:func:`csr_panels`), on which kernel 6 runs them on the f64 tensor cores
+  where m is at least ``CSR_PANEL_M`` and the tiles are full enough (the
+  panel path).
 * :class:`CsrOperator` is the operator on top of it.
 * :func:`onehot_mask_probe` / :func:`bf16_mask_supported` are the counterpart
   of the TPU's one-hot mask probe (kernel 7, ``csrc/mask_probe.cu``).
@@ -30,6 +35,7 @@ halo window) is :func:`gcge_tpu_torch.parallel.dist_ops.window_csr`: a
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,7 +47,8 @@ from gcge_tpu_torch.ops.spmm import (empty_in_order_of, in_order_of,
                                      row_fast, vec_width)
 
 # launches of the CUDA kernels since the last reset, by kernel
-LAUNCHES = {"csr_f32": 0, "csr_f64": 0, "mask_probe": 0}
+LAUNCHES = {"csr_f32": 0, "csr_f64": 0, "csr_f64_panel": 0,
+            "mask_probe": 0}
 
 _INT32_MAX = 2 ** 31 - 1
 MASK_SHAPE = (8, 128)
@@ -56,6 +63,25 @@ _ALIGN = 4             # entries of a 16-byte copy
 # sizes the shared memory that stages a part), a block each
 CSR_SPLIT = 256
 CSR_PART = 2048
+# the panel path of kernel 6 (csrc/csr_spmm.cu, csr_panel_f64): in a matrix
+# with rows of the split path, the rows of more than PANEL_MIN entries in
+# panels of PANEL_ROWS rows, the columns in k-groups of PANEL_K; taken for m
+# of at least CSR_PANEL_M where the entries fill at least PANEL_FILL of the
+# tiles (on an H100, PERF.md: faster than the split path at PAS's m = 75 at
+# AMG level 2 A, 28 % full, and level 3 A, 71 %; slower at level 2 R, 17 %,
+# and at m = 10 everywhere; at m = 40 level 3 A ran slower in one run and
+# faster in another)
+PANEL_MIN = 32
+PANEL_ROWS = 16
+PANEL_K = 8
+CSR_PANEL_M = 64
+PANEL_FILL = 0.2
+# a matrix of at most PANEL_NARROW columns (the AMG coarsest level, 1,350)
+# has few panels: its k-groups are cut into chunks of PANEL_CHUNK columns,
+# each a warp, whose sums a second launch adds in chunk order
+PANEL_NARROW = 4096
+PANEL_CHUNK = 512
+PATHS = ("split", "panel")
 
 
 def pack_csr(rows, cols, vals, shape):
@@ -87,14 +113,16 @@ def _row_ids(rowptr: torch.Tensor, nnz: int) -> torch.Tensor:
 
 
 def csr_tiles(rowptr: np.ndarray, budget: int = CSR_BUDGET,
-              max_rows: int = CSR_MAX_ROWS) -> np.ndarray:
+              max_rows: int = CSR_MAX_ROWS,
+              longest: int = CSR_SPLIT) -> np.ndarray:
     """The row tiles of kernels 5 and 6 for CSR ``rowptr`` (n+1,), as
     ``(first row, end)`` pairs, int32 ``(ntiles, 2)``.  A tile is a range of
     at most ``max_rows`` whole rows whose entries, widened to 16-byte
     boundaries (``[rowptr[r0] // 4 * 4, ceil4(rowptr[r1]))``), fit
-    ``budget`` entries.  Tiles hold only the rows of at most ``CSR_SPLIT``
+    ``budget`` entries.  Tiles hold only the rows of at most ``longest``
     entries (and of no more than fit the budget alone): the longer rows are
-    left out, for the split path (:func:`csr_split`).  Greedy from the first
+    left out, for the split path (:func:`csr_split`; ``CSR_SPLIT``) or the
+    panel path (:func:`csr_panels`; ``PANEL_MIN``).  Greedy from the first
     row, a tile ending before each row left out, so every other row lies in
     exactly one tile."""
     if budget <= 0 or budget % _ALIGN or max_rows <= 0:
@@ -104,7 +132,7 @@ def csr_tiles(rowptr: np.ndarray, budget: int = CSR_BUDGET,
     n = len(rowptr) - 1
     # a row of budget - 3 entries still fits the budget, widened
     left_out = np.flatnonzero(np.diff(rowptr) >
-                              min(CSR_SPLIT, budget - (_ALIGN - 1)))
+                              min(longest, budget - (_ALIGN - 1)))
     pairs = []
     r0 = k = 0
     while r0 < n:
@@ -156,6 +184,81 @@ def csr_split(rowptr: np.ndarray, split: int = CSR_SPLIT,
     return blocks.astype(np.int32), multi.astype(np.int32)
 
 
+def panel_chunks(n_cols: int) -> int:
+    """Column chunks of the panel path for a matrix of ``n_cols`` columns:
+    one, or chunks of ``PANEL_CHUNK`` at most ``PANEL_NARROW`` columns (a
+    function of the columns alone, which a shard of rows shares)."""
+    return 1 if n_cols > PANEL_NARROW else max(1, -(-n_cols // PANEL_CHUNK))
+
+
+def csr_panels(rowptr: np.ndarray, colidx: np.ndarray, values: np.ndarray,
+               rows: np.ndarray, n_cols: int):
+    """The panel path's plan for the rows ``rows`` of a CSR matrix of
+    ``n_cols`` columns: the rows in ascending order, cut into panels of
+    ``PANEL_ROWS``, and for each panel the k-groups (columns ``[8 k, 8 k +
+    8)``) that hold one of its entries, in column order, each a dense 16 x
+    8 tile of values, zeros where the matrix has no entry, in the f64 mma's
+    fragment order: slot ``4 (4 (i % 8) + j % 4) + i // 8 + 2 (j // 4)``
+    (lane, then its four values) for the entry of the tile's row i and
+    column j (csrc/csr_spmm.cu, dmma).  A panel's k-groups fall into the
+    column chunks of :func:`panel_chunks`.  Returns ``(rows, ptr, kcol,
+    vals, multi, fill)``: int32 (nrows,); int32 (npanels chunks + 1,)
+    (chunk c of panel p holds the k-groups ``[ptr[p chunks + c], ptr[p
+    chunks + c + 1])``); int32 (nkg,) (a k-group's first column); float64
+    (nkg, 128); int32 (nrows, 4), ``(row, k chunks, chunks, 0)`` for the
+    k-th row, the combine of its chunks' sums; the share of the tiles' slots
+    that hold an entry.  None where a row holds a column twice (the tile
+    would add the two values before the product)."""
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    rows = np.sort(np.asarray(rows, dtype=np.int64))
+    lengths = rowptr[rows + 1] - rowptr[rows]
+    total = int(lengths.sum())
+    first = np.cumsum(lengths) - lengths
+    ent = np.repeat(rowptr[rows] - first, lengths) + np.arange(total)
+    k = np.repeat(np.arange(len(rows)), lengths)     # the row's position
+    col = np.asarray(colidx, dtype=np.int64)[ent]
+    if np.any((col[1:] == col[:-1]) & (k[1:] == k[:-1])):
+        return None
+    n_groups = -(-n_cols // PANEL_K)
+    key = k // PANEL_ROWS * n_groups + col // PANEL_K
+    sub, inv = np.unique(key, return_inverse=True)   # by (panel, k-group)
+    npanels = -(-len(rows) // PANEL_ROWS)
+    chunks = panel_chunks(n_cols)
+    width = -(-n_cols // chunks)
+    kcol = sub % n_groups * PANEL_K
+    ptr = np.searchsorted(sub // n_groups * chunks + kcol // width,
+                          np.arange(npanels * chunks + 1))
+    i, j = k % PANEL_ROWS, col % PANEL_K
+    vals = np.zeros((len(sub), PANEL_ROWS * PANEL_K))
+    vals[inv, 4 * (4 * (i % 8) + j % 4) + i // 8 + 2 * (j // 4)] = \
+        np.asarray(values, dtype=np.float64)[ent]
+    multi = np.stack([rows, np.arange(len(rows)) * chunks,
+                      np.full(len(rows), chunks),
+                      np.zeros(len(rows), np.int64)], axis=1)
+    return (rows.astype(np.int32), ptr.astype(np.int32),
+            kcol.astype(np.int32), vals, multi.astype(np.int32),
+            total / max(vals.size, 1))
+
+
+@dataclass(frozen=True)
+class CsrPanels:
+    """The panel path's plan on the card (:func:`csr_panels`)."""
+
+    rows: torch.Tensor    # (nrows,) int32: the panels' rows, ascending
+    ptr: torch.Tensor     # (npanels chunks + 1,) int32: the k-groups
+    kcol: torch.Tensor    # (nkg,) int32: a k-group's first column
+    vals: torch.Tensor    # (nkg, 128) float64: the tiles, fragment order
+    multi: torch.Tensor   # (nrows, 4) int32: the combine of the chunks
+    fill: float           # share of the tiles' slots that hold an entry
+    tiles: torch.Tensor   # (ntiles, 2) int32: row tiles of the other rows
+    chunks: int           # column chunks (panel_chunks)
+    values_ptr: int       # data_ptr() of the values the tiles hold
+
+    @property
+    def npanels(self) -> int:
+        return (self.ptr.shape[0] - 1) // self.chunks
+
+
 @dataclass(frozen=True)
 class CsrPlan:
     tiles: torch.Tensor   # (ntiles, 2) int32 on the card: first row, end
@@ -165,24 +268,73 @@ class CsrPlan:
     nsplit: int
     nmulti: int
     slots: int            # rows of scratch: the parts of those rows
+    panels: CsrPanels | None = None   # kernel 6's panel path (f64 only)
 
 
-def csr_plan(rowptr: torch.Tensor) -> CsrPlan:
+def csr_plan(rowptr: torch.Tensor, colidx: torch.Tensor | None = None,
+             values: torch.Tensor | None = None,
+             n_cols: int | None = None) -> CsrPlan:
     """The launch plan of kernels 5 and 6 for ``rowptr``, on its device (the
     same for both: it depends on ``rowptr`` alone): the row tiles of
     :func:`csr_tiles` for the rows of at most ``CSR_SPLIT`` entries, and the
-    split blocks of :func:`csr_split` for the longer rows.  It reads
-    ``rowptr`` to the host and copies the plan back: build it once per
-    matrix (:class:`CsrOperator` does, when it is built), never while a CUDA
-    graph is being captured."""
+    split blocks of :func:`csr_split` for the longer rows.  Given ``colidx``,
+    float64 ``values`` and the matrix's ``n_cols`` too, and where there are
+    split rows, ``panels`` holds the rows of more than ``PANEL_MIN`` entries
+    for kernel 6's panel path (:func:`csr_panels`, reading both to the
+    host) and the row tiles of the others.  It reads ``rowptr`` to the host
+    and copies the plan back: build it once per matrix (:class:`CsrOperator`
+    does, when it is built), never while a CUDA graph is being captured."""
     rp = rowptr.cpu().numpy().astype(np.int64)
     blocks, multi = csr_split(rp)
     dev = rowptr.device
+    panels = None
+    if len(blocks) and values is not None and \
+            values.dtype == torch.float64:
+        made = csr_panels(rp, colidx.cpu().numpy(), values.cpu().numpy(),
+                          np.flatnonzero(np.diff(rp) > PANEL_MIN), n_cols)
+        if made is not None:
+            *arrays, fill = made
+            panels = CsrPanels(
+                *(torch.as_tensor(t, device=dev) for t in arrays), fill,
+                torch.as_tensor(csr_tiles(rp, longest=PANEL_MIN),
+                                device=dev),
+                panel_chunks(n_cols), values.data_ptr())
     return CsrPlan(torch.as_tensor(csr_tiles(rp), device=dev),
                    CSR_BUDGET,
                    torch.as_tensor(np.concatenate([blocks, multi]),
                                    device=dev),
-                   len(blocks), len(multi), int(multi[:, 2].sum()))
+                   len(blocks), len(multi), int(multi[:, 2].sum()), panels)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def csr_path(plan: CsrPlan, values: torch.Tensor, m: int) -> str:
+    """The path on which :func:`csr_spmm` runs a matrix's long rows, given
+    no ``path``: ``"panel"`` where the plan holds panels for these
+    ``values``, m is at least ``CSR_PANEL_M`` and the tiles are at least
+    ``PANEL_FILL`` full, else ``"split"``.  The choice is the matrix's: a
+    shard of its rows with its own plan may fill its tiles otherwise."""
+    pn = plan.panels
+    held = pn is not None and values.dtype == torch.float64 and \
+        pn.values_ptr == values.data_ptr()
+    return "panel" if held and m >= CSR_PANEL_M and pn.fill >= PANEL_FILL \
+        else "split"
+
+
+def panel_launch(npanels: int, m: int, sms: int) -> tuple[int, int]:
+    """``(warps, nt)`` of a panel launch for ``npanels`` panels (times their
+    column chunks): panels a block and n-tiles of 8 columns a warp: 5 (each
+    tile read once a slab of 40 columns, the most that keeps the next
+    k-groups' fragments in registers) where that leaves four warps an SM,
+    else 2; four panels a block where that leaves two blocks an SM, else
+    one."""
+    ntiles = -(-m // 8)
+    nt = 5 if ntiles > 2 and npanels * -(-ntiles // 5) >= 4 * sms else 2
+    blocks = -(-npanels // 4) * -(-ntiles // nt)
+    return (4 if blocks >= 2 * sms else 1), nt
 
 
 def csr_spmm_reference(rowptr: torch.Tensor, colidx: torch.Tensor,
@@ -202,8 +354,8 @@ def csr_spmm_reference(rowptr: torch.Tensor, colidx: torch.Tensor,
 
 def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
              values: torch.Tensor, x: torch.Tensor,
-             transposed: bool = False, plan: CsrPlan | None = None
-             ) -> torch.Tensor:
+             transposed: bool = False, plan: CsrPlan | None = None,
+             path: str | None = None) -> torch.Tensor:
     """``A x`` for CSR ``rowptr`` (n+1,) and ``colidx`` (nnz,) int32 and
     ``values`` (nnz,) of the dtype of ``x``.
 
@@ -213,7 +365,16 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     memory order of ``x``: like ``torch.empty_like(x)`` for a dense ``x``,
     else contiguous in the logical layout (``spmm.empty_in_order_of``).
     ``plan``: the launch plan for this ``rowptr`` (:func:`csr_plan`), which
-    a product on a card needs."""
+    a product on a card needs.  ``path``: None runs the panels' rows on the
+    panel path where the plan holds them for these ``values``, m is at
+    least ``CSR_PANEL_M`` and the tiles are at least ``PANEL_FILL`` full,
+    else the long rows on the split path; ``"split"`` or ``"panel"`` forces
+    one (measurements and tests; ``"panel"`` raises ``ValueError`` where
+    the plan holds no panels for ``values``).  The two give different bits
+    (another summation order), each the same on every launch and in a shard
+    of rows that takes the same path."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
     if x.dim() != 2:
         raise ValueError(f"csr_spmm: x must be 2-D, got {tuple(x.shape)}")
     if rowptr.dim() != 1 or rowptr.shape[0] < 1 or colidx.dim() != 1 or \
@@ -255,26 +416,54 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     if plan is None:
         raise ValueError("csr_spmm: kernels 5 and 6 need the row tiles of "
                          "rowptr (plan=csr_plan(rowptr))")
+    pn = plan.panels
+    if path == "panel" and not (pn is not None and
+                                values.dtype == torch.float64 and
+                                pn.values_ptr == values.data_ptr()):
+        raise ValueError("csr_spmm: the plan holds no panels for these "
+                         "values (csr_plan(rowptr, colidx, values, n_cols), "
+                         "f64)")
+    panel = (path or csr_path(plan, values, m)) == "panel"
     item = x.element_size()
     vec = vec_width(m, (xs_i, xs_j, x.data_ptr()), (ys_i, ys_j, y.data_ptr()),
                     item=item)
     copy16 = colidx.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
-    # the partial sums of the rows of several parts, added by the kernel's
+    # the row tiles and split blocks of the rows the panel path leaves; the
+    # partial sums of the rows of several parts, added by the kernel's
     # second launch
+    tiles = pn.tiles if panel else plan.tiles
+    nsplit, nmulti = (0, 0) if panel else (plan.nsplit, plan.nmulti)
     scratch = torch.empty((plan.slots, m), dtype=x.dtype, device=x.device) \
-        if plan.nmulti else None
+        if nmulti else None
     entry, counter = ("gcge_csr_spmm_f64", "csr_f64") if item == 8 else \
         ("gcge_csr_spmm_f32", "csr_f32")
+    lib = _build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(_build.lib(), entry)(
+        err = getattr(lib, entry)(
             rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), nnz,
-            plan.tiles.data_ptr(), plan.tiles.shape[0], plan.budget,
-            plan.split.data_ptr(), plan.nsplit, plan.nmulti,
+            tiles.data_ptr(), tiles.shape[0], plan.budget,
+            plan.split.data_ptr(), nsplit, nmulti,
             None if scratch is None else scratch.data_ptr(), m,
             x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, vec,
             int(copy16), int(row_fast(m, ys_i, ys_j)), stream)
-    _build.check(entry, err)
+        _build.check(entry, err)
+        if panel:
+            warps, nt = panel_launch(pn.npanels * pn.chunks, m,
+                                     _sm_count(x.device.index))
+            # the chunks' sums, added in chunk order by a second launch
+            part = torch.empty((pn.rows.shape[0] * pn.chunks, m),
+                               dtype=x.dtype, device=x.device) \
+                if pn.chunks > 1 else None
+            err = lib.gcge_csr_panel_f64(
+                pn.rows.data_ptr(), pn.rows.shape[0], pn.ptr.data_ptr(),
+                pn.npanels, pn.chunks, pn.kcol.data_ptr(),
+                pn.vals.data_ptr(), pn.multi.data_ptr(),
+                None if part is None else part.data_ptr(),
+                x.shape[1 if transposed else 0], m, x.data_ptr(), xs_i,
+                xs_j, y.data_ptr(), ys_i, ys_j, warps, nt, stream)
+            _build.check("gcge_csr_panel_f64", err)
+            LAUNCHES["csr_f64_panel"] += 1
     LAUNCHES[counter] += 1
     return y
 
@@ -300,8 +489,8 @@ class CsrOperator(LinearOperator):
         self.values = values      # (nnz,)
         self.n_cols = int(n_cols)
         self._values32 = None
-        self.plan = csr_plan(rowptr) if rowptr.device.type == "cuda" \
-            else None
+        self.plan = csr_plan(rowptr, colidx, values, self.n_cols) \
+            if rowptr.device.type == "cuda" else None
 
     @property
     def shape(self):

@@ -123,6 +123,8 @@ class DiaWidePlan:
     ld: int           # elements a window row takes in shared memory
     skew: int         # elements between row blocks of the window beyond ld
     sh: int           # x's row segments start sh elements past 16 bytes
+    two: bool = False   # f64 rows an odd number of doubles apart: row r's
+                        # segment at phase (sh + r xs_i) % 2 (sh that of row 0)
 
     @property
     def items(self) -> int:
@@ -187,19 +189,24 @@ def _wide_plan(m: int, xs_i: int, xs_j: int, x_ptr16: int, ys_i: int,
                ys_j: int, y_ptr16: int, item: int) -> DiaWidePlan | None:
     """The wide path's plan, or None where it cannot take the layout: x's
     and y's columns must be adjacent and x's rows a multiple of 16 bytes
-    apart (every row segment of the window at one 16-byte phase)."""
-    if m > 1 and (xs_j != 1 or ys_j != 1) or xs_i * item % 16:
+    apart (every row segment of the window at one 16-byte phase) or, in
+    f64, 8 bytes past one (``two``: PAS's contiguous (n, 75) block; the
+    rows alternate between two phases, and a window row takes room for the
+    higher one)."""
+    two = item == 8 and xs_i % 2 == 1
+    if m > 1 and (xs_j != 1 or ys_j != 1) or xs_i * item % 16 and not two:
         return None
     per16 = 16 // item
     nslabs = -(-m // DIA_SLAB)
     slab = m if nslabs == 1 else _round_up(-(-m // nslabs), per16)
-    # vec: the stores to y and the reads of a window row, both aligned
+    # vec: the stores to y and the reads of a window row, both aligned (1
+    # where the rows take two phases: xs_i is odd)
     vec = vec_width(m, (ys_i, ys_j, y_ptr16), (xs_i, 1, x_ptr16), item=item)
     sh = x_ptr16 // item % per16
-    ld = _round_up(sh + slab, per16)
+    ld = _round_up((sh | per16 // 2 if two else sh) + slab, per16)
     groups = slab // vec
     return DiaWidePlan(item, vec, slab, max(1, DIA_WIDE_THREADS // groups),
-                       ld, wide_skew(item, vec, groups, ld), sh)
+                       ld, wide_skew(item, vec, groups, ld), sh, two)
 
 
 @functools.lru_cache(maxsize=None)

@@ -667,6 +667,30 @@ def _check_convergence_host(res, ss_eval_h, c0_eff, scan_from, nev_conv_prev,
     return nev_conv, np.asarray(act_padded, np.int64), act_cnt
 
 
+def _recount(a_op, b_op, ritz, ss_eval, nev_conv: int, size_x: int, cw: int,
+             tol_abs, tol_rel, mesh=None) -> int:
+    """``nev_conv`` counted again on the Ritz pairs as they stand: the
+    leading run of ``[0, nev_conv)`` whose residuals pass
+    :func:`_classify`.  The check counts a pair once it passes and keeps
+    it, but a later iteration can move a counted pair off convergence (at a
+    block narrower than an eigenvalue cluster, or a residual that was just
+    inside the tolerance).  Both loops recount where they would stop and
+    go on from the recount while it falls short, and recount once more
+    after the loop, so the returned count holds only pairs that pass.  Runs
+    over the check's own windows (width ``cw``), with one host read."""
+    k = min(nev_conv, size_x)
+    if k == 0:
+        return 0
+    res = []
+    for c0 in range(0, k, cw):
+        c0_eff = min(c0, size_x - cw)
+        res.append(_residual_norms(a_op, b_op, ritz, ss_eval, c0_eff, cw,
+                                   mesh)[c0 - c0_eff:])
+    res = torch.cat(res)[:k].cpu().numpy()
+    unconv = _classify(res, ss_eval[:k].cpu().numpy(), tol_abs, tol_rel)
+    return int(np.cumprod(~unconv).sum())
+
+
 # --------------------------------------------------------------------------
 # fused iteration: the same logic in tensor operations on the device
 # --------------------------------------------------------------------------
@@ -902,7 +926,16 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
                   f"{res_h.max():.4e})")
         if nev_conv >= nev_target:
             if nev_conv >= nev0 or size_x >= p.nev_max:
-                break
+                held = _recount(a_op, b_op, st.ritz, st.ss_eval, nev_conv,
+                                size_x, st.res.shape[0], p.tol_abs,
+                                p.tol_rel, mesh)
+                if held == nev_conv:
+                    break
+                # as the phased loop: the next chunk checks from the recount
+                nev_conv = held
+                st = replace(st, nev_conv=scalar(held),
+                             done=torch.zeros_like(st.done))
+                continue
             extra = min(2 * bs, p.nev_max - size_x)
             grown = _grow_basis(st.v, st.ss_evec, st.ritz, st.ss_eval,
                                 size_x, extra, bs, mesh)
@@ -920,6 +953,8 @@ def _run_fused(a_op, b_op, p: GCGParams, cg: BlockPCGParams, stage, v, ritz,
                 print("GCG: subspace stagnated (P and W deflated); stopping")
             break
     total_iter = num_iter + (p.max_iter - iter_budget)
+    nev_conv = _recount(a_op, b_op, st.ritz, st.ss_eval, nev_conv, size_x,
+                        st.res.shape[0], p.tol_abs, p.tol_rel, mesh)
     return st.ss_eval, st.ritz, size_x, nev_conv, total_iter, res_h, history
 
 
@@ -1173,8 +1208,8 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
 
     while True:
         # ---- CheckConvergence ------------------------------------------
+        cw = min(max(p.check_max or 2 * bs, bs), size_x)
         if num_iter > 0:
-            cw = min(max(p.check_max or 2 * bs, bs), size_x)
             c0 = nev_conv
             c0_eff = min(c0, size_x - cw)
             scan_from = c0 - c0_eff
@@ -1203,7 +1238,13 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
         # ---- converged / restart growth ----------------------------------
         if nev_conv >= nev_target:
             if nev_conv >= nev0 or size_x >= p.nev_max:
-                break
+                held = _recount(a_op, b_op, ritz, ss_eval, nev_conv, size_x,
+                                cw, p.tol_abs, p.tol_rel, mesh)
+                if held == nev_conv:
+                    break
+                # a counted pair fails now: check again from the recount
+                nev_conv = held
+                continue
             extra = min(2 * bs, p.nev_max - size_x)
             v, ritz, ss_eval, ss_evec, h, size_x = _grow_basis(
                 v, ss_evec, ritz, ss_eval, size_x, extra, bs, mesh)
@@ -1286,6 +1327,8 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
             stall = 0
         num_iter += 1
 
+    nev_conv = _recount(a_op, b_op, ritz, ss_eval, nev_conv, size_x, cw,
+                        p.tol_abs, p.tol_rel, mesh)
     timers["total"] = time.perf_counter() - t_start
     total_iter = num_iter + (p.max_iter - iter_budget)
     if verbose:

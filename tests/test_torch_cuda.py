@@ -278,6 +278,43 @@ def test_dia_wide_path_has_the_narrow_bits(cuda, dtype, tol, m, kind):
     assert float((wide - ref).abs().max()) <= tol * float(scale)
 
 
+@pytest.mark.parametrize("m", [21, 75])
+@pytest.mark.parametrize("kind", ["dense", "even", "odd", "halo"])
+def test_dia_two_phase_wide_path_has_the_narrow_bits(cuda, m, kind):
+    """Kernel 1's wide path at f64 rows an odd number of doubles apart (PAS's
+    contiguous (n, 75) block, whose rows alternate between two 16-byte
+    phases), on the 27-point Laplacian at nx = 12: a contiguous (n, m) of
+    odd m, column views at an even and an odd offset of an (n, 2m + 1)
+    basis, and a contiguous halo window; the plan takes the wide path with
+    two phases, its product has the narrow path's bits, equal bits on two
+    launches, and lies within 1.5e-15 of max |A||x| of the plain
+    version."""
+    rows, cols, vals, n = _laplacian_27(12)
+    op = make_operator(rows, cols, vals, (n, n), device=cuda)
+    halo = (111, 120) if kind == "halo" else (0, 0)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    base = torch.randn((n + sum(halo), 2 * m + 1), generator=g,
+                       dtype=torch.float64, device=cuda)
+    x = {"dense": base[:, :m].contiguous(), "halo": base[:, :m].contiguous(),
+         "even": base[:, 2:2 + m], "odd": base[:, 1:1 + m]}[kind]
+    assert x.stride(0) % 2 == 1
+
+    def run(path=None):
+        return spmm.dia_spmm(op.values, op.offsets_t, x, False, halo,
+                             path=path)
+
+    wide, narrow = run("wide"), run("narrow")
+    plan = spmm.dia_plan(m, *x.stride(), x.data_ptr() % 16, *wide.stride(),
+                         wide.data_ptr() % 16, 8)
+    assert plan.wide is not None and plan.wide.two
+    assert torch.equal(wide, narrow)
+    assert torch.equal(run(), wide) and torch.equal(run(), wide)
+    ref = spmm.dia_spmm_reference(op.values, op.offsets_t, x, False, halo)
+    scale = spmm.dia_spmm_reference(op.values.abs(), op.offsets_t, x.abs(),
+                                    False, halo).max()
+    assert float((wide - ref).abs().max()) <= 1.5e-15 * float(scale)
+
+
 @pytest.mark.parametrize("m", [1, 10, 100])
 @pytest.mark.parametrize("kind", ["even", "odd"] + _LAYOUTS)
 def test_dia_f64_kernel_runs_and_edges(cuda, m, kind):
@@ -718,6 +755,100 @@ def test_csr_split_rows_same_bits_in_the_whole_matrix_and_a_shard(
         assert torch.equal(part, whole[r0:r1]), (r0, r1)
 
 
+def _banded_long_csr(n: int, seed: int, scatter: float = 0.1):
+    """Rows of the AMG coarse levels' shape: most rows 300 to 900 entries in
+    a band around the diagonal with a share ``scatter`` of them moved to
+    random columns (all of them at 1), some short rows (the tile path's)
+    and an empty one; n columns, no column twice in a row."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(n):
+        d = 0 if r == 5 else int(rng.integers(2, 40)) if r % 17 == 3 else \
+            int(rng.integers(300, 900))
+        lo = min(max(r - d // 2, 0), n - d)
+        c = np.arange(lo, lo + d)
+        drop = rng.random(d) < scatter
+        c[drop] = rng.integers(0, n, int(drop.sum()))
+        c = np.unique(c)
+        rows.append(np.full(len(c), r))
+        cols.append(c)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.standard_normal(len(rows))
+    return onehot.pack_csr(rows, cols, vals, (n, n))
+
+
+@pytest.mark.parametrize("n", [1031, 4500])
+@pytest.mark.parametrize("m", [10, 75])
+@pytest.mark.parametrize("layout", ["nm", "mn", "V view", "cg"])
+def test_csr_panel_path_same_bits_in_the_whole_matrix_and_a_shard(
+        cuda, n, m, layout):
+    """Kernel 6's panel path (forced) against the plain version within 1e-14
+    of max |A||x|; the same bits on two launches; a block of rows computed
+    inside the whole matrix and as its own CSR with its own plan (cut at
+    rows that split panels, shifted by one row) gives the same bits.
+    n = 4,500 has more than PANEL_NARROW columns (one column chunk), n =
+    1,031 fewer (chunks of 512 columns, their sums added in chunk
+    order)."""
+    rowptr, colidx, values = (torch.as_tensor(t, device=cuda)
+                              for t in _banded_long_csr(n, m))
+    if layout == "V view":
+        x, transposed = _basis_view(n, m, torch.float64, cuda, 5), False
+    else:
+        x, transposed = _operand(layout, n, m, torch.float64, cuda, 5)
+    plan = onehot.csr_plan(rowptr, colidx, values, n)
+    pn = plan.panels
+    assert pn is not None and pn.chunks == onehot.panel_chunks(n)
+    path = "panel"
+    before = onehot.LAUNCHES["csr_f64_panel"]
+    got = onehot.csr_spmm(rowptr, colidx, values, x, transposed, plan, path)
+    assert torch.equal(got, onehot.csr_spmm(rowptr, colidx, values, x,
+                                            transposed, plan, path))
+    assert onehot.LAUNCHES["csr_f64_panel"] == before + 2
+    ref = onehot.csr_spmm_reference(rowptr, colidx, values, x, transposed)
+    scale = onehot.csr_spmm_reference(rowptr, colidx, values.abs(), x.abs(),
+                                      transposed).max()
+    assert float((got - ref).abs().max()) <= 1e-14 * float(scale)
+    whole = got.T if transposed else got
+    for r0, r1 in ((1, 13), (2, 520), (400, n), (0, n)):
+        rp, ci, va = _csr_rows_of(rowptr, colidx, values, r0, r1)
+        part = onehot.csr_spmm(rp, ci, va, x, transposed,
+                               onehot.csr_plan(rp, ci, va, n), "panel")
+        if transposed:
+            part = part.T
+        assert torch.equal(part, whole[r0:r1]), (r0, r1)
+
+
+def test_csr_panel_path_only_where_the_plan_takes_it(cuda):
+    """The plan's choice: the split path at m = 10 and where the tiles are
+    less than PANEL_FILL full (rows of random columns), the panel path at m
+    = 75 on banded rows; ``path="panel"`` raises without panels for the
+    values (f32 values, a plan made from rowptr alone)."""
+    n, m = 1500, 75
+    rowptr, colidx, values = (torch.as_tensor(t, device=cuda)
+                              for t in _banded_long_csr(n, 3))
+    plan = onehot.csr_plan(rowptr, colidx, values, n)
+    x = torch.randn((n, m), dtype=torch.float64, device=cuda)
+    for width, want in ((10, 0), (m, 1)):
+        before = onehot.LAUNCHES["csr_f64_panel"]
+        onehot.csr_spmm(rowptr, colidx, values, x[:, :width], False, plan)
+        assert onehot.LAUNCHES["csr_f64_panel"] == before + want
+    rp, ci, va = (torch.as_tensor(t, device=cuda)
+                  for t in _banded_long_csr(6000, 4, scatter=1.0))
+    sparse = onehot.csr_plan(rp, ci, va, 6000)
+    assert sparse.panels is not None and \
+        sparse.panels.fill < onehot.PANEL_FILL
+    before = onehot.LAUNCHES["csr_f64_panel"]
+    onehot.csr_spmm(rp, ci, va, torch.randn((6000, m), dtype=torch.float64,
+                                            device=cuda), False, sparse)
+    assert onehot.LAUNCHES["csr_f64_panel"] == before
+    with pytest.raises(ValueError, match="panels"):
+        onehot.csr_spmm(rowptr, colidx, values, x, False,
+                        onehot.csr_plan(rowptr), "panel")
+    with pytest.raises(ValueError, match="panels"):
+        onehot.csr_spmm(rowptr, colidx, values.float(), x.float(), False,
+                        plan, "panel")
+
+
 def test_csr_f64_kernel_on_unaligned_arrays_and_needs_a_plan(cuda):
     """Kernel 6 takes colidx and values that do not start on 16 bytes
     (4- and 8-byte copies), and refuses to run without its row tiles."""
@@ -1150,9 +1281,12 @@ def test_bgs_orth_on_card_matches_cpu(cuda, m):
 def test_csr_kernel_on_rectangular_transfers(cuda, m):
     """Kernel 6 on the hierarchy's rectangular P and R (at nx=24 the last
     restriction's rows reach 1,236 entries, past the tile budget of 1,024:
-    the split path) against the plain version on the same card: 1e-14 of
-    max |P| |x|, in the (n, m) layout and transposed, equal bits across two
-    launches and for the middle third of the rows as a CSR of its own."""
+    the split path, or at m = 75 the panel path where the plan takes it)
+    against the plain version on the same card: 1e-14 of max |P| |x|, in
+    the (n, m) layout and transposed, equal bits across two launches and
+    for the middle third of the rows as a CSR of its own, planned as the
+    operator plans (colidx, values, columns) and on the path the whole
+    matrix took (onehot.csr_path)."""
     h, _ = _fem_hierarchy(24, cuda)
     longest = h.levels[-2].r_op.rowptr.diff().max()
     assert int(longest) > onehot.CSR_BUDGET
@@ -1182,8 +1316,10 @@ def test_csr_kernel_on_rectangular_transfers(cuda, m):
                 r0, r1 = n // 3, 2 * n // 3
                 rp, ci, va = _csr_rows_of(op.rowptr, op.colidx, op.values,
                                           r0, r1)
-                part = onehot.csr_spmm(rp, ci, va, x, transposed,
-                                       onehot.csr_plan(rp))
+                part = onehot.csr_spmm(
+                    rp, ci, va, x, transposed,
+                    onehot.csr_plan(rp, ci, va, op.shape[1]),
+                    onehot.csr_path(op.plan, op.values, m))
                 whole = got.T if transposed else got
                 assert torch.equal(part.T if transposed else part,
                                    whole[r0:r1])

@@ -314,6 +314,46 @@ def test_fused_matches_phased_and_jax_fused(name):
     assert abs(fused.num_iter - jfused.num_iter) <= 2
 
 
+def test_fused_matches_phased_where_a_counted_pair_drifts(monkeypatch):
+    """The 27-point stencil at nx=10, nev=4 at its default block of 1,
+    narrower than the eigenvalue cluster of 3 at 4.14: both loops count 4,
+    recount 2 where they would stop (a counted pair of the cluster has
+    drifted past tol_rel |lambda|), go on from there, and stop at 4 pairs
+    that pass; the same counts, iterations and bits."""
+    from gcge_tpu_torch import make_operator
+    from gcge_tpu_torch.io.stencil import build_3d27
+
+    counts = []
+    recount = gcg._recount
+
+    def counted(*args, **kwargs):
+        held = recount(*args, **kwargs)
+        counts.append((args[4], held))
+        return held
+
+    monkeypatch.setattr(gcg, "_recount", counted)
+    rows, cols, vals, n = build_3d27(10)
+    op = make_operator(rows, cols, vals, (n, n), device="cpu")
+    x0 = np.random.default_rng(0).uniform(-1, 1, (n, 8))
+    res = {}
+    for fuse in (0, 5):
+        counts.clear()
+        res[fuse] = gcg_solve(op, None, GCGParams(nev=4, verbose=0,
+                                                  fuse=fuse), x0=x0)
+        assert counts[0] == (4, 2) and counts[-1] == (4, 4)
+    fused, phased = res[5], res[0]
+    assert fused.nev_conv == phased.nev_conv == 4
+    assert fused.num_iter == phased.num_iter
+    np.testing.assert_array_equal(fused.eval, phased.eval)
+    assert torch.equal(fused.evec, phased.evec)
+    a = torch.as_tensor(op.to_dense())
+    x = phased.evec[:, :4]
+    lam = torch.as_tensor(phased.eval[:4])
+    resid = torch.linalg.norm(a @ x - x * lam, dim=0) / \
+        torch.linalg.norm(x, dim=0)
+    assert bool((resid <= 1e-8 * lam.abs()).all())
+
+
 def test_fused_budget_and_frontend():
     """The iteration budget ends a fused solve where it ends a phased one,
     and ``solve(..., fuse=k)`` reaches the fused loop."""

@@ -667,6 +667,169 @@ def test_csr_split_rejects_what_it_cannot_plan():
         onehot.csr_split(rowptr, 8, 0)
 
 
+def _banded_csr(lengths, n_cols, seed):
+    """A CSR matrix with rows of the given lengths, each a run of adjacent
+    columns near its diagonal with a few scattered ones (the AMG coarse
+    levels' shape), values standard normal; as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    n = len(lengths)
+    cols = []
+    for r, d in enumerate(lengths):
+        d = int(min(d, n_cols))
+        centre = r * n_cols // max(n, 1)
+        band = np.arange(centre - d // 2, centre - d // 2 + d) % n_cols
+        keep = rng.random(d) < 0.8
+        extra = rng.choice(n_cols, d - int(keep.sum()), replace=False)
+        cols.append(np.unique(np.concatenate([band[keep], extra]))[:d])
+    rowptr = _rowptr([len(c) for c in cols])
+    colidx = np.concatenate(cols).astype(np.int32) if cols else \
+        np.zeros(0, np.int32)
+    return rowptr, colidx, rng.standard_normal(len(colidx))
+
+
+def _tile_entries(vals, q):
+    """The 16 x 8 tile q of ``csr_panels``' values, from its fragment
+    order (lane 4 g + t holds (A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]))."""
+    tile = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        tile[g, t], tile[g + 8, t], tile[g, t + 4], tile[g + 8, t + 4] = \
+            vals[q, 4 * lane:4 * lane + 4]
+    return tile
+
+
+@pytest.mark.parametrize("case,n_cols", [
+    ("AMG level 2 like", 17_588), ("AMG level 3 like", 1_350),
+    ("long rows", 20_500), ("split threshold edges", 7_000)])
+def test_csr_panels_cover_each_row_once(case, n_cols):
+    """The panel path's plan (csr_plan with colidx, f64 values and the
+    columns): in a matrix with split rows, every row of more than PANEL_MIN
+    entries lies in exactly one panel slot, in row order; each panel's
+    k-groups are distinct and in column order within each column chunk
+    (fixed by the columns alone); the tiles, read back from the fragment
+    order, hold exactly the rows' entries at their columns; every other row
+    lies in exactly one row tile of the tile path, within its budget; the
+    combine lists each panel row's chunk sums; ``fill`` counts the entries
+    in the tiles' slots.  The kernel takes no shared memory."""
+    if case == "AMG level 3 like":
+        lengths = np.random.default_rng(3).integers(700, 1_350, 200)
+    else:
+        lengths = np.asarray(_plan_cases()[case], np.int64)[:300]
+    lengths = np.minimum(lengths, n_cols)
+    rowptr, colidx, values = _banded_csr(lengths, n_cols, len(lengths))
+    plan = onehot.csr_plan(torch.as_tensor(rowptr), torch.as_tensor(colidx),
+                           torch.as_tensor(values), n_cols)
+    pn = plan.panels
+    lengths = np.diff(rowptr.astype(np.int64))
+    want = np.flatnonzero(lengths > onehot.PANEL_MIN)
+    assert pn is not None and plan.nsplit > 0
+    rows, ptr = pn.rows.numpy(), pn.ptr.numpy()
+    kcol, vals, multi = pn.kcol.numpy(), pn.vals.numpy(), pn.multi.numpy()
+    np.testing.assert_array_equal(rows, want)
+    chunks = onehot.panel_chunks(n_cols)
+    assert pn.chunks == chunks and len(ptr) == pn.npanels * chunks + 1
+    assert pn.npanels == -(-len(rows) // onehot.PANEL_ROWS)
+    assert ptr[0] == 0 and ptr[-1] == len(kcol) and np.all(np.diff(ptr) >= 0)
+    width = -(-n_cols // chunks)
+    dense = {}
+    for p in range(pn.npanels):
+        got = np.zeros((onehot.PANEL_ROWS, n_cols + onehot.PANEL_K))
+        for c in range(chunks):
+            ks = kcol[ptr[p * chunks + c]:ptr[p * chunks + c + 1]]
+            assert np.all(np.diff(ks) > 0) and np.all(ks % onehot.PANEL_K == 0)
+            assert np.all(ks // width == c)
+            for q in range(ptr[p * chunks + c], ptr[p * chunks + c + 1]):
+                got[:, kcol[q]:kcol[q] + onehot.PANEL_K] += \
+                    _tile_entries(vals, q)
+        for i in range(onehot.PANEL_ROWS):
+            k = p * onehot.PANEL_ROWS + i
+            if k < len(rows):
+                dense[rows[k]] = got[i, :n_cols]
+            else:
+                assert not got[i].any()
+    for r in rows:
+        row = np.zeros(n_cols)
+        row[colidx[rowptr[r]:rowptr[r + 1]]] = values[rowptr[r]:rowptr[r + 1]]
+        np.testing.assert_array_equal(dense[r], row)
+    covered = np.zeros(len(lengths), np.int64)
+    for r0, r1 in pn.tiles.numpy():
+        covered[r0:r1] += 1
+        staged = -(-rowptr[r1] // 4) * 4 - rowptr[r0] // 4 * 4
+        assert staged <= plan.budget
+    np.testing.assert_array_equal(covered, lengths <= onehot.PANEL_MIN)
+    np.testing.assert_array_equal(
+        multi, np.c_[rows, np.arange(len(rows)) * chunks,
+                     np.full(len(rows), chunks), np.zeros(len(rows), int)])
+    assert pn.fill == pytest.approx(lengths[rows].sum() / vals.size)
+    src = open(os.path.join(os.path.dirname(onehot.__file__), "csrc",
+                            "csr_spmm.cu")).read()
+    assert "fn<<<grid, (unsigned)(32 * warps), 0," in src
+
+
+def test_csr_panels_only_with_split_rows_and_f64_values():
+    """No panels without split rows, without colidx and values, for f32
+    values, or where a row holds a column twice; the chunks follow the
+    columns alone."""
+    short = _rowptr([3, 5, 0, 7])
+    cols = np.array([0, 1, 2, 0, 1, 2, 3, 4, 0, 1, 2, 3, 4, 5, 6], np.int32)
+    vals = np.ones(len(cols))
+    plan = onehot.csr_plan(torch.as_tensor(short), torch.as_tensor(cols),
+                           torch.as_tensor(vals), 7)
+    assert plan.panels is None
+    rowptr, colidx, values = _banded_csr([400, 20, 300], 500, 1)
+    rp, ci = torch.as_tensor(rowptr), torch.as_tensor(colidx)
+    assert onehot.csr_plan(rp).panels is None
+    assert onehot.csr_plan(rp, ci, torch.as_tensor(values).float(),
+                           500).panels is None
+    assert onehot.csr_plan(rp, ci, torch.as_tensor(values), 500).panels
+    twice = colidx.copy()
+    twice[1] = twice[0]
+    assert onehot.csr_panels(rowptr, twice, values, np.array([0]),
+                             500) is None
+    v = torch.as_tensor(values)
+    plan = onehot.csr_plan(rp, ci, v, 500)
+    full = plan.panels.fill >= onehot.PANEL_FILL
+    assert onehot.csr_path(plan, v, 75) == ("panel" if full else "split")
+    assert onehot.csr_path(plan, v, 10) == "split"
+    assert onehot.csr_path(plan, v.clone(), 75) == "split"
+    assert [onehot.panel_chunks(n) for n in (1, 512, 513, 1_350, 4_096,
+                                             4_097, 17_588)] == \
+        [1, 1, 2, 3, 8, 1, 1]
+
+
+@pytest.mark.parametrize("npanels,m", [(1091, 75), (255, 75), (1091, 10),
+                                       (85, 10), (1091, 40), (3, 160),
+                                       (1, 1)])
+def test_panel_launch_covers_the_columns(npanels, m):
+    """A panel launch: 5 n-tiles a warp where that leaves four warps an SM
+    (132 SMs), else 2; a block of four panels where that leaves two blocks
+    an SM, else one; the slabs cover all m columns."""
+    warps, nt = onehot.panel_launch(npanels, m, 132)
+    ntiles = -(-m // 8)
+    assert nt in (2, 5) and warps in (1, 4)
+    assert nt == 2 or npanels * -(-ntiles // 5) >= 4 * 132
+    assert -(-m // (8 * nt)) * 8 * nt >= m
+    blocks = -(-npanels // 4) * -(-ntiles // nt)
+    assert (warps == 4) == (blocks >= 2 * 132)
+    assert onehot.panel_launch(1091, 75, 132) == (4, 5)
+    assert onehot.panel_launch(85, 75, 132) == (1, 2)
+
+
+@pytest.mark.parametrize("case", list(_row_cases()))
+def test_csr_tiles_leave_out_rows_past_longest(case):
+    """``csr_tiles(..., longest=PANEL_MIN)``: the tile path's rows where the
+    panel path takes the others, every row of at most PANEL_MIN entries in
+    exactly one tile within the budget."""
+    rowptr = _rowptr(_row_cases()[case])
+    tiles = onehot.csr_tiles(rowptr, longest=onehot.PANEL_MIN)
+    rp = rowptr.astype(np.int64)
+    covered = np.zeros(len(rp) - 1, np.int64)
+    for r0, r1 in tiles:
+        covered[r0:r1] += 1
+        assert -(-rp[r1] // 4) * 4 - rp[r0] // 4 * 4 <= onehot.CSR_BUDGET
+    np.testing.assert_array_equal(covered, np.diff(rp) <= onehot.PANEL_MIN)
+
+
 def test_csr_operator_plans_only_on_a_card():
     """The row tiles live on the card of the operator; a CPU operator runs
     the plain version and has none."""
@@ -796,6 +959,8 @@ _SOLVE_OPERANDS = [
     ("f64 refresh (n, 40)", 8, 40, (40, 1), 0, (40, 1), "wide"),
     ("f64 V[:, :400]", 8, 400, (480, 1), 0, (400, 1), "wide"),
     ("f64 V[:, :800]", 8, 800, (960, 1), 0, (800, 1), "wide"),
+    ("f64 PAS (n, 75)", 8, 75, (75, 1), 0, (75, 1), "wide"),
+    ("f64 PAS (n, 150)", 8, 150, (150, 1), 0, (150, 1), "wide"),
     ("f64 (100, n) transposed", 8, 100, (1, 5000), 0, (1, 5000), "narrow"),
     ("f32 (40, n) contiguous", 4, 40, (1, 5000), 0, (1, 5000), "narrow"),
 ]
@@ -819,8 +984,8 @@ def test_dia_plan_picks_the_wide_path_past_one_tile(case):
             plan.row_fast) == (narrow.vec, narrow.col_tile, narrow.flat,
                                narrow.rows16, narrow.row_fast)
     # the wide path takes it when asked where columns are adjacent and rows
-    # a multiple of 16 bytes apart
-    if xs_j == 1 and xs_i * item % 16 == 0:
+    # a multiple of 16 bytes apart, or of 8 in f64 (two phases)
+    if xs_j == 1 and (xs_i * item % 16 == 0 or item == 8):
         assert spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item,
                              "wide").wide is not None
     else:
@@ -899,6 +1064,93 @@ def test_dia_wide_skew_spreads_a_warp_over_the_banks(case):
             banks = [(a // 4 + k) % 32 for a in addr[t0:t0 + 128 // width]
                      for k in range(width // 4)]
             assert len(set(banks)) == len(banks) == 32
+
+
+# the plans of the operands the wide path took before f64 rows of two
+# 16-byte phases joined it: (name, item, m, x strides, x data_ptr % 16, y
+# strides, narrow fields (vec, col_tile, flat, rows16, row_fast), wide
+# fields (vec, slab, rt, ld, skew, sh) or None)
+_PLANS_BEFORE = [
+    ("f64 V[:, 110:120]", 8, 10, (120, 1), 0, (10, 1),
+     (2, 10, False, True, False), None),
+    ("f64 refresh (n, 10)", 8, 10, (10, 1), 0, (10, 1),
+     (2, 10, False, True, False), None),
+    ("f32 CG m=10", 4, 10, (10, 1), 0, (10, 1), (2, 10, True, False, False),
+     None),
+    ("f64 PAS (n, 150)", 8, 150, (150, 1), 0, (150, 1),
+     (2, 10, False, True, False), (2, 76, 3, 76, 12, 0)),
+    ("f64 V[:, 440:480]", 8, 40, (480, 1), 0, (40, 1),
+     (2, 10, False, True, False), (2, 40, 6, 40, 8, 0)),
+    ("f64 V[:, 880:960]", 8, 80, (960, 1), 0, (80, 1),
+     (2, 10, False, True, False), (2, 80, 3, 80, 0, 0)),
+    ("f32 CG m=40", 4, 40, (40, 1), 0, (40, 1), (4, 20, False, False, False),
+     (4, 40, 12, 40, 8, 0)),
+    ("f32 CG m=80", 4, 80, (80, 1), 0, (80, 1), (4, 20, False, False, False),
+     (4, 80, 6, 80, 16, 0)),
+    ("f64 ritz[:, 41:81]", 8, 40, (400, 1), 8, (40, 1),
+     (2, 10, False, False, False), (1, 40, 3, 42, 8, 1)),
+    ("f64 ritz[:, 41:121]", 8, 80, (800, 1), 8, (80, 1),
+     (2, 10, False, False, False), (1, 80, 1, 82, 0, 1)),
+    ("f64 ritz[:, 41:61]", 8, 20, (100, 1), 8, (20, 1),
+     (2, 10, False, False, False), (1, 20, 6, 22, 4, 1)),
+]
+
+
+@pytest.mark.parametrize("case", _PLANS_BEFORE, ids=lambda c: c[0])
+def test_dia_plans_of_the_one_phase_operands_are_unchanged(case):
+    """Every m = 10 operand keeps the narrow path, and the wide path's
+    operands of one 16-byte phase ((n, 150), m = 40 and 80, the odd-offset
+    ritz windows) keep their plans field for field."""
+    name, item, m, (xs_i, xs_j), ptr, (ys_i, ys_j), narrow, wide = case
+    plan = spmm.dia_plan(m, xs_i, xs_j, ptr, ys_i, ys_j, 0, item)
+    assert (plan.vec, plan.col_tile, plan.flat, plan.rows16,
+            plan.row_fast) == narrow
+    w = plan.wide
+    assert (None if w is None else (w.vec, w.slab, w.rt, w.ld, w.skew,
+                                    w.sh)) == wide
+    assert w is None or not w.two
+
+
+def test_dia_plan_takes_the_wide_path_at_pas_block():
+    """PAS's contiguous (n, 75) f64 block (rows 600 bytes apart, two 16-byte
+    phases) takes the wide path: one slab, one element a read, room for the
+    higher phase in each window row."""
+    w = spmm.dia_plan(75, 75, 1, 0, 75, 1, 0, item=8).wide
+    assert w is not None and w.two
+    assert (w.vec, w.slab, w.rt, w.sh, w.items) == (1, 75, 1, 0, 16)
+    assert w.ld >= 1 + 75 and w.ld % 2 == 0
+    # the same rows at an odd start (a view at an odd column) too
+    w1 = spmm.dia_plan(75, 151, 1, 8, 75, 1, 0, item=8).wide
+    assert w1.two and w1.sh == 1
+    # in f32 a row stride 8 bytes past 16 keeps the narrow path
+    assert spmm.dia_plan(75, 78, 1, 0, 75, 1, 0, item=4).wide is None
+
+
+@pytest.mark.parametrize("m,width,off", [(75, 75, 0), (75, 151, 1),
+                                         (21, 23, 0), (74, 75, 1),
+                                         (161, 161, 0)])
+def test_dia_two_phase_plan_covers_each_entry_once(m, width, off):
+    """f64 rows an odd number of doubles apart, forced onto the wide path:
+    every (row, column) of y written by exactly one thread of one block;
+    whole 16-byte slabs (or one of all m); each window row starts on 16
+    bytes and holds its segment at either phase, within the stage."""
+    plan = spmm.dia_plan(m, width, 1, off * 8 % 16, m, 1, 0, 8, "wide")
+    w = plan.wide
+    assert w.two and w.vec == 1 and w.sh == off % 2
+    n = 2 * w.rows + 5
+    assert (_cover(w, n, m) == 1).all()
+    slabs = w.slabs(m)
+    assert sum(width for _, width in slabs) == m
+    assert len(slabs) == 1 or w.slab % 2 == 0
+    assert w.threads <= spmm.DIA_WIDE_THREADS
+    rows = w.rows + spmm.DIA_RUN - 1
+    window = w.stage_elems() - spmm.DIA_RUN * w.rows
+    for a in range(rows):
+        assert w.window_row(a) % 2 == 0
+        for phase in (0, 1):
+            assert w.window_row(a) + phase + w.slab <= w.window_row(a) + w.ld
+        assert w.window_row(a) + w.ld <= window
+    assert w.smem <= 227 * 1024
 
 
 def test_dia_path_argument_on_the_cpu(dia12):
