@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tall [--root DIR]
     python3 chip_smoke.py --dia [--root DIR]
     python3 chip_smoke.py --pas [--root DIR]
+    python3 chip_smoke.py --csr [--root DIR]
 
 Nine kernels, four solves (the headline and the irregular problem, each by
 the phased and by the fused loop), the two kernel measurement scripts, the
@@ -65,7 +66,8 @@ Phases, each of which raises on failure:
    block_size=10, max_iter=300, cg_max_iter=60, cg_refine=3)``; checks the
    layout, the converged count, the residuals with scipy in the caller's
    ordering, that kernels 3-7 were launched (the mask probe by
-   ``CsrOperator.from_coo``), and the eigenvalues against a
+   ``CsrOperator.from_coo``; kernel 6 also on the wide path's tiles, at the
+   initial Rayleigh-Ritz's 100 columns), and the eigenvalues against a
    second solve that goes through no hand-written SpMM (A as a prebuilt ELL
    operator, plain gather route).
 8. kernels 8 and 9 — the FMA probe (Dekker block bit for bit, block 0 equal
@@ -185,11 +187,13 @@ Phases, each of which raises on failure:
     ``utils.cli.main`` at nev=200, block 40 (m=480): packed as CSR; at
     least 200 converged, host residuals of the first 200 pairs at
     most 2e-8, the first 50 eigenvalues within 1e-9 of phase 7's;
-    iterations beside the C reference's 107; kernels 6 and 5 timed at this
-    solve's operands (``V[:, 440:480]``, the CG's ``(40, n)``).  Then the
-    same matrix in its mesh ordering through the driver, under the same
-    gates, with the layout the driver chose and its wall beside the first
-    run's.
+    iterations beside the C reference's 107; kernels 5 and 6 launched,
+    also on the wide path's tiles (m = 40: the plan's choice); kernels 6
+    and 5 timed at this solve's operands (``V[:, 440:480]``, the CG's
+    ``(40, n)``), on the 64-row and the wide tiles in turns, with equal
+    bits.  Then the same matrix in its mesh ordering through the driver,
+    under the same gates, with the layout the driver chose and its wall
+    beside the first run's.
 
 ``--tall`` runs phase 1 and then kernels 3 and 4 alone: every class of
 the headline and the two wide solves, timed as in phases 2 and 19, the two
@@ -217,6 +221,16 @@ the split and the panel path in turns, each beside the library call, the
 device-memory bound and the bound of its gathers of x over the L2 rate;
 ``--root DIR`` as for ``--tall``.
 
+``--csr`` runs phase 1 and then kernels 5 and 6 alone on the irregular
+matrix, at every operand the irregular nev=50 and nev=200 solves hand
+them, on the plan's path against the plain version and beside the library
+call, and on each of its tile paths (the 64-row tiles, the wide path's) in
+turns with their bits compared, each beside the memory bound and the
+bounds of its gathers of x over the L2 rate of the run; then both solves
+(iterations, count, calls by operand) and a ``torch.profiler`` run of the
+nev=200 solve (busy, idle, kernels 5 and 6 device time); ``--root DIR`` as
+for ``--tall`` (a parent tree: its own paths).
+
 ``--profile`` adds ``torch.profiler`` runs (30 iterations of the irregular
 solve and the whole headline solve, each phased and fused; the whole wide
 solves; 10 iterations of each AMG-preconditioned solve and one PAS solve
@@ -239,6 +253,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -916,7 +931,19 @@ def build_delaunay(g: int):
     return a, a_rcm
 
 
-def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag="",
+def csr_keys(m: int) -> tuple:
+    """The counters that an irregular solve whose block is m columns wide
+    must move: kernels 5 and 6, and their launches on the wide path's tiles
+    where the wrapper's rule takes it at m (the CG's operand and the W
+    coupling); kernel 6's wide launches in any case (the initial
+    Rayleigh-Ritz, 2 nev columns)."""
+    from gcge_tpu_torch.ops import onehot
+
+    return ("csr_f32", "csr_f64", "csr_f64_wide") + \
+        (("csr_f32_wide",) if m > onehot.CSR_WIDE_M else ())
+
+
+def csr_rows(torch, log, op, vals, a_csr, cases, tol, gen, tag="",
              parents=None, after=None):
     """Kernel 5 or 6 (by the dtype of ``vals``) on the CSR operator ``op``
     in its own plan: :func:`spmm_rows` with the library call on the scipy
@@ -926,7 +953,7 @@ def csr_rows(torch, log, key, op, vals, a_csr, cases, tol, gen, tag="",
     rowptr, colidx, plan = op.rowptr, op.colidx, op.plan
     nnz = int(vals.shape[0])
     spmm_rows(
-        torch, log, key,
+        torch, log, "csr_f64" if vals.dtype == torch.float64 else "csr_f32",
         lambda x, t: onehot.csr_spmm(rowptr, colidx, vals, x, t, plan),
         lambda x, t, absolute: onehot.csr_spmm_reference(
             rowptr, colidx, vals.abs() if absolute else vals, x, t),
@@ -957,10 +984,10 @@ def phase_kernels_irregular(torch, log, a_rcm):
     # kernel 6 (f64) and kernel 5 (f32); error relative to max (|A| |x|).
     # Primary: kernel 6 at the W coupling's column view of V, kernel 5 at the
     # f32 CG stage's own operand
-    csr_rows(torch, log, "csr_f64", op, op.values, a_rcm,
+    csr_rows(torch, log, op, op.values, a_rcm,
              ["V[:, 110:120]", "ritz[:, 41:51]", "V[:, :100]", "(n, 10)",
               "(10, n)", "(40, n)"], 1e-14, gen)
-    csr_rows(torch, log, "csr_f32", op, op.values.float(), a_rcm,
+    csr_rows(torch, log, op, op.values.float(), a_rcm,
              ["cg", "(n, 10)", "(10, n)", "(40, n)"], 1e-5, gen)
     # kernels 6 and 5 at rows of the split path: 50,000 rows of 0 to 11
     # entries (every 997th empty) and three of 3,000, 5,000 and 20,000
@@ -986,9 +1013,9 @@ def phase_kernels_irregular(torch, log, a_rcm):
                              f"split blocks {split.tolist()}")
     tag = (f" long rows (max {deg.max()}; {plan.nsplit} split blocks, "
            f"{plan.nmulti} rows of several parts)")
-    csr_rows(torch, log, "csr_f64", op2, op2.values, long_rows,
+    csr_rows(torch, log, op2, op2.values, long_rows,
              ["V[:, 110:120]"], 1e-14, gen, tag)
-    csr_rows(torch, log, "csr_f32", op2, op2.values.float(), long_rows,
+    csr_rows(torch, log, op2, op2.values.float(), long_rows,
              ["cg", "(n, 16)"], 1e-5, gen, tag)
     # kernel 7: the mask probe, bit for bit
     rng = np.random.default_rng(0)
@@ -1051,7 +1078,7 @@ def phase_hybrid(torch, log):
     rest_csr = sps.csr_matrix((rest.values.cpu().numpy(),
                                rest.colidx.cpu().numpy(),
                                rest.rowptr.cpu().numpy()), shape=rest.shape)
-    csr_rows(torch, log, "csr_f32", rest, rest.values.float(), rest_csr,
+    csr_rows(torch, log, rest, rest.values.float(), rest_csr,
              ["cg"], 1e-5, torch.Generator(device=DEVICE).manual_seed(2),
              f" hybrid remainder ({rest.nnz} entries)")
 
@@ -1087,7 +1114,7 @@ def phase_irregular(torch, log, a, a_rcm):
     if not res.max() <= 2e-8:
         raise AssertionError(f"residual {res.max():.3e} > 2e-8")
     path_launched("irregular", launches,
-                  ("gram", "expand", "csr_f32", "csr_f64", "mask_probe"))
+                  ("gram", "expand", "mask_probe") + csr_keys(BS))
 
     # the same problem through no hand-written SpMM: a prebuilt ELL operator
     # (one PyTorch gather per ELL column), at full width: about twice the
@@ -1149,7 +1176,7 @@ def phase_irregular_fused(torch, log, a, ev_phased):
         raise AssertionError(f"residual {res.max():.3e} > 2e-8")
     if not rel <= 1e-9:
         raise AssertionError("the fused solve disagrees with the phased")
-    path_launched(tag, launches, ("gram", "expand", "csr_f32", "csr_f64"))
+    path_launched(tag, launches, ("gram", "expand") + csr_keys(BS))
     if gcg.GRAPH_REPLAYS["cg_stage"] <= 0:
         raise AssertionError("the CG stage was not replayed from a graph")
     # the same with no ``fuse`` given: the chunk length ``solve`` tunes
@@ -1665,7 +1692,7 @@ def csr_operator_row(torch, log, op, what, gen, widths=(BS,)):
     panels = "" if pn is None else \
         f", {pn.npanels} panels of 16 rows, {pn.kcol.shape[0]} tiles of 16 " \
         f"x 8, {100 * pn.fill:.1f} % full, {pn.chunks} column chunks"
-    csr_rows(torch, log, "csr_f64", op, op.values, a_csr,
+    csr_rows(torch, log, op, op.values, a_csr,
              [f"(n, {m})" for m in widths], 1e-14, gen,
              f" {what} {op.shape} ({a_csr.nnz} entries, rows up to "
              f"{lengths.max()}, {split} of more than {onehot.CSR_SPLIT} on "
@@ -1768,6 +1795,81 @@ def csr_paths(torch, op, a_csr, label, x, transposed, bound_ms):
           f"{lib_ms:.4f} ms; memory bound {bound_ms:.4g} ms; panel "
           f"{min(times['split']) / min(times['panel']):.2f} times as fast "
           f"as split")
+
+
+def tile_records(a_csr, tiles) -> int:
+    """The distinct records of x that the row tiles ``tiles`` ((first row,
+    end) pairs) gather, summed over the tiles: the bytes a tile path must
+    bring into the SMs once each tile's reuse is caught (in L1 or shared
+    memory), over the record's bytes."""
+    tiles = np.asarray(tiles, np.int64).reshape(-1, 2)
+    first, end = a_csr.indptr[tiles[:, 0]], a_csr.indptr[tiles[:, 1]]
+    counts = (end - first).astype(np.int64)
+    tile = np.repeat(np.arange(len(tiles)), counts)
+    ent = np.repeat(first - (np.cumsum(counts) - counts), counts) + \
+        np.arange(int(counts.sum()))
+    return len(np.unique(tile * a_csr.shape[1] + a_csr.indices[ent]))
+
+
+def csr_tile_paths(torch, op, vals, a_csr, label, x, transposed, bound_ms):
+    """Kernel 5 or 6 (by the dtype of ``vals``) on the CSR operator ``op``
+    at the operand ``x`` on every path of ``onehot.PATHS`` that runs the
+    short rows on tiles (``split``: the 64-row tiles; ``wide``: the wide
+    path's; a scratch tree's other paths), in turns (each a median of REPS
+    after the L2 flush), with their bits compared (a difference raises),
+    beside the library call, ``bound_ms`` (the device-memory bound) and
+    two bounds of the gathers of x over the fastest L2 rate seen
+    (:func:`l2_rate`'s plain streams or a path's own here): a record an
+    entry, and each tile's distinct records once (:func:`tile_records`,
+    where the path's tiles are known); the ``after`` hook of
+    :func:`spmm_rows`."""
+    from gcge_tpu_torch.ops import onehot
+
+    m = x.shape[0] if transposed else x.shape[1]
+    chosen = onehot.csr_path(op.plan, vals, m)
+    paths = [p for p in onehot.PATHS if p != "panel"]
+
+    def kernel(path):
+        return onehot.csr_spmm(op.rowptr, op.colidx, vals, x, transposed,
+                               op.plan, path)
+
+    first = kernel(paths[0])
+    for p in paths[1:]:
+        if not torch.equal(first, kernel(p)):
+            raise AssertionError(f"{label}: the {paths[0]} and the {p} "
+                                 f"path differ")
+    del first
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    times = {p: [] for p in paths}
+    for p in paths + paths[::-1]:
+        times[p].append(median_ms(torch, lambda: kernel(p), flush=flush))
+    lib_x = (x.T if transposed else x).contiguous()
+    lib = csr_tensor(torch, a_csr, vals.dtype)
+    lib_ms = median_ms(torch, lambda: torch.sparse.mm(lib, lib_x),
+                       flush=flush)
+    record = vals.element_size() * m
+    every = float(record * a_csr.nnz)
+    tiles = {"split": op.plan.tiles, "wide": getattr(op.plan, "wide", None)}
+    once = {p: float(record * tile_records(a_csr, tiles[p].cpu().numpy()))
+            for p in paths if tiles.get(p) is not None}
+    rate = max(l2_rate(torch), *(every / (1e-3 * min(t))
+                                 for t in times.values()))
+    parts = "; ".join(
+        f"{p} {t[0]:.4f} / {t[1]:.4f} ms ({lib_ms / min(t):.2f} times as "
+        f"fast as the library, {100 * bound_ms / min(t):.0f} % of the "
+        f"memory bound; gathers of a record an entry {every / 1e9:.3f} GB "
+        f"at {every / (1e-3 * min(t)) / 1e12:.2f} TB/s"
+        + ("" if p not in once else
+           f", each tile's distinct records {once[p] / 1e9:.3f} GB: "
+           f"{1e3 * once[p] / rate:.4f} ms at the L2 rate of "
+           f"{rate / 1e12:.2f} TB/s, "
+           f"{100 * 1e3 * once[p] / rate / min(t):.0f} % of that bound")
+        + ")" for p, t in times.items())
+    best = min(times, key=lambda p: min(times[p]))
+    print(f"csr tile paths {label}: the plan takes {chosen}; {parts}; "
+          f"library {lib_ms:.4f} ms; memory bound {bound_ms:.4g} ms; "
+          f"fastest {best}, {min(times['split']) / min(times[best]):.3f} "
+          f"times as fast as split; the same bits")
 
 
 def sync_check_amg(torch, a, hier):
@@ -1977,6 +2079,126 @@ def phase_pas_alone(torch):
                   lambda: sum(pas_solve(hier, NEV, tol_rel=1e-8, verbose=0,
                                         **PAS_KWARGS).sweeps))
     kernels_amg_levels(torch, KernelLog(torch), hier)
+
+
+class CsrCalls:
+    """Counts the calls of kernels 5 (f32) and 6 (f64) by operand of the
+    solves run inside it: ``onehot.csr_spmm`` (where ``CsrOperator`` reaches
+    the wrapper) is wrapped for its duration (a replay of the captured CG
+    stage calls no wrapper, as in :class:`DiaCalls`)."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        from gcge_tpu_torch.ops import onehot
+
+        self.spmm = spmm_fn = onehot.csr_spmm
+
+        def counted(rowptr, colidx, values, x, transposed=False, *args,
+                    **kwargs):
+            m = x.shape[0] if transposed else x.shape[1]
+            xs = (x.stride(1), x.stride(0)) if transposed else x.stride()
+            dense = x.is_contiguous() or x.T.is_contiguous()
+            what = ("dense" if dense else f"view, rows {xs[0]} apart") + \
+                f", strides {xs}, start {x.data_ptr() % 16} mod 16"
+            self.calls[str(x.dtype).split(".")[1], m, what] += 1
+            return spmm_fn(rowptr, colidx, values, x, transposed, *args,
+                           **kwargs)
+
+        onehot.csr_spmm = counted
+        return self
+
+    def __exit__(self, *exc):
+        from gcge_tpu_torch.ops import onehot
+
+        onehot.csr_spmm = self.spmm
+
+
+def irregular_params(op, nev: int):
+    """The parameters of the irregular solve at ``nev``: at nev=200 those
+    ``utils.cli.main`` gives it in phase 20 (block 40, the irregular cell's
+    inner budget of 60), at nev=50 phase 7's (``IRREGULAR_KWARGS``), each
+    with the command-line driver's defaults for the rest (the fused loop in
+    chunks of 5, the mixed inner CG); no printing."""
+    from gcge_tpu_torch import GCGParams
+    from gcge_tpu_torch.utils import cli
+
+    if nev == NEV:
+        return cli.driver_params(GCGParams(**IRREGULAR_KWARGS, verbose=0),
+                                 DEVICE, op)
+    argv = ["-nevConv", str(nev), "-blockSize", str(wide_classes(nev)[1]),
+            "-gcge_compW_cg_max_iter", str(IRREGULAR_KWARGS["cg_max_iter"])]
+    params, _ = cli.params_from_args(argv)
+    return cli.driver_params(dataclasses.replace(params, verbose=0), DEVICE,
+                             op, None, {cli._FLAG_MAP[tok][0] for tok in argv
+                                        if tok in cli._FLAG_MAP})
+
+
+def phase_csr(torch):
+    """``--csr``: kernels 5 and 6 alone on the irregular matrix (phase 7's
+    Delaunay matrix in RCM order, ``CsrOperator``), at every operand the
+    irregular nev=50 and nev=200 solves hand them (each solve's W coupling
+    ``V[:, m-bs:m]``, residual window ``ritz[:, 41:41+bs]`` at an odd
+    offset, refresh ``(n, bs)``, gathered window ``(n, 2 bs)``, initial
+    Rayleigh-Ritz ``V[:, :2 nev]``, and the CG's ``(bs, n)``), each against
+    its plain version beside the library call (:func:`csr_rows`), and on
+    each of the package's tile paths in turns beside the memory bound and
+    the gathers' bounds at the L2 rate of the run
+    (:func:`csr_tile_paths`).  Then the two solves
+    (:func:`irregular_params`): iterations, count, the first eigenvalues
+    and the calls of kernels 5 and 6 by operand; and the nev=200 solve
+    under torch.profiler (:func:`profile_solve`: busy, idle, kernel 5/6
+    device time).  ``--root DIR`` (a parent tree): its paths."""
+    import gcge_tpu_torch  # noqa: F401
+    from gcge_tpu_torch import gcg_solve, make_operator
+    from gcge_tpu_torch.ops import onehot
+
+    log = KernelLog(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    _, a_rcm = build_delaunay(MESH)
+    coo = a_rcm.tocoo()
+    n = a_rcm.shape[0]
+    t0 = time.perf_counter()
+    op = make_operator(coo.row, coo.col, coo.data, (n, n), device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"--csr: CsrOperator and its plan in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not isinstance(op, onehot.CsrOperator):
+        raise AssertionError(f"make_operator picked {type(op).__name__}")
+    for nev in (NEV, IRREGULAR_WIDE[0]):
+        m, bs = (2 * NEV + 2 * BS, BS) if nev == NEV else \
+            wide_classes(nev)[:2]
+        tag = f" irregular nev={nev}"
+        for vals, cases, tol, parents in (
+                (op.values, [f"V[:, {m - bs}:{m}]", f"ritz[:, 41:{41 + bs}]",
+                             f"(n, {bs})", f"(n, {2 * bs})",
+                             f"V[:, :{2 * nev}]"], 1e-14,
+                 {"V": m, "ritz": 2 * nev}),
+                (op.values.float(), [f"cg{bs}"], 1e-5, None)):
+            csr_rows(torch, log, op, vals, a_rcm, cases, tol, gen, tag,
+                     parents, functools.partial(csr_tile_paths, torch, op,
+                                                vals, a_rcm))
+    for nev in (NEV, IRREGULAR_WIDE[0]):
+        params = irregular_params(op, nev)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CsrCalls() as calls:
+            res = gcg_solve(op, None, params)
+        torch.cuda.synchronize()
+        print(f"--csr irregular nev={nev} solve (block "
+              f"{params.block_size}, fuse {params.fuse}): wall "
+              f"{time.perf_counter() - t0:.3f} s, {res.num_iter} "
+              f"iterations, nev_conv {res.nev_conv}, lam[:3] "
+              f"{res.eval[:3].tolist()}, lam[{nev - 1}] "
+              f"{float(res.eval[nev - 1])!r}, launches {read_counters()}")
+        for (dtype, width, what), count in sorted(calls.calls.items()):
+            print(f"--csr irregular nev={nev}: {dtype} m={width} {what}: "
+                  f"{count} calls")
+    params = irregular_params(op, IRREGULAR_WIDE[0])
+    profile_solve(torch, f"irregular nev={IRREGULAR_WIDE[0]} solve",
+                  lambda: gcg_solve(op, None, params).num_iter)
 
 
 # --------------------------------------------------------------------------
@@ -3221,7 +3443,8 @@ def phase_irregular_wide(torch, log, a, a_rcm, ev_irregular):
     (:func:`drive_irregular_wide`), first in the irregular phase's RCM
     ordering, ``a_rcm``, which the driver must pack as CSR; then kernels 6
     and 5 timed at the operands that solve hands them: ``V[:, 440:480]``
-    of the (n, 480) basis and the CG's ``(40, n)``.  Then in its mesh
+    of the (n, 480) basis and the CG's ``(40, n)``, on each tile path in
+    turns (:func:`csr_tile_paths`).  Then in its mesh
     ordering, ``a``, as a user would pass it: 119 diagonals, which the
     driver's RCM rule (``gcge_solve.py``'s, with its cap of 65 diagonals)
     keeps and ``make_operator`` packs as DIA (up to 128 diagonals); its
@@ -3238,14 +3461,16 @@ def phase_irregular_wide(torch, log, a, a_rcm, ev_irregular):
         raise AssertionError("irregular wide: the driver did not pack the "
                              "RCM-ordered A as CSR")
     path_launched(f"irregular nev={nev} (RCM ordering)", launches,
-                  ("gram", "expand", "csr_f32", "csr_f64", "mask_probe"))
+                  ("gram", "expand", "mask_probe") + csr_keys(bs))
     gen = torch.Generator(device=DEVICE).manual_seed(nev)
     op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
     tag = f" irregular nev={nev}"
-    csr_rows(torch, log, "csr_f64", op, op.values, a_perm,
-             [f"V[:, {m - bs}:{m}]"], 1e-14, gen, tag, {"V": m})
-    csr_rows(torch, log, "csr_f32", op, op.values.float(), a_perm,
-             [f"cg{bs}"], 1e-5, gen, tag)
+    for vals, case, tol, parents in (
+            (op.values, f"V[:, {m - bs}:{m}]", 1e-14, {"V": m}),
+            (op.values.float(), f"cg{bs}", 1e-5, None)):
+        csr_rows(torch, log, op, vals, a_perm, [case], tol, gen, tag,
+                 parents, functools.partial(csr_tile_paths, torch, op, vals,
+                                            a_perm))
     del op
     lines, wall_mesh, natural, _, _ = drive_irregular_wide(
         torch, log, a, "mesh ordering", ev_irregular)
@@ -3302,6 +3527,12 @@ def main(argv) -> int:
         phase_dia(torch, "path" in inspect.signature(
             spmm.dia_spmm).parameters)
         print(f"chip_smoke --dia ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
+    if "--csr" in argv:
+        phase_csr(torch)
+        print(f"chip_smoke --csr ({gcge_tpu_torch.__file__}): "
               f"{time.perf_counter() - T_START:.0f} s")
         print(card)
         return 0

@@ -7,7 +7,9 @@ the repository's ``benchmarks/``: each has a ``main(argv)`` and runs as
 * :mod:`.pallas_isolate` — the four modes of the sliced-Gram isolation
   kernel (kernel 9);
 * :mod:`.csr_levels`, which has no counterpart there — kernel 6 at the CSR
-  operators of the cube FEM pair's AMG hierarchy, and the PAS walls.
+  operators of the cube FEM pair's AMG hierarchy, and the PAS walls;
+* :mod:`.csr_irregular`, which has none either — kernels 5 and 6 at the
+  irregular solves' operands on each tile path.
 
 They print times; they are not a benchmark harness and define no workload.
 """

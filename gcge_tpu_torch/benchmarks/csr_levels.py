@@ -10,8 +10,10 @@ then times ``matvec`` of each CSR operator in it (the levels' A, P and R) on
 an ``(n, m)`` block of each width, standard normal from seed 0 (10: the
 V-cycle of the AMG-preconditioned GCG; 75: PAS's working block at nev=50),
 min and median over ``--trials`` of the mean of ``--reps`` calls, beside
-``torch.sparse.mm`` on the same CSR matrix; where the plan holds kernel 6's
-panels, also on the split and the panel path (``csr_spmm(..., path=)``).
+``torch.sparse.mm`` on the same CSR matrix; then on each path of
+``onehot.PATHS`` it takes (the split path, the wide path's tiles where the
+tree has them, the panel path where the plan holds panels;
+``csr_spmm(..., path=)``).
 Run from the root of an older tree unpacked with ``git archive`` (the
 script copied into its ``gcge_tpu_torch/benchmarks/``), it times that
 tree's kernels.  ``--solves`` then runs
@@ -80,15 +82,17 @@ def time_levels(hier, widths, device, trials: int, reps: int) -> None:
                       f"{med:.4f} ms (min {lo:.4f}), library {lib_med:.4f} "
                       f"ms, rel err {err:.2e}, equal bits twice {twice}",
                       flush=True)
-                if getattr(op.plan, "panels", None) is None:
+                paths = [p for p in onehot.PATHS if p != "panel"
+                         or getattr(op.plan, "panels", None) is not None]
+                if len(paths) < 2:
                     continue
-                for path in ("split", "panel"):
+                for path in paths:
                     lo, med = min_median_ms(
                         lambda: onehot.csr_spmm(op.rowptr, op.colidx,
                                                 op.values, x, False,
                                                 op.plan, path),
                         device, trials, reps)
-                    print(f"level {i} {what} m={m} {path} path: median "
+                    print(f"  {path} path, level {i} {what} m={m}: median "
                           f"{med:.4f} ms (min {lo:.4f})", flush=True)
 
 

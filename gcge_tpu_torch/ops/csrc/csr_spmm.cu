@@ -53,10 +53,23 @@
 //     VEC elements (16 bytes or one) a group, and carries its item through
 //     the row in CSR order, one fused multiply-add a term, kBatch gathers in
 //     flight before it adds them.  The column group runs fastest, unless y's
-//     rows are adjacent (a transposed layout): then the row does.  What holds
-//     it at the solve's operand (found by leaving parts out): the gathers of
-//     x; staging each distinct record once in shared memory, 4 or 16 gathers
-//     in flight, 512 threads and other budgets measured no faster.
+//     rows are adjacent (a transposed layout): then the row does.  Operands
+//     of more than onehot.CSR_WIDE_M columns run on the wide path's tiles
+//     (at most 512 entries and 32 rows: the same kernel, the same bits),
+//     which measured 3-23 % faster there and slower at m = 10 and 20.  What
+//     holds it (found by leaving parts out; PERF.md): at the irregular
+//     matrix's m = 10 operands and at its nev=200 operands (m = 40) the
+//     gathers of x take about a third of the time (aimed at two records,
+//     the CG's (40, n) ran 0.063 against 0.093 ms on the H100), and they
+//     reach L2 at about once per distinct record of a tile: L1 already
+//     holds a tile's reuse.  So staging each tile's distinct records in
+//     shared memory first measured slower at every operand (one block a
+//     tile and column slab, and a persistent grid in two stages; copies
+//     by cp.async and by the bulk copy engine; 64 to 1,024 threads; tiles
+//     of 32 to 128 rows and at most 384 distinct columns): the copies
+//     alone took about as long as the whole tile path, and so did the
+//     products from shared memory alone.  Also no faster at m = 10: 4 or
+//     16 gathers in flight, 512 threads, other budgets.
 //   * Split path (the AMG coarse levels' rows of 400-2,449 entries).  On the
 //     tile path a 1,024-entry tile held one or two such rows: m / VEC items
 //     (5 at m = 10 in f64) for a block of 256 threads, each a chain of up to

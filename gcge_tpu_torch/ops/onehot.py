@@ -14,8 +14,9 @@ on the host and sorted by (row, column).
   :func:`csr_spmm_reference`, the plain PyTorch version.  Both kernels run
   on a plan made once per matrix on the host (:func:`csr_plan`): rows of at
   most ``CSR_SPLIT`` entries in row tiles (:func:`csr_tiles`), longer rows
-  on whole blocks (:func:`csr_split`).  That part depends on ``rowptr``
-  alone and serves both.  Given ``colidx``, f64 ``values`` and the
+  on whole blocks (:func:`csr_split`); operands wider than ``CSR_WIDE_M``
+  columns on tiles of fewer rows (the wide path).  That part depends on
+  ``rowptr`` alone and serves both.  Given ``colidx``, f64 ``values`` and the
   columns as well, the plan of a matrix with long rows also holds its rows
   of more than ``PANEL_MIN`` entries as dense 16 x 8 tiles
   (:func:`csr_panels`), on which kernel 6 runs them on the f64 tensor cores
@@ -46,9 +47,11 @@ from gcge_tpu_torch.ops.operators import LinearOperator, _np_dtype
 from gcge_tpu_torch.ops.spmm import (empty_in_order_of, in_order_of,
                                      row_fast, vec_width)
 
-# launches of the CUDA kernels since the last reset, by kernel
+# launches of the CUDA kernels since the last reset, by kernel; and of
+# kernels 5 and 6 on the wide path's tiles (``_wide``: their share of
+# ``csr_f32`` and ``csr_f64``)
 LAUNCHES = {"csr_f32": 0, "csr_f64": 0, "csr_f64_panel": 0,
-            "mask_probe": 0}
+            "mask_probe": 0, "csr_f32_wide": 0, "csr_f64_wide": 0}
 
 _INT32_MAX = 2 ** 31 - 1
 MASK_SHAPE = (8, 128)
@@ -81,7 +84,15 @@ PANEL_FILL = 0.2
 # each a warp, whose sums a second launch adds in chunk order
 PANEL_NARROW = 4096
 PANEL_CHUNK = 512
-PATHS = ("split", "panel")
+# the wide path of kernels 5 and 6: operands of more than CSR_WIDE_M columns
+# run on row tiles of at most CSR_WIDE_BUDGET entries and CSR_WIDE_ROWS rows,
+# on the same kernels (on an H100, PERF.md: 3-6 % faster than the 64-row
+# tiles at the irregular nev=200 solve's m = 40 operands, 13-23 % at m = 80
+# and 100; at m = 20 and at some m = 10 operands slower)
+CSR_WIDE_M = 20
+CSR_WIDE_BUDGET = 512
+CSR_WIDE_ROWS = 32
+PATHS = ("split", "panel", "wide")
 
 
 def pack_csr(rows, cols, vals, shape):
@@ -268,6 +279,7 @@ class CsrPlan:
     nsplit: int
     nmulti: int
     slots: int            # rows of scratch: the parts of those rows
+    wide: torch.Tensor    # (nwide, 2) int32: the wide path's row tiles
     panels: CsrPanels | None = None   # kernel 6's panel path (f64 only)
 
 
@@ -276,8 +288,10 @@ def csr_plan(rowptr: torch.Tensor, colidx: torch.Tensor | None = None,
              n_cols: int | None = None) -> CsrPlan:
     """The launch plan of kernels 5 and 6 for ``rowptr``, on its device (the
     same for both: it depends on ``rowptr`` alone): the row tiles of
-    :func:`csr_tiles` for the rows of at most ``CSR_SPLIT`` entries, and the
-    split blocks of :func:`csr_split` for the longer rows.  Given ``colidx``,
+    :func:`csr_tiles` for the rows of at most ``CSR_SPLIT`` entries, at
+    ``CSR_BUDGET`` and ``CSR_MAX_ROWS`` and (``wide``) at
+    ``CSR_WIDE_BUDGET`` and ``CSR_WIDE_ROWS``, and the split blocks of
+    :func:`csr_split` for the longer rows.  Given ``colidx``,
     float64 ``values`` and the matrix's ``n_cols`` too, and where there are
     split rows, ``panels`` holds the rows of more than ``PANEL_MIN`` entries
     for kernel 6's panel path (:func:`csr_panels`, reading both to the
@@ -303,7 +317,10 @@ def csr_plan(rowptr: torch.Tensor, colidx: torch.Tensor | None = None,
                    CSR_BUDGET,
                    torch.as_tensor(np.concatenate([blocks, multi]),
                                    device=dev),
-                   len(blocks), len(multi), int(multi[:, 2].sum()), panels)
+                   len(blocks), len(multi), int(multi[:, 2].sum()),
+                   torch.as_tensor(csr_tiles(rp, CSR_WIDE_BUDGET,
+                                             CSR_WIDE_ROWS), device=dev),
+                   panels)
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,16 +329,20 @@ def _sm_count(index: int) -> int:
 
 
 def csr_path(plan: CsrPlan, values: torch.Tensor, m: int) -> str:
-    """The path on which :func:`csr_spmm` runs a matrix's long rows, given
-    no ``path``: ``"panel"`` where the plan holds panels for these
-    ``values``, m is at least ``CSR_PANEL_M`` and the tiles are at least
-    ``PANEL_FILL`` full, else ``"split"``.  The choice is the matrix's: a
-    shard of its rows with its own plan may fill its tiles otherwise."""
+    """The path on which :func:`csr_spmm` runs a matrix, given no ``path``:
+    ``"panel"`` (the long rows on panels) where the plan holds panels for
+    these ``values``, m is at least ``CSR_PANEL_M`` and the tiles are at
+    least ``PANEL_FILL`` full; else ``"wide"`` (the short rows on the wide
+    tiles, the long rows split) where m is above ``CSR_WIDE_M``; else
+    ``"split"`` (the short rows on the row tiles, the long rows split).
+    The panel choice is the matrix's: a shard of its rows with its own plan
+    may fill its tiles otherwise; the wide choice is m's alone."""
     pn = plan.panels
     held = pn is not None and values.dtype == torch.float64 and \
         pn.values_ptr == values.data_ptr()
-    return "panel" if held and m >= CSR_PANEL_M and pn.fill >= PANEL_FILL \
-        else "split"
+    if held and m >= CSR_PANEL_M and pn.fill >= PANEL_FILL:
+        return "panel"
+    return "wide" if m > CSR_WIDE_M else "split"
 
 
 def panel_launch(npanels: int, m: int, sms: int) -> tuple[int, int]:
@@ -365,14 +386,14 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
     memory order of ``x``: like ``torch.empty_like(x)`` for a dense ``x``,
     else contiguous in the logical layout (``spmm.empty_in_order_of``).
     ``plan``: the launch plan for this ``rowptr`` (:func:`csr_plan`), which
-    a product on a card needs.  ``path``: None runs the panels' rows on the
-    panel path where the plan holds them for these ``values``, m is at
-    least ``CSR_PANEL_M`` and the tiles are at least ``PANEL_FILL`` full,
-    else the long rows on the split path; ``"split"`` or ``"panel"`` forces
-    one (measurements and tests; ``"panel"`` raises ``ValueError`` where
-    the plan holds no panels for ``values``).  The two give different bits
-    (another summation order), each the same on every launch and in a shard
-    of rows that takes the same path."""
+    a product on a card needs.  ``path``: None takes :func:`csr_path`'s
+    choice; ``"split"`` (the row tiles and the split path), ``"wide"`` (the
+    wide path's tiles and the split path) or ``"panel"`` forces one
+    (measurements and tests; ``"panel"`` raises ``ValueError`` where the
+    plan holds no panels for ``values``).  The split and the wide path give
+    the same bits (a row's sum is the same chain wherever its tile ends);
+    the panel path others (another summation order), each the same on every
+    launch and in a shard of rows that takes the same path."""
     if path is not None and path not in PATHS:
         raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
     if x.dim() != 2:
@@ -423,15 +444,17 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
         raise ValueError("csr_spmm: the plan holds no panels for these "
                          "values (csr_plan(rowptr, colidx, values, n_cols), "
                          "f64)")
-    panel = (path or csr_path(plan, values, m)) == "panel"
+    chosen = path or csr_path(plan, values, m)
+    panel, wide = chosen == "panel", chosen == "wide"
     item = x.element_size()
     vec = vec_width(m, (xs_i, xs_j, x.data_ptr()), (ys_i, ys_j, y.data_ptr()),
                     item=item)
     copy16 = colidx.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
-    # the row tiles and split blocks of the rows the panel path leaves; the
-    # partial sums of the rows of several parts, added by the kernel's
-    # second launch
-    tiles = pn.tiles if panel else plan.tiles
+    # the row tiles (the wide path's, or those of the rows the panel path
+    # leaves) and split blocks; the partial sums of the rows of several
+    # parts, added by the kernel's second launch
+    tiles, budget = (plan.wide, CSR_WIDE_BUDGET) if wide else \
+        (pn.tiles if panel else plan.tiles, plan.budget)
     nsplit, nmulti = (0, 0) if panel else (plan.nsplit, plan.nmulti)
     scratch = torch.empty((plan.slots, m), dtype=x.dtype, device=x.device) \
         if nmulti else None
@@ -442,7 +465,7 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
             rowptr.data_ptr(), colidx.data_ptr(), values.data_ptr(), nnz,
-            tiles.data_ptr(), tiles.shape[0], plan.budget,
+            tiles.data_ptr(), tiles.shape[0], budget,
             plan.split.data_ptr(), nsplit, nmulti,
             None if scratch is None else scratch.data_ptr(), m,
             x.data_ptr(), xs_i, xs_j, y.data_ptr(), ys_i, ys_j, vec,
@@ -465,6 +488,8 @@ def csr_spmm(rowptr: torch.Tensor, colidx: torch.Tensor,
             _build.check("gcge_csr_panel_f64", err)
             LAUNCHES["csr_f64_panel"] += 1
     LAUNCHES[counter] += 1
+    if wide:
+        LAUNCHES[counter + "_wide"] += 1
     return y
 
 

@@ -849,6 +849,119 @@ def test_csr_panel_path_only_where_the_plan_takes_it(cuda):
                         plan, "panel")
 
 
+def _delaunay_rcm_csr(g: int):
+    """The irregular cell's matrix at a g^3 Delaunay mesh in RCM order, as
+    CSR arrays."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    a = _delaunay(g)
+    perm = reverse_cuthill_mckee(a, symmetric_mode=True)
+    a = a[perm][:, perm].tocsr()
+    return (a.indptr.astype(np.int32), a.indices.astype(np.int32), a.data)
+
+
+def _irregular_wide_operand(kind, n, dtype, device, seed):
+    """The irregular nev=200 solve's operands of kernels 5 and 6, as ``(x,
+    transposed)``: the CG's ``(40, n)`` with strides (1, 40) (``cg``),
+    ``V[:, 440:480]`` of an (n, 480) basis (``V``), the residual window
+    ``ritz[:, 41:81]`` of an (n, 400) Ritz block at an odd offset (rows
+    8-byte aligned only, ``ritz``), the contiguous refresh ``(n, 40)``, and
+    the initial Rayleigh-Ritz ``V[:, :400]`` (``V400``)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, dtype=dtype, device=device)
+
+    return {"cg": lambda: (randn(n, 40).T, True),
+            "V": lambda: (randn(n, 480)[:, 440:480], False),
+            "ritz": lambda: (randn(n, 400)[:, 41:81], False),
+            "(n, 40)": lambda: (randn(n, 40), False),
+            "V400": lambda: (randn(n, 480)[:, :400], False)}[kind]()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kind", ["cg", "V", "ritz", "(n, 40)", "V400"])
+@pytest.mark.parametrize("extra", ["mesh", "split rows"])
+def test_csr_wide_path_has_the_tile_bits(cuda, dtype, tol, kind, extra):
+    """The wide path of kernels 5 and 6 (the same kernels on tiles of at
+    most CSR_WIDE_ROWS rows) on the irregular cell's matrix (a 20^3
+    Delaunay mesh in RCM order, and with rows of the split path added):
+    the 64-row tiles' bits, the same bits on two launches and in a
+    ``window_csr`` shard (a rank's rows of a four-rank row mesh, its
+    columns re-indexed into its halo window), within tol of max |A||x| of
+    the plain version; the wrapper takes it by itself at these widths, and
+    its launch counters move."""
+    from gcge_tpu_torch.parallel import dist_ops
+    from gcge_tpu_torch.parallel.mesh import RowMesh
+
+    rowptr, colidx, values = _delaunay_rcm_csr(20)
+    n = len(rowptr) - 1
+    if extra == "split rows":
+        rng = np.random.default_rng(4)
+        lengths = np.diff(rowptr)
+        lengths[[10, n // 2]] = [onehot.CSR_SPLIT + 40, onehot.CSR_PART + 3]
+        cols = [np.sort(rng.choice(n, d, replace=False)) if r in
+                (10, n // 2) else colidx[rowptr[r]:rowptr[r + 1]]
+                for r, d in enumerate(lengths)]
+        colidx = np.concatenate(cols).astype(np.int32)
+        rowptr = np.r_[0, np.cumsum(lengths)].astype(np.int32)
+        values = rng.standard_normal(len(colidx))
+    pad = -n % 4                                # four equal row blocks
+    rowptr = np.r_[rowptr, np.full(pad, rowptr[-1])].astype(np.int32)
+    n += pad
+    op = onehot.CsrOperator(torch.as_tensor(rowptr, device=cuda),
+                            torch.as_tensor(colidx, device=cuda),
+                            torch.as_tensor(values, device=cuda), n)
+    vals = op.values.to(dtype)
+    plan = op.plan
+    assert (plan.nsplit > 0) == (extra == "split rows")
+    x, transposed = _irregular_wide_operand(kind, n, dtype, cuda, 7)
+    m = x.shape[0] if transposed else x.shape[1]
+    assert onehot.csr_path(plan, vals, m) == "wide"
+    key = "csr_f64" if dtype == torch.float64 else "csr_f32"
+
+    def run(path=None):
+        return onehot.csr_spmm(op.rowptr, op.colidx, vals, x, transposed,
+                               plan, path)
+
+    before = dict(onehot.LAUNCHES)
+    got, again = run(), run("wide")
+    assert onehot.LAUNCHES[key] == before[key] + 2
+    assert onehot.LAUNCHES[key + "_wide"] == before[key + "_wide"] + 2
+    assert torch.equal(got, again) and torch.equal(got, run("split"))
+    assert onehot.LAUNCHES[key + "_wide"] == before[key + "_wide"] + 2
+    assert _follows(got, x)
+    ref = onehot.csr_spmm_reference(op.rowptr, op.colidx, vals, x,
+                                    transposed)
+    scale = float(onehot.csr_spmm_reference(op.rowptr, op.colidx,
+                                            vals.abs(), x.abs(),
+                                            transposed).max())
+    assert float((got - ref).abs().max()) <= tol * scale
+    # a rank's rows of a four-rank mesh, as the sharded operator holds them
+    whole = got.T if transposed else got
+    xn = x.T if transposed else x
+    rp = rowptr.astype(np.int64)
+    for rank in range(4):
+        mesh = RowMesh(None, rank, 4, cuda, (0, 1, 2, 3))
+        r0, ln = mesh.block(n)
+        cols = colidx[rp[r0]:rp[r0 + ln]]
+        hl, hr = r0 - min(cols.min(), r0), max(cols.max(), r0 + ln - 1) - \
+            (r0 + ln - 1)
+        shard = dist_ops.window_csr(mesh, rp[r0:r0 + ln + 1] - rp[r0], cols,
+                                    values[rp[r0]:rp[r0 + ln]], n, hl, hr,
+                                    torch.float64).local
+        window = torch.zeros((ln + hl + hr, m), dtype=dtype, device=cuda)
+        lo, hi = max(r0 - hl, 0), min(r0 + ln + hr, n)
+        window[lo - (r0 - hl):hi - (r0 - hl)] = xn[lo:hi]
+        part = onehot.csr_spmm(shard.rowptr, shard.colidx,
+                               shard.values.to(dtype),
+                               window.T if transposed else window,
+                               transposed, shard.plan)
+        part = part.T if transposed else part
+        assert torch.equal(part, whole[r0:r0 + ln]), rank
+
+
 def test_csr_f64_kernel_on_unaligned_arrays_and_needs_a_plan(cuda):
     """Kernel 6 takes colidx and values that do not start on 16 bytes
     (4- and 8-byte copies), and refuses to run without its row tiles."""

@@ -789,9 +789,10 @@ def test_csr_panels_only_with_split_rows_and_f64_values():
     v = torch.as_tensor(values)
     plan = onehot.csr_plan(rp, ci, v, 500)
     full = plan.panels.fill >= onehot.PANEL_FILL
-    assert onehot.csr_path(plan, v, 75) == ("panel" if full else "split")
+    # past CSR_WIDE_M the rows the panels do not take run on the wide path
+    assert onehot.csr_path(plan, v, 75) == ("panel" if full else "wide")
     assert onehot.csr_path(plan, v, 10) == "split"
-    assert onehot.csr_path(plan, v.clone(), 75) == "split"
+    assert onehot.csr_path(plan, v.clone(), 75) == "wide"
     assert [onehot.panel_chunks(n) for n in (1, 512, 513, 1_350, 4_096,
                                              4_097, 17_588)] == \
         [1, 1, 2, 3, 8, 1, 1]
@@ -1190,3 +1191,90 @@ def test_csr_plan_serves_both_dtypes(case):
     for item, warps, lanes in ((4, 4, 4), (8, 8, 2)):
         assert plan.budget * (4 + item) <= 48 * 1024
         assert 2 * warps * 32 * lanes * item <= plan.budget * (4 + item)
+
+
+
+def _delaunay_rcm(g: int = 10):
+    """The P1 stiffness matrix of a Delaunay mesh of g^3 points (seed 1) in
+    RCM order, as scipy CSR: the irregular cell's shape at a small size."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from gcge_tpu_torch.io.fem import assemble_p1, random_delaunay_mesh
+
+    rows, cols, av, _, n = assemble_p1(*random_delaunay_mesh(g ** 3, seed=1))
+    a = sps.coo_matrix((av, (rows, cols)), shape=(n, n)).tocsr()
+    perm = reverse_cuthill_mckee(a, symmetric_mode=True)
+    return a[perm][:, perm].tocsr()
+
+
+def _wide_cases():
+    cases = dict(_plan_cases())
+    cases["delaunay 10^3 rcm"] = _delaunay_rcm().indptr
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_wide_cases()))
+def test_csr_plan_wide_tiles_cover_each_row_once(case):
+    """The wide path's tiles (``plan.wide``): csr_tiles' at CSR_WIDE_BUDGET
+    and CSR_WIDE_ROWS, every row of at most CSR_SPLIT entries in exactly one
+    of them, in order and within the budget, the longer rows left to the
+    same split blocks as the 64-row tiles leave them to."""
+    c = _wide_cases()[case]
+    rowptr = c.astype(np.int32) if case.startswith("delaunay") else \
+        _rowptr(np.asarray(c, np.int64))
+    tiles, blocks, _, plan = _plan_of(rowptr)
+    wide = plan.wide.numpy()
+    assert plan.wide.dtype == torch.int32
+    np.testing.assert_array_equal(
+        wide, onehot.csr_tiles(rowptr, onehot.CSR_WIDE_BUDGET,
+                               onehot.CSR_WIDE_ROWS))
+    rp = rowptr.astype(np.int64)
+    covered = np.zeros(len(rp) - 1, np.int64)
+    for r0, r1 in wide:
+        covered[r0:r1] += 1
+        assert -(-rp[r1] // 4) * 4 - rp[r0] // 4 * 4 <= onehot.CSR_WIDE_BUDGET
+        assert 1 <= r1 - r0 <= onehot.CSR_WIDE_ROWS
+    assert np.all(wide[1:, 0] >= wide[:-1, 1])
+    np.testing.assert_array_equal(covered, np.diff(rp) <= onehot.CSR_SPLIT)
+    in_tiles = np.zeros(len(rp) - 1, np.int64)
+    for r0, r1 in tiles:
+        in_tiles[r0:r1] += 1
+    np.testing.assert_array_equal(covered, in_tiles)
+    assert not covered[blocks[:, 0]].any() if len(blocks) else True
+
+
+def test_csr_wide_budget_fits_the_kernels():
+    """The wide tiles stage no more than a tile of the 64-row plan (a budget
+    the kernels take: a positive multiple of 4 whose entries fit 48 KB in
+    both types), and every row the split path leaves to tiles fits it."""
+    budget = onehot.CSR_WIDE_BUDGET
+    assert 0 < budget <= onehot.CSR_BUDGET and budget % 4 == 0
+    assert onehot.CSR_SPLIT <= budget - 3
+    assert 0 < onehot.CSR_WIDE_ROWS <= onehot.CSR_MAX_ROWS
+
+
+@pytest.mark.parametrize("m,want", [(1, "split"), (10, "split"),
+                                    (20, "split"), (21, "wide"),
+                                    (40, "wide"), (75, "wide"),
+                                    (400, "wide")])
+def test_csr_path_takes_the_wide_path_past_csr_wide_m(m, want):
+    """csr_path by m: the 64-row tiles up to CSR_WIDE_M columns, the wide
+    path's above, in both types, with or without long rows; the panel path
+    where the plan holds full panels for the values (m of at least
+    CSR_PANEL_M) before either."""
+    rowptr = _rowptr([3, 5, 0, 7])
+    cols = np.array([0, 1, 2, 0, 1, 2, 3, 4, 0, 1, 2, 3, 4, 5, 6], np.int32)
+    values = torch.ones(len(cols), dtype=torch.float64)
+    plan = onehot.csr_plan(torch.as_tensor(rowptr), torch.as_tensor(cols),
+                           values, 7)
+    assert onehot.csr_path(plan, values, m) == want
+    assert onehot.csr_path(plan, values.float(), m) == want
+    long_rp, long_ci, long_v = _banded_csr([400, 20, 300], 500, 1)
+    v = torch.as_tensor(long_v)
+    long_plan = onehot.csr_plan(torch.as_tensor(long_rp),
+                                torch.as_tensor(long_ci), v, 500)
+    full = long_plan.panels.fill >= onehot.PANEL_FILL
+    panel = full and m >= onehot.CSR_PANEL_M
+    assert onehot.csr_path(long_plan, v, m) == ("panel" if panel else want)
+    assert onehot.csr_path(long_plan, v.float(), m) == want

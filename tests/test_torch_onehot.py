@@ -68,17 +68,26 @@ def _csr_tensors(rows, cols, vals, n, dtype):
 # ---- csr_spmm_reference ----------------------------------------------------
 
 
-@pytest.mark.parametrize("n,k,band,cfg", [
-    (1000, 7, 300, (256, 256, 128)),
-    (513, 11, 80, (256, 512, 128)),      # n not a tile multiple
-])
-def test_csr_spmm_f32_matches_scipy_and_onehot_kernel(n, k, band, cfg):
+# the parity cases: (n, k, band, tiles of the JAX kernel, m), m = 6 under
+# their first ids, and m = 40, the irregular nev=200 solve's block (the
+# staged path's width on a card)
+_PARITY = [
+    pytest.param(1000, 7, 300, (256, 256, 128), 6, id="1000-7-300-cfg0"),
+    pytest.param(513, 11, 80, (256, 512, 128), 6,   # n not a tile multiple
+                 id="513-11-80-cfg1"),
+    pytest.param(1000, 7, 300, (256, 256, 128), 40, id="1000-7-300-cfg0-m40"),
+    pytest.param(513, 11, 80, (256, 512, 128), 40, id="513-11-80-cfg1-m40"),
+]
+
+
+@pytest.mark.parametrize("n,k,band,cfg,m", _PARITY)
+def test_csr_spmm_f32_matches_scipy_and_onehot_kernel(n, k, band, cfg, m):
     """f32, both layouts: within 1e-5 of max |A||x| of scipy's f64 product
     and of the JAX one-hot f32 kernel (sums of <= 11 f32 terms a row)."""
     rng = np.random.default_rng(n)
     rows, cols, vals = _random_banded(rng, n, k, band)
     a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    x = rng.standard_normal((n, 6)).astype(np.float32)
+    x = rng.standard_normal((n, m)).astype(np.float32)
     scale = (abs(a) @ np.abs(x).astype(np.float64)).max()
     jop = JOneHot.from_coo(rows, cols, vals, (n, n), r_tile=cfg[0],
                            w_tile=cfg[1], j_max=cfg[2])
@@ -86,25 +95,23 @@ def test_csr_spmm_f32_matches_scipy_and_onehot_kernel(n, k, band, cfg):
     rowptr, colidx, values = _csr_tensors(rows, cols, vals, n, torch.float32)
     y = csr_spmm(rowptr, colidx, values, _t(x)).numpy()
     yt = csr_spmm(rowptr, colidx, values, _t(x.T.copy()), True).numpy()
-    assert y.dtype == np.float32 and yt.shape == (6, n)
+    assert y.dtype == np.float32 and yt.shape == (m, n)
     ref = a @ x.astype(np.float64)
     assert np.abs(y - ref).max() <= 1e-5 * scale
     assert np.abs(yt.T - ref).max() <= 1e-5 * scale
     assert np.abs(yt - y_j).max() <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("n,k,band,cfg", [
-    (1000, 7, 300, (256, 256, 128)),
-    (513, 11, 80, (256, 512, 128)),
-])
-def test_csr_spmm_f64_matches_scipy_and_onehot_df64_kernel(n, k, band, cfg):
+@pytest.mark.parametrize("n,k,band,cfg,m", _PARITY)
+def test_csr_spmm_f64_matches_scipy_and_onehot_df64_kernel(n, k, band, cfg,
+                                                           m):
     """f64, both layouts: within 1e-14 of max |A||x| of scipy, and within
     1e-11 of the scale of the JAX df64 one-hot kernel (that kernel's own
     limit in tests/test_onehot.py)."""
     rng = np.random.default_rng(n + 1)
     rows, cols, vals = _random_banded(rng, n, k, band)
     a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    x = rng.standard_normal((n, 6))
+    x = rng.standard_normal((n, m))
     ref = a @ x
     jop = JOneHot.from_coo(rows, cols, vals, (n, n), r_tile=cfg[0],
                            w_tile=cfg[1], j_max=cfg[2])
@@ -373,3 +380,22 @@ def test_operator_from_numpy_hybrid():
         1e-13 * np.abs(ref).max()
     state["ell"] = None
     assert operator_from_numpy(state, device="cpu").rest is None
+
+
+
+def test_csr_spmm_wide_path_on_the_cpu():
+    """On the CPU every path runs the plain version (the same product);
+    an unknown path raises."""
+    rng = np.random.default_rng(9)
+    n = 700
+    rows, cols, vals = _random_banded(rng, n, 9, 60)
+    rowptr, colidx, values = _csr_tensors(rows, cols, vals, n, torch.float64)
+    plan = onehot.csr_plan(rowptr, colidx, values, n)
+    x = _t(rng.standard_normal((n, 40)))
+    ref = csr_spmm_reference(rowptr, colidx, values, x).numpy()
+    for path in (None, "split", "wide"):
+        np.testing.assert_array_equal(
+            csr_spmm(rowptr, colidx, values, x, False, plan, path).numpy(),
+            ref)
+    with pytest.raises(ValueError, match="path"):
+        csr_spmm(rowptr, colidx, values, x, False, plan, "staged")

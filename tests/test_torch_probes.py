@@ -20,7 +20,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from gcge_tpu_torch.benchmarks import csr_levels, df64_push, pallas_isolate
+from gcge_tpu_torch.benchmarks import (csr_irregular, csr_levels, df64_push,
+                                       pallas_isolate)
 from gcge_tpu_torch.ops import probes
 
 torch.set_num_threads(2)
@@ -302,3 +303,26 @@ def test_csr_levels_main_cpu(capsys):
     for r in rows:
         assert r.endswith("equal bits twice True")
         assert float(r.split("rel err ")[1].split(",")[0]) < 1e-13
+
+
+def test_csr_irregular_main_cpu(capsys):
+    """The irregular-operand script on a small Delaunay matrix: a row for
+    each operand of the nev=50 and nev=200 solves, each on every tile path
+    of ``onehot.PATHS`` with equal bits, agreeing with torch.sparse.mm to
+    rounding (f32 to its precision), the plan's choice by width."""
+    from gcge_tpu_torch.ops import onehot
+
+    assert csr_irregular.main(["--device", "cpu", "--mesh", "8", "--reps",
+                               "1"]) == 0
+    out = capsys.readouterr().out
+    rows = [line for line in out.splitlines() if line.startswith("nev=")]
+    assert "device: cpu" in out and len(rows) == 12
+    for r in rows:
+        assert r.endswith("paths equal bits True")
+        for path in onehot.PATHS:
+            assert (f"; {path} " in r) == (path != "panel")
+        tol = 1e-6 if "float32" in r else 1e-13
+        assert float(r.split("rel err ")[1].split(";")[0]) < tol
+        m = int(r.split(" m=")[1].split()[0])
+        want = "wide" if m > onehot.CSR_WIDE_M else "split"
+        assert f"the plan takes {want};" in r
