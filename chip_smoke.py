@@ -6,8 +6,10 @@
     python3 chip_smoke.py --dia [--root DIR]
     python3 chip_smoke.py --pas [--root DIR]
     python3 chip_smoke.py --csr [--root DIR]
+    python3 chip_smoke.py --eigh [--root DIR]
 
-Nine kernels, four solves (the headline and the irregular problem, each by
+Ten kernels (the nine TPU kernels' counterparts and the Jacobi sweeps of
+the projected eigensolvers), four solves (the headline and the irregular problem, each by
 the phased and by the fused loop), the two kernel measurement scripts, the
 multilevel path on the cube FEM pair (GCG preconditioned by an AMG V-cycle,
 standard and generalized, and the PAS solver), a check that a fused chunk
@@ -194,6 +196,29 @@ Phases, each of which raises on failure:
     bits.  Then the same matrix in its mesh ordering through the driver,
     under the same gates, with the layout the driver chose and its wall
     beside the first run's.
+
+21. Jacobi kernel — right after phase 10: the sweeps of
+    ``ops.eighs.jacobi_sweeps`` against its plain version (the same bits
+    and sweep counts), ``eigvalsh`` (eigenvalues within 1e-12 ||H||) and
+    ``U^T U = I`` to 1e-12, timed beside ``torch.linalg.eigh`` of the same
+    matrices: one matrix of 120 from the card's eigh (the 'jacobi' path's
+    operand), of 120, 80, 160 and 240 from a warm start 1e-6 off, 64
+    blocks of 64 (the cluster stage's batch) and 8 blocks of 480 (the
+    closing stage's batch at nev=200);
+22. projected eigensolvers on the main path — the headline with
+    ``rr_backend='jacobi'``, phased and ``fuse=20``, and (after phase
+    19's nev=200 row) the nev=200 sweep row with ``rr_backend='newton'``
+    and the structural warm start, fused and phased: the headline gates,
+    eigenvalues within 1e-9 of the 'auto' solve, iterations, waits and
+    Jacobi launches an iteration, the warm starts taken, the Newton
+    eighs' closing rounds, walls in turns with 'auto', and one fused chunk
+    of each under the sync check.
+
+``--eigh`` runs phase 1, the nev=400 'auto' row (its InitializeX time:
+the 800-column ``orth_block`` through ``eigh_newton``) and, in a tree
+that has the ported eighs, phase 21 and phase 22's 'newton' row at
+nev=400 (m=960); ``--root DIR`` as for ``--tall`` (a parent: its 'auto'
+row).
 
 ``--tall`` runs phase 1 and then kernels 3 and 4 alone: every class of
 the headline and the two wide solves, timed as in phases 2 and 19, the two
@@ -545,9 +570,10 @@ def spmm_rows(torch, log, key, apply, plain, n, nnz, matrix_bytes, lib,
 
 
 def launch_counters():
-    from gcge_tpu_torch.ops import onehot, osgemm, probes, spmm
+    from gcge_tpu_torch.ops import eighs, onehot, osgemm, probes, spmm
 
-    return (spmm.LAUNCHES, osgemm.LAUNCHES, onehot.LAUNCHES, probes.LAUNCHES)
+    return (spmm.LAUNCHES, osgemm.LAUNCHES, onehot.LAUNCHES, probes.LAUNCHES,
+            getattr(eighs, "LAUNCHES", {}))
 
 
 def reset_counters():
@@ -2078,7 +2104,22 @@ def phase_pas_alone(torch):
     profile_solve(torch, "PAS solve (iterations: sweeps)",
                   lambda: sum(pas_solve(hier, NEV, tol_rel=1e-8, verbose=0,
                                         **PAS_KWARGS).sweeps))
-    kernels_amg_levels(torch, KernelLog(torch), hier)
+    log = KernelLog(torch)
+    kernels_amg_levels(torch, log, hier)
+    # kernel 6 at PAS's (n, 75) on the CSR operators without split rows
+    # (the plan's path there, the wide tiles), with the plain
+    # version, the bound and the library call
+    from gcge_tpu_torch.ops import onehot
+
+    gen = torch.Generator(device=DEVICE).manual_seed(PAS_WIDTH)
+    for i, lv in enumerate(hier.levels):
+        for what, op in (("A", lv.a_op), ("P", lv.p_op), ("R", lv.r_op)):
+            if isinstance(op, onehot.CsrOperator) and not op.plan.nsplit:
+                path = onehot.csr_path(op.plan, op.values, PAS_WIDTH) \
+                    if hasattr(onehot, "csr_path") else "plan's"
+                csr_operator_row(torch, log, op,
+                                 f"AMG level {i} {what} ({path} path)", gen,
+                                 [PAS_WIDTH])
 
 
 class CsrCalls:
@@ -3271,7 +3312,7 @@ def phase_wide(torch, log, nev: int):
         raise AssertionError(f"{tag}: nev_conv {res.nev_conv} < {nev}")
     stencil_gates(tag, a_csr, nx, nev, res.eval, res.evec)
     path_launched(tag, launches, ("dia_f64", "dia_f32", "gram", "expand"))
-    return launches
+    return launches, res.eval
 
 
 def write_mtx(path, rows, cols, vals, n):
@@ -3485,6 +3526,327 @@ def phase_irregular_wide(torch, log, a, a_rcm, ev_irregular):
     return launches, natural
 
 
+# --------------------------------------------------------------------------
+# the projected eigensolvers: the Jacobi kernel, and the 'jacobi' and
+# 'newton' backends on the main path
+# --------------------------------------------------------------------------
+
+# the sweep cap of the kernel rows: eigh_newton's cluster-stage polish
+JACOBI_SWEEPS = 4
+# the production width at which the default run drives the 'newton' backend
+# with the structural warm start (--eigh adds nev=400)
+EIGH_NEV = 200
+
+
+def jacobi_operand(torch, me: int, batch: int, noise: float, seed: int):
+    """``(h, u0, h1)`` for a kernel row: ``batch`` random symmetric ``h`` of
+    order ``me`` on the card, ``u0`` their eigenvectors from the card's
+    ``eigh`` (as the solves' polish gets them) rotated by a random skew of
+    ``noise`` (the TPU's f32-accurate back-transform is 1e-6), and the
+    kernel's operand ``h1 = u0^T h u0``, symmetrized, as ``jacobi_polish``
+    builds it."""
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    a = torch.randn((batch, me, me), generator=g, **f64)
+    h = a + a.transpose(-2, -1)
+    _, u0 = torch.linalg.eigh(h)
+    if noise:
+        s = noise * torch.randn((batch, me, me), generator=g, **f64)
+        u0 = u0 @ torch.linalg.qr(torch.eye(me, **f64)
+                                  + 0.5 * (s - s.transpose(-2, -1))).Q
+    h1 = u0.transpose(-2, -1) @ h @ u0
+    return h, u0, 0.5 * (h1 + h1.transpose(-2, -1))
+
+
+def phase_kernels_jacobi(torch, log):
+    """The Jacobi kernel against its plain version (bit for bit, the same
+    sweep counts) and beside ``torch.linalg.eigh`` of the same matrices (the
+    one library call for the same function), at the shapes the solves give
+    it: one matrix of 120 (the 'jacobi' headline's projected problem), 80
+    and 160 (the structural warm start's 2 bs at nev=200 and 400) and 240,
+    a batch of 64 blocks of 64 (eigh_newton's cluster stage) and one of 8
+    blocks of 480 (its closing stage at nev=200, blocks of min(512, m));
+    h1 and v bit for bit the plain version's, its
+    eigenvalues within 1e-12 ||H|| of the plain version's and of
+    ``eigvalsh``, ``||U^T U - I|| <= 1e-12``.  The bound counts the sweeps
+    this run's data took, 9 me^3 operations each, at the f64 rate, or the
+    bytes of h1 in and h1 and v out."""
+    from gcge_tpu_torch.ops import eighs
+
+    cases = (  # label, me, batch, warm-start error, primary
+        ("120, the card's eigh warm start", 120, 1, 0.0, True),
+        ("120, warm start 1e-6 off", 120, 1, 1e-6, False),
+        ("80, warm start 1e-6 off", 80, 1, 1e-6, False),
+        ("160, warm start 1e-6 off", 160, 1, 1e-6, False),
+        ("240, warm start 1e-6 off", 240, 1, 1e-6, False),
+        ("64 blocks of 64, warm start 1e-6 off", 64, 64, 1e-6, False),
+        ("8 blocks of 480, warm start 1e-6 off", 480, 8, 1e-6, False))
+    for label, me, batch, noise, primary in cases:
+        h, u0, h1 = jacobi_operand(torch, me, batch, noise, me + batch)
+        hk, vk, kk = eighs.jacobi_sweeps(h1, JACOBI_SWEEPS)
+        hp, vp, kp = eighs.jacobi_sweeps_plain(h1, JACOBI_SWEEPS)
+        w = hk.diagonal(dim1=-2, dim2=-1).sort(-1).values
+        w_plain = hp.diagonal(dim1=-2, dim2=-1).sort(-1).values
+        w_lib = torch.linalg.eigvalsh(h)
+        norm = float(w_lib.abs().max())
+        u = u0 @ vk
+        eye = torch.eye(me, dtype=torch.float64, device=DEVICE)
+        errs = (float((w - w_plain).abs().max()) / norm,
+                float((w - w_lib).abs().max()) / norm,
+                float((u.transpose(-2, -1) @ u - eye).abs().max()))
+        bits = torch.equal(hk, hp) and torch.equal(vk, vp)
+        sweeps = kk.tolist()
+        print(f"kernel jacobi {label}: sweeps {sorted(set(sweeps))} (plain "
+              f"{sorted(set(kp.tolist()))}), eigenvalues vs plain "
+              f"{errs[0]:.3e}, vs eigvalsh {errs[1]:.3e} of ||H|| (tol "
+              f"1e-12), ||U^T U - I|| {errs[2]:.3e} (tol 1e-12), h1 and v "
+              f"{'bit for bit' if bits else 'NOT bit for bit'} the plain "
+              f"version's")
+        if not torch.equal(kk, kp):
+            raise AssertionError(f"jacobi {label}: sweep counts differ")
+        if not bits:
+            raise AssertionError(f"jacobi {label}: h1 or v differs from the "
+                                 f"plain version's")
+        if not max(errs) <= 1e-12:
+            raise AssertionError(f"jacobi {label}: errors {errs} > 1e-12")
+        if noise and min(sweeps) == 0:
+            raise AssertionError(f"jacobi {label}: no sweep ran")
+        log.run("jacobi", f"jacobi {label} (h1 out)",
+                lambda: eighs.jacobi_sweeps(h1, JACOBI_SWEEPS)[0],
+                lambda: eighs.jacobi_sweeps_plain(h1, JACOBI_SWEEPS)[0],
+                1.0, 0, 3 * 8 * batch * me * me,
+                9 * sum(sweeps) * (me - 1) * me * me,
+                library=lambda: torch.linalg.eigh(h), primary=primary)
+
+
+@contextlib.contextmanager
+def struct_warm_counter():
+    """Counts the structural warm starts a solve offers its Rayleigh-Ritz
+    steps (``gcg._rr_struct_warm``) and how many of them were taken (the
+    premise held)."""
+    from gcge_tpu_torch.solvers import gcg
+
+    counts = collections.Counter()
+    warm = gcg._rr_struct_warm
+
+    def counted(*args):
+        out = warm(*args)
+        counts["offered"] += 1
+        counts["taken"] += bool(out[3])
+        return out
+
+    gcg._rr_struct_warm = counted
+    try:
+        yield counts
+    finally:
+        gcg._rr_struct_warm = warm
+
+
+def reset_waits():
+    from gcge_tpu_torch.ops import eighs
+
+    for key in eighs.CALLS:
+        eighs.CALLS[key] = 0
+
+
+def waits() -> int:
+    """The host's waits for the card counted since :func:`reset_waits`:
+    every ``safe_eigh`` call and every host-backend eigh."""
+    from gcge_tpu_torch.ops import eighs
+
+    return sum(eighs.CALLS.values())
+
+
+def walls_in_turns(torch, solvers, turns=("auto", "new", "new", "auto")):
+    """The walls of ``solvers[name]()`` (each ends in a wait for the card)
+    in the order ``turns``: ``{name: [s, ...]}``."""
+    walls = collections.defaultdict(list)
+    for name in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solvers[name]()
+        torch.cuda.synchronize()
+        walls[name].append(round(time.perf_counter() - t0, 3))
+    return dict(walls)
+
+
+def eigh_solve_gates(tag, a_csr, nx, nev, res_eval, res_evec, conv,
+                     ev_auto):
+    """The headline gates on the first ``nev`` pairs, and their eigenvalues
+    within 1e-9 of the same solve with ``rr_backend='auto'``."""
+    if conv < nev:
+        raise AssertionError(f"{tag}: nev_conv {conv} < {nev}")
+    stencil_gates(tag, a_csr, nx, nev, res_eval, res_evec)
+    rel = float(np.max(np.abs(res_eval[:nev] - ev_auto[:nev])
+                       / np.abs(ev_auto[:nev])))
+    print(f"{tag}: eigenvalues vs rr_backend='auto' max rel diff {rel:.3e} "
+          f"(tol 1e-9)")
+    if not rel <= 1e-9:
+        raise AssertionError(f"{tag}: eigenvalues differ from 'auto'")
+
+
+def phase_jacobi_headline(torch, a_csr, ev_auto):
+    """The headline solve with ``rr_backend='jacobi'`` through ``solve``,
+    by the phased loop and the fused one (``fuse=20``), each under the
+    headline gates and within 1e-9 of the 'auto' solve; iterations, waits
+    and Jacobi launches an iteration; the phased walls in turns with the
+    'auto' solve; then one fused chunk under the sync check."""
+    import gcge_tpu_torch
+
+    out = {}
+    for fuse, key in ((0, "jacobi_headline"),
+                      (HEADLINE_FUSE, "jacobi_fused_headline")):
+        tag = f"headline rr_backend='jacobi' (fuse={fuse})"
+        reset_counters()
+        reset_waits()
+        t0 = time.perf_counter()
+        with TallCalls() as tall:
+            ev, evec, conv = gcge_tpu_torch.solve(
+                a_csr, None, verbose=0, rr_backend="jacobi",
+                **dict(HEADLINE_KWARGS, device=DEVICE, fuse=fuse))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        iters = max(tall.iterations, 1)
+        print(f"{tag}: wall {wall:.3f} s, {tall.iterations} iterations, "
+              f"nev_conv {conv}; waits {waits() / iters:.2f} an iteration "
+              f"(safe_eigh), Jacobi launches {launches['jacobi']} "
+              f"({launches['jacobi'] / iters:.2f} an iteration)")
+        eigh_solve_gates(tag, a_csr, NX, NEV, ev, evec, conv, ev_auto)
+        path_launched(tag, launches, ("jacobi", "dia_f64", "gram",
+                                      "expand"))
+        out[key] = launches
+
+    def run(backend):
+        return lambda: gcge_tpu_torch.solve(
+            a_csr, None, verbose=0, rr_backend=backend,
+            **dict(HEADLINE_KWARGS, device=DEVICE, fuse=0))
+
+    walls = walls_in_turns(torch, {"auto": run("auto"),
+                                   "new": run("jacobi")})
+    print(f"headline phased walls in turns (auto, jacobi, jacobi, auto): "
+          f"auto {walls['auto']} s, jacobi {walls['new']} s")
+    phase_sync_check(torch, "headline, rr_backend='jacobi'",
+                     lambda steps: gcge_tpu_torch.solve(
+                         a_csr, None, verbose=0, rr_backend="jacobi",
+                         **dict(HEADLINE_KWARGS, device=DEVICE, fuse=steps,
+                                max_iter=steps)))
+    return out
+
+
+def phase_newton_wide(torch, log, nev: int, ev_auto):
+    """One ``utils.sweep`` row at ``nev`` with ``rr_backend='newton'`` and
+    the structural warm start (the sweep's own fused loop, then the phased
+    loop): the headline gates on the first nev pairs, eigenvalues within
+    1e-9 of the 'auto' row's; iterations, waits an iteration beside the
+    'auto' row's, Jacobi launches, and how many Rayleigh-Ritz steps took
+    the warm start (its premise, the X-W coupling below 2 % of the spread,
+    holds) of those that offered it; the timed walls in turns with the 'auto' row; then one
+    fused chunk under the sync check."""
+    from gcge_tpu_torch import gcg_solve, make_operator
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.utils import sweep
+
+    nx = C_REFERENCE[nev][0]
+    (rows, cols, vals, n), a_csr = stencil(nx)
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    auto = sweep.production_params(nev, op)
+    newton = dataclasses.replace(auto, rr_backend="newton",
+                                 rr_warm="struct")
+    out = {}
+    for params, key in ((newton, f"newton_{nev}"),
+                        (dataclasses.replace(newton, fuse=0),
+                         f"newton_{nev}_phased")):
+        tag = f"wide nev={nev} rr_backend='newton' (fuse={params.fuse})"
+        reset_counters()
+        reset_waits()
+        eighs.NEWTON.update(calls=0, closing_rounds=0)
+        with TallCalls() as tall, struct_warm_counter() as warm:
+            row = sweep.run_row(op, params)
+        launches = read_counters()
+        res = row.result
+        iters = max(tall.iterations, 1)
+        print(f"{tag}: warm-up solve {row.warmup_s:.3f} s, timed solve "
+              f"{row.wall_s:.3f} s; {res.num_iter} iterations, "
+              f"{res.nev_conv} converged; over both solves "
+              f"({tall.iterations} iterations): waits {waits() / iters:.2f} "
+              f"an iteration (safe_eigh), Jacobi launches "
+              f"{launches['jacobi']} ({launches['jacobi'] / iters:.2f} an "
+              f"iteration), structural warm start taken {warm['taken']} of "
+              f"{warm['offered']} Rayleigh-Ritz steps; Newton eighs "
+              f"{eighs.NEWTON['calls']}, their closing rounds "
+              f"{eighs.NEWTON['closing_rounds']}")
+        eigh_solve_gates(tag, a_csr, nx, nev, res.eval, res.evec,
+                         res.nev_conv, ev_auto)
+        path_launched(tag, launches, ("jacobi", "dia_f64", "gram",
+                                      "expand"))
+        # every step after the first offers the warm start (its (2 bs)^2
+        # eigh and polish run); it is taken where gcge_tpu's premise holds
+        if warm["offered"] <= 0:
+            raise AssertionError(f"{tag}: no structural warm start")
+        out[key] = launches
+
+    counts = {}
+
+    def run(params, name):
+        def solve():
+            reset_waits()
+            res = gcg_solve(op, None, params)
+            counts[name] = (res.num_iter, waits())
+        return solve
+
+    walls = walls_in_turns(torch, {"auto": run(auto, "auto"),
+                                   "new": run(newton, "new")})
+    print(f"wide nev={nev} timed walls in turns (auto, newton, newton, "
+          f"auto; fuse {auto.fuse}): auto {walls['auto']} s, newton "
+          f"{walls['new']} s; iterations and waits an iteration: auto "
+          f"{counts['auto'][0]}, {counts['auto'][1] / counts['auto'][0]:.2f}"
+          f"; newton {counts['new'][0]}, "
+          f"{counts['new'][1] / counts['new'][0]:.2f}")
+    phase_sync_check(torch, f"nev={nev}, rr_backend='newton'",
+                     lambda steps: gcg_solve(op, None, dataclasses.replace(
+                         newton, fuse=steps, max_iter=steps)))
+    return out
+
+
+def phase_eigh_alone(torch):
+    """``--eigh``: the Jacobi kernel rows, the 'newton' row with the
+    structural warm start at nev=400 (m=960) beside the 'auto' row; and
+    the 'auto' nev=400 row's InitializeX (its 800-column block through
+    orth_block: eigh_newton in this tree, safe_eigh in older ones) with its
+    wall.  A tree without the ported eighs (a parent, ``--root``) runs the
+    'auto' row only."""
+    from gcge_tpu_torch import gcg_solve, make_operator
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.utils import sweep
+
+    nev = WIDE_NEVS[-1]
+    nx = C_REFERENCE[nev][0]
+    (rows, cols, vals, n), a_csr = stencil(nx)
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    auto = sweep.production_params(nev, op)
+    row = sweep.run_row(op, auto)
+    res = row.result
+    print(f"wide nev={nev} rr_backend='auto': warm-up {row.warmup_s:.3f} s, "
+          f"timed {row.wall_s:.3f} s, InitializeX {res.timers['initX']:.3f} "
+          f"s of the timed solve; {res.num_iter} iterations, "
+          f"{res.nev_conv} converged")
+    if res.nev_conv < nev:
+        raise AssertionError(f"nev={nev}: nev_conv {res.nev_conv} < {nev}")
+    stencil_gates(f"wide nev={nev}", a_csr, nx, nev, res.eval, res.evec)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = gcg_solve(op, None, auto)
+        torch.cuda.synchronize()
+        print(f"wide nev={nev} rr_backend='auto' again: wall "
+              f"{time.perf_counter() - t0:.3f} s, InitializeX "
+              f"{again.timers['initX']:.3f} s")
+    if not hasattr(eighs, "jacobi_sweeps"):
+        return
+    phase_kernels_jacobi(torch, KernelLog(torch))
+    phase_newton_wide(torch, None, nev, res.eval)
+
+
 KERNELS = (  # key, source, the TPU kernel it replaces
     ("dia_f64", "gcge_tpu_torch/ops/csrc/dia_spmm.cu",
      "gcge_tpu/ops/spmm_pallas.py:207"),
@@ -3504,6 +3866,9 @@ KERNELS = (  # key, source, the TPU kernel it replaces
      "benchmarks/df64_push.py:51"),
     ("slice_gram", "gcge_tpu_torch/ops/csrc/slice_gram.cu",
      "benchmarks/pallas_isolate.py:55"),
+    # jnp code, no Pallas kernel: the sweep loop of jacobi_polish
+    ("jacobi", "gcge_tpu_torch/ops/csrc/jacobi.cu",
+     "gcge_tpu/ops/eighs.py:175"),
 )
 
 
@@ -3542,6 +3907,12 @@ def main(argv) -> int:
               f"{time.perf_counter() - T_START:.0f} s")
         print(card)
         return 0
+    if "--eigh" in argv:
+        phase_eigh_alone(torch)
+        print(f"chip_smoke --eigh ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
     if "--tall" in argv:
         import inspect
 
@@ -3566,6 +3937,10 @@ def main(argv) -> int:
     paths["fused_headline"], _ = phase_headline(torch, log, a_csr,
                                                 HEADLINE_FUSE, ev_headline)
     sync_check_headline(torch, a_csr)
+    t0 = time.perf_counter()
+    phase_kernels_jacobi(torch, log)
+    paths.update(phase_jacobi_headline(torch, a_csr, ev_headline))
+    print(f"jacobi phases: {time.perf_counter() - t0:.1f} s")
     a, a_rcm = build_delaunay(MESH)
     op = phase_kernels_irregular(torch, log, a_rcm)
     phase_hybrid(torch, log)
@@ -3608,8 +3983,13 @@ def main(argv) -> int:
     for nev in WIDE_NEVS:
         t0 = time.perf_counter()
         phase_kernels_wide(torch, log, nev)
-        paths[f"wide_{nev}"] = phase_wide(torch, log, nev)
+        paths[f"wide_{nev}"], ev_wide = phase_wide(torch, log, nev)
         print(f"wide phase nev={nev}: {time.perf_counter() - t0:.1f} s")
+        if nev == EIGH_NEV:
+            t0 = time.perf_counter()
+            paths.update(phase_newton_wide(torch, log, nev, ev_wide))
+            print(f"newton phase nev={nev}: {time.perf_counter() - t0:.1f} "
+                  f"s")
     t0 = time.perf_counter()
     paths["irregular_wide"], paths["irregular_wide_mesh"] = \
         phase_irregular_wide(torch, log, a, a_rcm, ev_irregular)

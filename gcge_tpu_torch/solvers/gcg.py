@@ -90,7 +90,8 @@ import numpy as np
 import torch
 
 from gcge_tpu_torch.ops import onehot, spmm
-from gcge_tpu_torch.ops.eighs import check_backend, eigh
+from gcge_tpu_torch.ops.eighs import (check_backend, eigh, jacobi_polish,
+                                      safe_eigh)
 from gcge_tpu_torch.ops.multivec import (col_dots, col_split, expand_cols,
                                          gather_cols, gram_cols, own_cols,
                                          select_cols, set_random,
@@ -168,13 +169,14 @@ class GCGParams:
     checkpoint_every: int = 0
     # write a torch.profiler Chrome trace of the solve into this directory
     profile_dir: Any = None
-    # backend of the projected eigensolve (ops.eighs.eigh): 'auto' or
-    # 'device'; the TPU's backends raise
+    # backend of the projected eigensolve (ops.eighs.eigh): 'auto' (=
+    # 'device' off the TPU, as in gcge_tpu), 'device', 'jacobi', 'newton'
+    # or 'host'
     rr_backend: str = "auto"
-    # 'auto', 'struct' and 'off': a cold eigh in every Rayleigh-Ritz step.
-    # gcge_tpu's warm start ('auto' and 'struct') seeds its Newton eigh
-    # backend, which exists for the TPU's emulated f64 and is not ported;
-    # off that backend it, too, runs a cold eigh
+    # 'auto' and 'struct': under rr_backend='newton' every Rayleigh-Ritz
+    # step after the first seeds its Newton eigh with the structural warm
+    # start (_rr_struct_warm) where the X-W coupling is small enough; 'off',
+    # and every other backend: a cold eigh in every step
     rr_warm: str = "auto"
 
     def resolved(self, n: int) -> "GCGParams":
@@ -543,13 +545,68 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
     return v, w_cnt, niters, final_res
 
 
+def _rr_struct_warm(h_eig, size_x: int, bs: int):
+    """Structural warm start for the Rayleigh-Ritz eigensolve
+    (``gcge_tpu/solvers/gcg.py:316-358``).
+
+    The projected matrix is nearly block-diagonal: its X block is exactly
+    ``diag(lambda)``, the X-P coupling exactly zero and the X-W coupling
+    ``R^T W``, residual-sized.  So ``U0 = blockdiag(I, eigvecs(trailing 2bs
+    block))`` diagonalizes all but residual-scale couplings, which
+    ``eigh_newton``'s refinement contracts quadratically, and ``U0^T H U0``
+    is assembled analytically.  One (2bs)^2 eigh (Jacobi-polished) takes the
+    place of the m x m one.
+
+    Returns ``(d0, u0, h1, warm_ok)``, the first three sorted ascending as
+    ``eigh_newton(warm=(d0, u0), warm_h1=h1)`` expects.  ``warm_ok`` is the
+    warm start's premise, ``||H1 offdiag|| < 0.02 (max d0 - min d0)``, from
+    the polished result as in ``gcge_tpu``, a Python bool read back in the
+    wait of the (2bs)^2 eigh (:func:`safe_eigh`'s ``extra``: the polish and
+    the premise are queued before that wait), so that it adds no wait.  The
+    two packages sum the norm in different orders, so a coupling within
+    rounding of the threshold may take different branches in them."""
+    dev, dt = h_eig.device, h_eig.dtype
+    m = size_x + 2 * bs
+    t = h_eig[size_x:, size_x:]
+    h_xt = h_eig[:size_x, size_x:]
+    lam_x = h_eig.diagonal()[:size_x]
+    warm = {}
+
+    def premise(wt0, qt0):
+        wt, qt = jacobi_polish(t, wt0, qt0, sweeps=2)
+        d0 = torch.cat([lam_x, wt])
+        c_xt = h_xt @ qt                        # (size_x, 2bs)
+        h1 = torch.diag(d0)
+        h1[:size_x, size_x:] = c_xt
+        h1[size_x:, :size_x] = c_xt.T
+        warm.update(d0=d0, qt=qt, h1=h1)
+        coupling = torch.linalg.norm(h1 * (1.0 - torch.eye(m, dtype=dt,
+                                                           device=dev)))
+        spread = torch.clamp(d0.max() - d0.min(), min=1e-300)
+        return [coupling < 0.02 * spread]
+
+    _, _, (warm_ok,) = safe_eigh(t, extra=premise)
+    d0, h1 = warm["d0"], warm["h1"]
+    perm = torch.argsort(d0, stable=True)
+    u0 = torch.block_diag(torch.eye(size_x, dtype=dt, device=dev),
+                          warm["qt"])
+    return (d0.index_select(0, perm), u0.index_select(1, perm),
+            h1.index_select(0, perm).index_select(1, perm), warm_ok)
+
+
 def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
-                   bs: int, rr_backend: str = "auto", mesh=None):
+                   bs: int, rr_backend: str = "auto", mesh=None,
+                   rr_warm: bool = False):
     """Assemble the projected matrix and solve the small eigenproblem:
     X block diag(lambda), X-P block 0, P block from the recurrence, the W
     coupling ``V^T A W`` the only large A-application; invalid slots padded
     with a Gershgorin-large diagonal.  Returns the new Ritz values, subspace
-    eigenvectors, projected matrix and Ritz vectors."""
+    eigenvectors, projected matrix and Ritz vectors.
+
+    ``rr_warm`` with ``rr_backend='newton'``: the Newton eigh starts from
+    :func:`_rr_struct_warm` where its premise holds, else cold (gcge_tpu
+    takes the branch by ``lax.cond``; here the premise is read in the wait
+    of the warm start's own eigh)."""
     m = size_x + 2 * bs
     dev, dt = v.device, v.dtype
     ar = torch.arange(bs, device=dev)
@@ -571,7 +628,15 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     fvalid = valid.to(dt)
     h = h * fvalid[None, :] * fvalid[:, None]
     gersh = h.abs().sum(dim=1).max() + 1.0
-    w, c = eigh(h + torch.diag((1.0 - fvalid) * gersh), rr_backend, mesh)
+    h_eig = h + torch.diag((1.0 - fvalid) * gersh)
+    warm_ok = False
+    if rr_warm and rr_backend == "newton":
+        d0, u0, h1w, warm_ok = _rr_struct_warm(h_eig, size_x, bs)
+    if warm_ok:
+        w, c = eigh(h_eig, "newton", mesh, warm=(d0, u0), warm_h1=h1w,
+                    cluster_first=False)
+    else:
+        w, c = eigh(h_eig, rr_backend, mesh)
     act_tot = size_x + p_cnt + w_cnt
     # a gather, not ``w[act_tot - 1]``: indexing by a 0-d tensor reads it
     # back to the host
@@ -580,6 +645,12 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
                               lam_pad)
     ritz = expand_cols(v, c[:, :size_x], mesh, tall_expand)
     return ss_eval_new, c, h, ritz
+
+
+def _rr_warm(p: GCGParams) -> bool:
+    """Whether the Rayleigh-Ritz steps after the first may take the
+    structural warm start (``gcge_tpu``'s rule)."""
+    return p.rr_warm in ("auto", "struct")
 
 
 def _set_x(v, ritz, size_x: int):
@@ -828,7 +899,8 @@ def _fused_step(a_op, b_op, st: _FusedState, first: bool, nev_target: int,
         linear_solver=p.linear_solver, precond=p.linear_precond, mesh=mesh)
     ss_eval, ss_evec, h, ritz = _rayleigh_ritz(a_op, v, h_pp, st.ss_eval,
                                                p_cnt, w_cnt, size_x, bs,
-                                               p.rr_backend, mesh)
+                                               p.rr_backend, mesh,
+                                               _rr_warm(p))
 
     def keep(new, old):
         return torch.where(go, new, old)
@@ -1304,7 +1376,7 @@ def _gcg_solve(a_op, b_op, params: GCGParams, x0, generator, mesh
         # ---- RayleighRitz + RitzVec ---------------------------------------
         ss_eval, ss_evec, h, ritz = timed(
             "compRR", _rayleigh_ritz, a_op, v, h_pp, ss_eval, p_cnt, w_cnt,
-            size_x, bs, p.rr_backend, mesh)
+            size_x, bs, p.rr_backend, mesh, _rr_warm(p))
 
         p_cnt_h, w_cnt_h = int(p_cnt), int(w_cnt)
         _held(v, mesh)

@@ -13,10 +13,13 @@ the card, where ``gcge_tpu`` takes its sliced GEMMs on the TPU), ``'f64'``
 through the plain :func:`gcge_tpu_torch.ops.multivec.gram` and ``@`` (as
 ``gcge_tpu`` does for the small P-coefficient block).  On the CPU both are
 the same functions.  The small eigenproblems go through
-:func:`gcge_tpu_torch.ops.eighs.safe_eigh`.  Under a row mesh (``mesh``)
-the tall blocks are each rank's rows and every Gram and column dot is summed
-over the ranks (:func:`gcge_tpu_torch.ops.multivec.psum`); the small
-problems are then the same on every rank.
+:func:`gcge_tpu_torch.ops.eighs.safe_eigh`, and the Grams of
+:data:`~gcge_tpu_torch.ops.eighs.F32_WARM_MIN_M` (768) columns or more
+through :func:`~gcge_tpu_torch.ops.eighs.eigh_newton`, as in ``gcge_tpu``.
+Under a row mesh (``mesh``) the tall blocks are each rank's rows and every
+Gram and column dot is summed over the ranks
+(:func:`gcge_tpu_torch.ops.multivec.psum`); the small problems are then the
+same on every rank.
 
 On a grid that splits columns (``mesh.col_split`` above 1) GCG hands
 :func:`orth_block_against` its columns of the new block and of the basis.
@@ -34,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from gcge_tpu_torch.ops import osgemm
-from gcge_tpu_torch.ops.eighs import safe_eigh
+from gcge_tpu_torch.ops.eighs import F32_WARM_MIN_M, eigh_newton, safe_eigh
 from gcge_tpu_torch.ops.multivec import (col_dots, col_split, gather_cols,
                                          gram, own_cols, psum, sum_cols,
                                          whole_matvec)
@@ -99,7 +102,11 @@ def orth_block(x, b_matvec=None, zero_tol: float = 1e-13, passes: int = 2,
         bx = x if b_matvec is None else b_matvec(x)
         g = _gram_p(x, bx, precision, mesh)
         g = 0.5 * (g + g.T)
-        w, u = safe_eigh(g)
+        # gcge_tpu's rule: wide blocks (InitializeX at nev >= 384, PAS
+        # spans) take the Newton eigh (there from the f32 eigh, which its
+        # TPU compiler needs; here from the f64 one, eigh_newton's 'auto')
+        w, u = eigh_newton(g) if g.shape[0] >= F32_WARM_MIN_M \
+            else safe_eigh(g)
         w = w.flip(0)
         u = u.flip(1)
         w_max = torch.clamp(w[0], min=1e-300)

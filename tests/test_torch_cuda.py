@@ -15,7 +15,7 @@ from gcge_tpu_torch import HybridOperator, make_operator, solve
 from gcge_tpu_torch.io.fem import (assemble_p1, cube_fem_laplacian,
                                    random_delaunay_mesh)
 from gcge_tpu_torch.benchmarks.pallas_isolate import make_planes
-from gcge_tpu_torch.ops import _build, onehot, osgemm, probes, spmm
+from gcge_tpu_torch.ops import _build, eighs, onehot, osgemm, probes, spmm
 from gcge_tpu_torch.solvers import gcg, multigrid
 from gcge_tpu_torch.solvers.bpcg import BlockPCGParams
 from gcge_tpu_torch.solvers.orth import bgs_orth
@@ -1571,3 +1571,60 @@ def test_one_rank_nccl_grid_matches_no_mesh(cuda):
             assert dist_ops.WINDOWED["dia_f32"] > 0
     finally:
         dist.destroy_process_group()
+
+
+def _warm_h1(me, batch, noise, device, seed):
+    """``(B, me, me)`` matrices ``u0^T h u0`` of random symmetric ``h``
+    with warm starts carrying ``noise`` of error (the Jacobi kernel's
+    operand in ``jacobi_polish``)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((batch, me, me), generator=g, dtype=torch.float64)
+    h = a + a.transpose(-2, -1)
+    _, q = torch.linalg.eigh(h)
+    q = q + noise * torch.randn(q.shape, generator=g, dtype=torch.float64)
+    h1 = q.transpose(-2, -1) @ h @ q
+    return (0.5 * (h1 + h1.transpose(-2, -1))).to(device)
+
+
+@pytest.mark.parametrize("me,batch,noise", [
+    (2, 3, 1.0), (64, 64, 1e-6), (120, 1, 1e-6), (80, 1, 1e-3),
+    (160, 1, 1e-6), (240, 1, 1e-6), (120, 1, 0.0), (480, 2, 1e-6)])
+def test_jacobi_kernel_has_the_plain_bits(cuda, me, batch, noise):
+    """The Jacobi kernel (``csrc/jacobi.cu``) at the launch shapes of the
+    solves (a batch of cluster blocks, one matrix with h1 and v in shared
+    memory, h1 alone there, neither) against its plain version on the card:
+    the same sweep counts and the same bits (both round every operation
+    once, in the same order), twice."""
+    h1 = _warm_h1(me, batch, noise, cuda, me)
+    for _ in range(2):
+        hk, vk, kk = eighs.jacobi_sweeps(h1, 6)
+        hp, vp, kp = eighs.jacobi_sweeps_plain(h1, 6)
+        torch.cuda.synchronize()
+        assert torch.equal(kk, kp)
+        assert torch.equal(hk, hp) and torch.equal(vk, vp)
+    if noise:
+        assert int(kk.min()) > 0
+
+
+def test_eighs_on_the_card_match_the_cpu(cuda):
+    """``eigh_jacobi`` and ``eigh_newton`` on the card against the same
+    functions on the CPU and against LAPACK: eigenvalues 1e-12, residual
+    and orthonormality 1e-12; the Jacobi kernel launched."""
+    g = torch.Generator().manual_seed(3)
+    q, _ = torch.linalg.qr(torch.randn((200, 200), generator=g,
+                                       dtype=torch.float64))
+    lam = torch.cat([torch.full((70,), 1.0) + 1e-9 * torch.arange(70),
+                     torch.linspace(2.0, 9.0, 130, dtype=torch.float64)])
+    h = (q * lam) @ q.T
+    h = 0.5 * (h + h.T)
+    eighs.LAUNCHES["jacobi"] = 0
+    for fn in (eighs.eigh_jacobi, eighs.eigh_newton):
+        w, u = fn(h.to(cuda))
+        w_cpu, _ = fn(h)
+        w, u = w.cpu(), u.cpu()
+        assert (w - w_cpu).abs().max() <= 1e-12 * 9.0
+        assert (w - lam).abs().max() <= 1e-12 * 9.0
+        assert (h @ u - u * w).abs().max() <= 1e-12 * 9.0
+        assert (u.T @ u - torch.eye(200, dtype=torch.float64)).abs().max() \
+            <= 1e-12
+    assert eighs.LAUNCHES["jacobi"] >= 2

@@ -13,6 +13,7 @@ later.
 import os
 import subprocess
 import sys
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -175,15 +176,20 @@ def test_options_not_ported_raise(stencil10):
     """What is not ported raises before the solve starts, naming its ROADMAP
     item (checkpoint_path, profile_dir, mesh and distribute, the grid too,
     run since they were ported: tests/test_torch_utils.py,
-    tests/test_torch_dist.py; rr_warm='struct' solves:
-    test_rr_warm_struct_matches_auto_and_jax); a distributed solve without a
-    process group raises."""
+    tests/test_torch_dist.py; rr_warm='struct' solves, and takes the
+    structural warm start under rr_backend='newton':
+    test_rr_warm_struct_matches_auto_and_jax; every backend of gcge_tpu
+    runs: tests/test_torch_eighs.py); an unknown rr_warm or rr_backend
+    raises ValueError; a distributed solve without a process group
+    raises."""
     rows, cols, vals, n, _ = stencil10
     op = make_operator(rows, cols, vals, (n, n), device="cpu")
     res = gcg_solve(op, None, GCGParams(nev=4, rr_warm="struct", verbose=0))
     assert res.nev_conv >= 4
     with pytest.raises(ValueError, match="rr_warm"):
         gcg_solve(op, None, GCGParams(nev=4, rr_warm="newton"))
+    with pytest.raises(ValueError, match="unknown eigh backend"):
+        gcg_solve(op, None, GCGParams(nev=4, rr_backend="lapack"))
     with pytest.raises(TypeError, match="RowMesh"):
         gcg_solve(op, None, GCGParams(nev=4), mesh=object())
     # multigrid and method="pas" run since they were ported
@@ -201,10 +207,16 @@ def test_options_not_ported_raise(stencil10):
 
 
 def test_rr_warm_struct_matches_auto_and_jax(stencil10):
-    """``rr_warm='struct'`` is ``'auto'`` in the port (the warm start seeds
-    only gcge_tpu's Newton eigh backend, which is not ported): the same
-    bits; and gcge_tpu's ``'struct'`` solve, which off its TPU Newton path
-    runs the cold eigh too, to the parity tolerances."""
+    """``rr_warm='struct'`` under ``rr_backend='newton'`` takes the
+    structural warm start (gcge_tpu's ``_rr_struct_warm``) in the
+    Rayleigh-Ritz steps whose X-W coupling is small, and matches gcge_tpu's
+    ``'struct'`` solve with the same backend to the parity tolerances (the
+    same converged count, eigenvalues 1e-10, iterations within 2: its
+    ``'auto'`` solve takes 26 iterations in the port and 27 in gcge_tpu
+    here), and the ``'off'`` solve's eigenvalues; off the Newton backend
+    ``'struct'`` is ``'auto'``: the same bits."""
+    from gcge_tpu_torch.solvers import gcg as t_gcg
+
     rows, cols, vals, n, x0 = stencil10
     op = make_operator(rows, cols, vals, (n, n), device="cpu")
     kw = dict(nev=6, block_size=3, verbose=0)
@@ -214,11 +226,86 @@ def test_rr_warm_struct_matches_auto_and_jax(stencil10):
     assert torch.equal(auto.evec, struct.evec)
     assert (auto.num_iter, auto.nev_conv) == (struct.num_iter,
                                               struct.nev_conv)
+    taken = []
+    warm = t_gcg._rr_struct_warm
+
+    def counted(*args):
+        out = warm(*args)
+        taken.append(out[3])
+        return out
+
+    kw["rr_backend"] = "newton"
+    t_gcg._rr_struct_warm = counted
+    try:
+        newton = gcg_solve(op, None, GCGParams(rr_warm="struct", **kw),
+                           x0=x0[:, :12])
+    finally:
+        t_gcg._rr_struct_warm = warm
+    # one Rayleigh-Ritz step an iteration, all but the first take the warm
+    # start's path; its premise fails in the early, coupled ones
+    assert len(taken) == newton.num_iter
+    assert 0 < sum(taken) < len(taken)
+    off = gcg_solve(op, None, GCGParams(rr_warm="off", **kw), x0=x0[:, :12])
+    assert off.nev_conv == newton.nev_conv
+    np.testing.assert_allclose(newton.eval[:6], off.eval[:6], rtol=1e-10)
     jr = j_gcg_solve(j_make_operator(rows, cols, vals, (n, n)), None,
                      JParams(rr_warm="struct", **kw),
                      x0=jnp.asarray(x0[:, :12]))
-    _assert_parity(struct.eval, struct.nev_conv, struct.num_iter,
+    _assert_parity(newton.eval, newton.nev_conv, newton.num_iter,
                    jr.eval, jr.nev_conv, jr.num_iter, 6)
+
+
+@pytest.mark.parametrize("backend,warm", [("newton", "off"),
+                                          ("jacobi", "auto")])
+def test_gcg_backend_matches_jax(stencil10, backend, warm):
+    """``gcg_solve`` at stencil10 scale (nev 6, block 3) with
+    ``rr_backend=backend, rr_warm=warm`` against gcge_tpu's from the same
+    starting block, to this file's parity rule (the same converged count,
+    eigenvalues 1e-10, iterations within 2: the stencil's clusters of three
+    give the two packages' eighs different bases; the 'auto' solve itself
+    takes 26 iterations in the port and 27 in gcge_tpu here).  Neither runs
+    the structural warm start (``'off'``, or off the Newton backend); the
+    solve with it is :func:`test_rr_warm_struct_matches_auto_and_jax`."""
+    from gcge_tpu_torch.solvers import gcg as t_gcg
+
+    rows, cols, vals, n, x0 = stencil10
+    kw = dict(nev=6, block_size=3, verbose=0, rr_backend=backend,
+              rr_warm=warm)
+    taken = []
+    warm_start = t_gcg._rr_struct_warm
+    t_gcg._rr_struct_warm = lambda *a: taken.append(a) or warm_start(*a)
+    try:
+        tr = gcg_solve(make_operator(rows, cols, vals, (n, n), device="cpu"),
+                       None, GCGParams(**kw), x0=x0[:, :12])
+    finally:
+        t_gcg._rr_struct_warm = warm_start
+    jr = j_gcg_solve(j_make_operator(rows, cols, vals, (n, n)), None,
+                     JParams(**kw), x0=jnp.asarray(x0[:, :12]))
+    _assert_parity(tr.eval, tr.nev_conv, tr.num_iter, jr.eval, jr.nev_conv,
+                   jr.num_iter, 6)
+    assert not taken
+
+
+def test_newton_backend_at_the_f32_warm_width_follows_auto():
+    """``rr_backend='newton'`` where the projected problem passes 768 rows
+    (nev=400, m=960, where gcge_tpu's ``eigh_newton`` starts from the f32
+    eigh and the port's from the f64 one) follows the ``'auto'`` solve from
+    the same start: the same count after 7 iterations and the same lowest
+    Ritz values to 1e-10.  From LAPACK's f32 eigenvectors the refinement
+    repels at the third Rayleigh-Ritz step here: the eigenvalues kept an
+    error of 1e-6 and no pair converged."""
+    from gcge_tpu_torch.io.stencil import build_3d27
+    from gcge_tpu_torch.utils import sweep
+
+    rows, cols, vals, n = build_3d27(12)
+    op = make_operator(rows, cols, vals, (n, n), device="cpu")
+    base = replace(sweep.production_params(400, op), fuse=0, max_iter=7,
+                   verbose=0)
+    x0 = np.random.default_rng(2).uniform(-1, 1, (n, 800))
+    auto, newton = (gcg_solve(op, None, replace(base, rr_backend=backend),
+                              x0=x0) for backend in ("auto", "newton"))
+    assert newton.nev_conv == auto.nev_conv > 0
+    np.testing.assert_allclose(newton.eval[:40], auto.eval[:40], rtol=1e-10)
 
 
 def test_eigsh_cpu():
@@ -297,11 +384,9 @@ _FIELDS = {
     # rule); tests/test_torch_utils.py runs it with a path
     "checkpoint_every": ([0, 5], []),
     "rr_warm": (["auto", "struct", "off"], [("warm", ValueError, "rr_warm")]),
-    "rr_backend": (["auto", "device"],
-                   [("jacobi", NotImplementedError, "TPU"),
-                    ("newton", NotImplementedError, "TPU"),
-                    ("host", NotImplementedError, "TPU"),
-                    ("lapack", ValueError, "unknown")]),
+    # 'jacobi', 'newton' and 'host' run too, to the default's values (the
+    # test below); an unknown backend raises
+    "rr_backend": (["auto", "device"], [("lapack", ValueError, "unknown")]),
     "fuse_hotswap": (["auto", "on", "off"], [("yes", ValueError,
                                               "fuse_hotswap")]),
     "orth_proj_precision": (["auto", "f64"],
@@ -351,8 +436,20 @@ def test_params_field_runs_or_raises(name):
     and ``linear_precond`` (ported since) also run with a value that
     changes the solve, and match ``gcge_tpu`` on the same starting block:
     iterations within one, eigenvalues 1e-10, the fused loop the phased
-    loop's eigenvalues."""
+    loop's eigenvalues.  ``rr_backend``'s other eighs (ported since:
+    ``'jacobi'``, ``'newton'``, ``'host'``; ``tests/test_torch_eighs.py``
+    holds them to gcge_tpu) give the default's iterations, count and
+    converged eigenvalues to 1e-10, on both loops."""
     runs, raises = _FIELDS[name]
+    if name == "rr_backend":
+        for value in ("jacobi", "newton", "host"):
+            for fuse in (0, 2):
+                ref = _laplacian_solve(fuse=fuse)
+                got = _laplacian_solve(rr_backend=value, fuse=fuse)
+                assert (got.num_iter, got.nev_conv) == (ref.num_iter,
+                                                        ref.nev_conv)
+                np.testing.assert_allclose(got.eval[:3], ref.eval[:3],
+                                           rtol=1e-10)
     if name in ("linear_solver", "linear_precond"):
         ours, theirs = _matched_values(name)
         n = 60

@@ -52,17 +52,20 @@ def _banded_coo(n, offsets, seed):
 
 def test_ops_export_eigh_and_safe_eigh_as_jax_does():
     """``gcge_tpu_torch.ops`` exports ``eigh`` and ``safe_eigh``, as
-    ``gcge_tpu.ops`` does; the rest of gcge_tpu's list that the port
-    exports are the TPU workarounds' complement (``DiaDF64Operator``,
-    ``eigh_jacobi``, ``eigh_newton``, ``jacobi_polish`` are not ported)."""
+    ``gcge_tpu.ops`` does, and gcge_tpu's other eighs (``eigh_jacobi``,
+    ``eigh_newton``, ``jacobi_polish``, ported since); the rest of
+    gcge_tpu's list is the port's but for ``DiaDF64Operator``, a TPU
+    workaround that is not ported."""
     import gcge_tpu.ops as j_ops
     import gcge_tpu_torch.ops as t_ops
+    from gcge_tpu_torch.ops import eighs as t_eighs
 
-    tpu_only = {"DiaDF64Operator", "eigh_jacobi", "eigh_newton",
-                "jacobi_polish"}
+    tpu_only = {"DiaDF64Operator"}
     assert set(j_ops.__all__) - tpu_only <= set(t_ops.__all__)
     assert {"eigh", "safe_eigh"} <= set(t_ops.__all__) & set(j_ops.__all__)
     assert t_ops.eigh is eigh and t_ops.safe_eigh is safe_eigh
+    for name in ("eigh_jacobi", "eigh_newton", "jacobi_polish"):
+        assert getattr(t_ops, name) is getattr(t_eighs, name)
 
 
 def test_dia_operator_matches_scipy_both_layouts():
@@ -277,9 +280,11 @@ def test_eigh_backends():
     h = _t(np.diag([3.0, 1.0, 2.0]))
     w, _ = eigh(h, "device")
     np.testing.assert_allclose(w.numpy(), [1.0, 2.0, 3.0], rtol=1e-12)
+    # gcge_tpu's other backends run since they were ported
+    # (tests/test_torch_eighs.py holds them to gcge_tpu's)
     for backend in ("jacobi", "newton", "host"):
-        with pytest.raises(NotImplementedError):
-            eigh(h, backend)
+        w, _ = eigh(h, backend)
+        np.testing.assert_allclose(w.numpy(), [1.0, 2.0, 3.0], rtol=1e-12)
     with pytest.raises(ValueError):
         eigh(h, "nope")
 
