@@ -7,6 +7,7 @@
     python3 chip_smoke.py --pas [--root DIR]
     python3 chip_smoke.py --csr [--root DIR]
     python3 chip_smoke.py --eigh [--root DIR]
+    python3 chip_smoke.py --newton-mesh [--root DIR]
 
 Ten kernels (the nine TPU kernels' counterparts and the Jacobi sweeps of
 the projected eigensolvers), four solves (the headline and the irregular problem, each by
@@ -212,13 +213,29 @@ Phases, each of which raises on failure:
     eigenvalues within 1e-9 of the 'auto' solve, iterations, waits and
     Jacobi launches an iteration, the warm starts taken, the Newton
     eighs' closing rounds, walls in turns with 'auto', and one fused chunk
-    of each under the sync check.
+    of each under the sync check;
+23. the partitioned Newton eigh on one NCCL rank — after phase 19's
+    nev=400 row: ``eigh_newton`` with ``mesh=row_mesh()`` and with
+    ``mesh=grid_mesh(1, 1)`` on the third projected matrix of order 480
+    and of order 960 that the nev=200 and nev=400 rows' Rayleigh-Ritz steps
+    built, ``mesh=None``'s bits, ``out='cols'`` the replicated bits, the
+    gathers a call and the walls beside ``mesh=None``'s; then phase 22's
+    nev=200 'newton' row through ``gcg_solve(..., mesh=row_mesh())``: the
+    bits, iterations and count of phase 22's fused row, the headline
+    gates, waits an iteration, and one fused chunk under the sync check.
 
 ``--eigh`` runs phase 1, the nev=400 'auto' row (its InitializeX time:
 the 800-column ``orth_block`` through ``eigh_newton``) and, in a tree
 that has the ported eighs, phase 21 and phase 22's 'newton' row at
 nev=400 (m=960); ``--root DIR`` as for ``--tall`` (a parent: its 'auto'
 row).
+
+``--newton-mesh`` runs phase 1 and then phase 23's nev=200 'newton' row
+alone, without a mesh and on a one-rank NCCL row mesh: the captured
+projected matrix of order 480 through ``eigh_newton`` (the same bits, a
+``torch.profiler`` run of each, the walls in turns), then the solves'
+walls in turns, their counts and a digest of their bits; ``--root DIR``
+as for ``--tall`` (a parent: its one-rank mesh path).
 
 ``--tall`` runs phase 1 and then kernels 3 and 4 alone: every class of
 the headline and the two wide solves, timed as in phases 2 and 19, the two
@@ -285,6 +302,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1936,11 +1954,12 @@ def phase_launch_floor(torch, log):
     return ms
 
 
-def profile_solve(torch, label: str, run):
+def profile_solve(torch, label: str, run, host_top: int = 0):
     """``run()`` (a solve that returns its iteration count) under
     torch.profiler: wall, device busy and idle share, device operations and
     host synchronisations, in all and per iteration, and the device time by
-    kernel."""
+    kernel; ``host_top``: as many host operations by their own host
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1951,9 +1970,11 @@ def profile_solve(torch, label: str, run):
         iters = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, host = [], []
     syncs = copies = launches = replays = 0
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            host.append((e.self_cpu_time_total, e.count, e.key))
         if e.device_type == DeviceType.CUDA:      # kernels, copies, memsets
             rows.append((e.self_device_time_total, e.count, e.key))
         elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -1979,6 +2000,9 @@ def profile_solve(torch, label: str, run):
           f"({copies / iters:.1f}, copies on the device among them)")
     for dev_us, count, key in rows[:14]:
         print(f"profile: {dev_us * 1e-3:10.3f} ms {count:8d} x  {key[:90]}")
+    for host_us, count, key in sorted(host, reverse=True)[:host_top]:
+        print(f"profile host: {host_us * 1e-3:10.3f} ms {count:8d} x  "
+              f"{key[:90]}")
     for what, picks in (
             ("kernels 3+4 (the Gram's chunk sum among them)",
              lambda k: "tall_gram" in k or "tall_expand" in k),
@@ -3753,7 +3777,7 @@ def phase_newton_wide(torch, log, nev: int, ev_auto):
     auto = sweep.production_params(nev, op)
     newton = dataclasses.replace(auto, rr_backend="newton",
                                  rr_warm="struct")
-    out = {}
+    out, rows_ = {}, {}
     for params, key in ((newton, f"newton_{nev}"),
                         (dataclasses.replace(newton, fuse=0),
                          f"newton_{nev}_phased")):
@@ -3784,7 +3808,7 @@ def phase_newton_wide(torch, log, nev: int, ev_auto):
         # eigh and polish run); it is taken where gcge_tpu's premise holds
         if warm["offered"] <= 0:
             raise AssertionError(f"{tag}: no structural warm start")
-        out[key] = launches
+        out[key], rows_[key] = launches, res
 
     counts = {}
 
@@ -3806,7 +3830,10 @@ def phase_newton_wide(torch, log, nev: int, ev_auto):
     phase_sync_check(torch, f"nev={nev}, rr_backend='newton'",
                      lambda steps: gcg_solve(op, None, dataclasses.replace(
                          newton, fuse=steps, max_iter=steps)))
-    return out
+    fused = types.SimpleNamespace(op=op, a_csr=a_csr, nx=nx, params=newton,
+                                  result=rows_[f"newton_{nev}"],
+                                  ev_auto=ev_auto)
+    return out, fused
 
 
 def phase_eigh_alone(torch):
@@ -3845,6 +3872,228 @@ def phase_eigh_alone(torch):
         return
     phase_kernels_jacobi(torch, KernelLog(torch))
     phase_newton_wide(torch, None, nev, res.eval)
+
+
+@contextlib.contextmanager
+def projected_capture(orders, keep: int = 3):
+    """Copies of the projected matrices that Rayleigh-Ritz steps hand to
+    ``eigh`` while it is open: ``{m: h}``, the ``keep``-th of each order in
+    ``orders`` (a step past InitializeX's with its P block filled)."""
+    from gcge_tpu_torch.solvers import gcg
+
+    eigh = gcg.eigh
+    seen, kept = collections.Counter(), {}
+
+    def capture(h, *args, **kwargs):
+        m = h.shape[0]
+        if m in orders:
+            seen[m] += 1
+            if seen[m] == keep:
+                kept[m] = h.clone()
+        return eigh(h, *args, **kwargs)
+
+    gcg.eigh = capture
+    try:
+        yield kept
+    finally:
+        gcg.eigh = eigh
+
+
+def newton_mesh_eighs(torch, card, projected, orders, row, grid):
+    """``eigh_newton`` of each captured projected matrix (one of each order
+    in ``orders``, else it raises) without a mesh, on the one-rank row mesh
+    and on the (1, 1) grid: the same bits, both outputs; the gathers and
+    broadcasts a call, the products' widths, the blocks' slices and the
+    closing rounds; the walls in turns (none, row, grid, grid, row,
+    none)."""
+    from gcge_tpu_torch.ops import eighs
+
+    if set(projected) != set(orders):
+        raise AssertionError(f"projected matrices of orders "
+                             f"{sorted(projected)} captured, {sorted(orders)} "
+                             f"expected")
+    meshes = {"row mesh": row, "(1, 1) grid": grid}
+    for m, h in sorted(projected.items()):
+        w0, u0 = eighs.eigh_newton(h)
+        for name, mesh in meshes.items():
+            eighs.NEWTON.update(calls=0, closing_rounds=0, gathers=0,
+                                broadcasts=0)
+            for widths in eighs.SPLIT.values():
+                widths.clear()
+            w, u = eighs.eigh_newton(h, mesh=mesh)
+            counts = dict(eighs.NEWTON, **eighs.SPLIT)
+            wc, uc = eighs.eigh_newton(h, mesh=mesh, out="cols")
+            bits = (torch.equal(w, w0) and torch.equal(u, u0)
+                    and torch.equal(wc, w0) and torch.equal(uc, u0))
+            print(f"eigh_newton m={m} on the one-rank {name} ({card}): "
+                  f"{'the same bits as' if bits else 'NOT the bits of'} "
+                  f"mesh=None, out='cols' too; a call {counts['gathers']} "
+                  f"gathers, {counts['broadcasts']} broadcast, products by "
+                  f"columns {counts['cols']}, block eighs by blocks "
+                  f"{counts['blocks']}, closing rounds "
+                  f"{counts['closing_rounds']}")
+            if not bits:
+                raise AssertionError(f"eigh_newton m={m}, {name}: not "
+                                     f"mesh=None's bits")
+            if counts["gathers"] <= 0 or set(counts["cols"]) != {m}:
+                raise AssertionError(f"eigh_newton m={m}, {name}: the "
+                                     f"partition did not run")
+        walls = walls_in_turns(torch, {
+            name: functools.partial(eighs.eigh_newton, h, mesh=mesh)
+            for name, mesh in dict(meshes, none=None).items()},
+            turns=("none", "row mesh", "(1, 1) grid", "(1, 1) grid",
+                   "row mesh", "none"))
+        print(f"eigh_newton m={m} walls in turns ({card}): " + "; ".join(
+            f"{k} {vs} s" for k, vs in walls.items()))
+
+
+def phase_newton_mesh(torch, card, projected, orders, fused):
+    """Phase 23 on a one-rank NCCL group: :func:`newton_mesh_eighs`, then
+    phase 22's fused nev=200 'newton' row (``fused``) through
+    ``gcg_solve(..., mesh=row_mesh())``: its bits, iterations and count,
+    the headline gates and eigenvalues within 1e-9 of the 'auto' row's,
+    waits an iteration, the walls in turns with the solve without a mesh;
+    then one fused chunk under the sync check.  Returns the solve's
+    launches."""
+    import torch.distributed as dist
+
+    from gcge_tpu_torch import gcg_solve
+    from gcge_tpu_torch.parallel import (bootstrap, grid_mesh, row_mesh,
+                                         shard_operator)
+
+    t_phase = time.perf_counter()
+    bootstrap(f"tcp://127.0.0.1:{_free_port()}", 1, 0, DEVICE)
+    try:
+        row, grid = row_mesh(), grid_mesh(1, 1)
+        grid.warm()
+        newton_mesh_eighs(torch, card, projected, orders, row, grid)
+        nev = fused.params.nev
+        tag = f"wide nev={nev} rr_backend='newton' on the one-rank row mesh"
+        sharded = shard_operator(fused.op, row)
+        reset_counters()
+        reset_waits()
+        res = gcg_solve(sharded, None, fused.params, mesh=row)
+        torch.cuda.synchronize()
+        launches, n_waits = read_counters(), waits()
+        plain = fused.result
+        bits = np.array_equal(res.eval, plain.eval) and \
+            torch.equal(res.evec, plain.evec)
+        print(f"{tag} ({card}): {res.num_iter} iterations (undistributed "
+              f"{plain.num_iter}), nev_conv {res.nev_conv} (undistributed "
+              f"{plain.nev_conv}), "
+              f"{'the same bits' if bits else 'NOT the same bits'}; waits "
+              f"{n_waits / res.num_iter:.2f} an iteration (safe_eigh); "
+              f"launches {launches}")
+        if not bits or res.num_iter != plain.num_iter or \
+                res.nev_conv != plain.nev_conv:
+            raise AssertionError(f"{tag}: not the undistributed row's bits, "
+                                 f"iterations and count")
+        eigh_solve_gates(tag, fused.a_csr, fused.nx, nev, res.eval, res.evec,
+                         res.nev_conv, fused.ev_auto)
+        path_launched(tag, launches, ("jacobi", "dia_f64", "dia_f32", "gram",
+                                      "expand"))
+        walls = walls_in_turns(torch, {
+            "none": lambda: gcg_solve(fused.op, None, fused.params),
+            "mesh": lambda: gcg_solve(sharded, None, fused.params,
+                                      mesh=row)},
+            turns=("none", "mesh", "mesh", "none"))
+        print(f"{tag}: walls in turns ({card}): without a mesh "
+              f"{walls['none']} s, on the one-rank row mesh {walls['mesh']} s")
+        phase_sync_check(torch, f"nev={nev}, rr_backend='newton', one-rank "
+                         f"row mesh", lambda steps: gcg_solve(
+                             sharded, None, dataclasses.replace(
+                                 fused.params, fuse=steps, max_iter=steps),
+                             mesh=row))
+    finally:
+        dist.destroy_process_group()
+    print(f"partitioned Newton phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_newton_mesh_alone(torch, card):
+    """``--newton-mesh``: phase 23's nev=200 'newton' row (the structural
+    warm start, the sweep's fused loop) without a mesh and on a one-rank
+    NCCL row mesh, so that two trees are compared in one call (``--root
+    DIR``, a parent: there the mesh's eigh runs whole and broadcasts its
+    result).  The third projected matrix of order 480 of the first solve
+    (also the warm-up) is captured; ``eigh_newton`` on it without a mesh and
+    on the row mesh: the same bits, two calls of each under torch.profiler
+    (device time by kernel, the host's operations by their own time), and
+    the walls in turns (none, mesh, mesh, none; five calls a turn); then
+    the solve, in turns (none, mesh, mesh, none; three a turn): walls,
+    iterations, count, the same bits, and a digest of the eigenvalues' and
+    eigenvectors' bytes for the trees to compare."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from gcge_tpu_torch import gcg_solve, make_operator
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.parallel import bootstrap, row_mesh, shard_operator
+    from gcge_tpu_torch.utils import sweep
+
+    nev, m = EIGH_NEV, wide_classes(EIGH_NEV)[0]
+    nx = C_REFERENCE[nev][0]
+    (rows, cols, vals, n), _ = stencil(nx)
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    params = dataclasses.replace(sweep.production_params(nev, op),
+                                 rr_backend="newton", rr_warm="struct")
+    with projected_capture((m,)) as projected:
+        gcg_solve(op, None, params)
+    if set(projected) != {m}:
+        raise AssertionError(f"no projected matrix of order {m} captured")
+    h = projected[m]
+
+    def in_turns(runs, each):
+        walls = collections.defaultdict(list)
+        for name in ("none", "mesh", "mesh", "none"):
+            for _ in range(each):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[name]()
+                torch.cuda.synchronize()
+                walls[name].append(round(time.perf_counter() - t0, 4))
+        return dict(walls)
+
+    bootstrap(f"tcp://127.0.0.1:{_free_port()}", 1, 0, DEVICE)
+    try:
+        row = row_mesh()
+        row.warm()
+        eig = {"none": lambda: eighs.eigh_newton(h),
+               "mesh": lambda: eighs.eigh_newton(h, mesh=row)}
+        (w0, u0), (w1, u1) = eig["none"](), eig["mesh"]()
+        if not (torch.equal(w0, w1) and torch.equal(u0, u1)):
+            raise AssertionError(f"eigh_newton m={m}: the one-rank row "
+                                 f"mesh's bits differ from mesh=None's")
+        for name, run in eig.items():
+            profile_solve(torch, f"eigh_newton m={m}, {name}, 2 calls "
+                          f"({card})", lambda run=run: (run(), run(), 2)[2],
+                          host_top=12)
+        walls = in_turns(eig, 5)
+        print(f"eigh_newton m={m} walls in turns (none, mesh, mesh, none; "
+              f"five calls a turn; {card}): " + "; ".join(
+                  f"{k} {v} s" for k, v in walls.items()))
+        sharded = shard_operator(op, row)
+        got = {}
+        walls = in_turns({
+            "none": lambda: got.update(none=gcg_solve(op, None, params)),
+            "mesh": lambda: got.update(mesh=gcg_solve(sharded, None, params,
+                                                      mesh=row))}, 3)
+        for name, res in got.items():
+            digest = hashlib.sha256(res.eval.tobytes() + res.evec.cpu()
+                                    .numpy().tobytes()).hexdigest()[:16]
+            print(f"wide nev={nev} rr_backend='newton', {name}: "
+                  f"{res.num_iter} iterations, {res.nev_conv} converged, "
+                  f"digest {digest}")
+        if not (np.array_equal(got["none"].eval, got["mesh"].eval)
+                and torch.equal(got["none"].evec, got["mesh"].evec)):
+            raise AssertionError(f"nev={nev} 'newton': the one-rank row "
+                                 f"mesh's bits differ from mesh=None's")
+        print(f"wide nev={nev} rr_backend='newton' walls in turns (none, "
+              f"mesh, mesh, none; three solves a turn; {card}): " +
+              "; ".join(f"{k} {v} s" for k, v in walls.items()))
+    finally:
+        dist.destroy_process_group()
 
 
 KERNELS = (  # key, source, the TPU kernel it replaces
@@ -3904,6 +4153,12 @@ def main(argv) -> int:
     if "--pas" in argv:
         phase_pas_alone(torch)
         print(f"chip_smoke --pas ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
+    if "--newton-mesh" in argv:
+        phase_newton_mesh_alone(torch, card)
+        print(f"chip_smoke --newton-mesh ({gcge_tpu_torch.__file__}): "
               f"{time.perf_counter() - T_START:.0f} s")
         print(card)
         return 0
@@ -3980,16 +4235,22 @@ def main(argv) -> int:
     print(f"distributed PAS phase: {time.perf_counter() - t0:.1f} s")
     paths.update(phase_driver(torch, a_csr, rows, cols, vals, n, ev_headline,
                               fem_a, fem_b, ev_gen))
-    for nev in WIDE_NEVS:
-        t0 = time.perf_counter()
-        phase_kernels_wide(torch, log, nev)
-        paths[f"wide_{nev}"], ev_wide = phase_wide(torch, log, nev)
-        print(f"wide phase nev={nev}: {time.perf_counter() - t0:.1f} s")
-        if nev == EIGH_NEV:
+    orders = tuple(wide_classes(nev)[0] for nev in WIDE_NEVS)
+    with projected_capture(orders) as projected:
+        for nev in WIDE_NEVS:
             t0 = time.perf_counter()
-            paths.update(phase_newton_wide(torch, log, nev, ev_wide))
-            print(f"newton phase nev={nev}: {time.perf_counter() - t0:.1f} "
-                  f"s")
+            phase_kernels_wide(torch, log, nev)
+            paths[f"wide_{nev}"], ev_wide = phase_wide(torch, log, nev)
+            print(f"wide phase nev={nev}: {time.perf_counter() - t0:.1f} s")
+            if nev == EIGH_NEV:
+                t0 = time.perf_counter()
+                newton_paths, fused = phase_newton_wide(torch, log, nev,
+                                                        ev_wide)
+                paths.update(newton_paths)
+                print(f"newton phase nev={nev}: "
+                      f"{time.perf_counter() - t0:.1f} s")
+    paths[f"newton_{EIGH_NEV}_mesh"] = phase_newton_mesh(
+        torch, card, projected, orders, fused)
     t0 = time.perf_counter()
     paths["irregular_wide"], paths["irregular_wide_mesh"] = \
         phase_irregular_wide(torch, log, a, a_rcm, ev_irregular)

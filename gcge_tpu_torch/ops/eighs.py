@@ -10,7 +10,8 @@ Five backends, chosen by :func:`eigh`:
 * ``'newton'``: :func:`eigh_newton`, masked Newton refinement of the
   eigenvectors at O(m^3) a step plus batched mean-shifted eighs of the
   near-degenerate runs (``gcge_tpu``'s large-m path, and the one its
-  structural Rayleigh-Ritz warm start seeds);
+  structural Rayleigh-Ritz warm start seeds), whose work splits over the
+  ranks of a mesh by columns and by cluster blocks;
 * ``'host'``: LAPACK on the host (``torch.linalg.eigh`` of a CPU copy).
 
 The Jacobi sweeps run in one launch of a hand-written CUDA kernel on a card
@@ -44,10 +45,15 @@ from gcge_tpu_torch.ops import _build
 CALLS = {"safe_eigh": 0, "host": 0}
 # launches of the Jacobi kernel (csrc/jacobi.cu) since the last reset
 LAUNCHES = {"jacobi": 0}
-# eigh_newton since the last reset: "calls", and "closing_rounds", the
-# rounds of its closing stage that ran (each a batched eigh of up to eight
-# blocks of min(512, m) rows and one Jacobi launch on them)
-NEWTON = {"calls": 0, "closing_rounds": 0}
+# eigh_newton since the last reset: "calls"; "closing_rounds", the rounds of
+# its closing stage that ran (each a batched eigh of up to eight blocks of
+# min(512, m) rows and one Jacobi launch on them); under a mesh, the
+# collectives of its partition: "gathers" (all_gathers) and "broadcasts"
+NEWTON = {"calls": 0, "closing_rounds": 0, "gathers": 0, "broadcasts": 0}
+# eigh_newton's work under a mesh since the last reset, by the width it ran
+# on in this rank: "cols", its O(m^3) products by their columns (|J_r|);
+# "blocks", its batched cluster eighs and Jacobi polishes by their blocks
+SPLIT = {"cols": {}, "blocks": {}}
 
 # orth_block takes eigh_newton for Grams of at least this many columns, as
 # gcge_tpu does (its F32_WARM_MIN_M).  gcge_tpu's eigh_newton also turns its
@@ -86,7 +92,7 @@ def _read(flags: list) -> list[bool]:
     return [bool(f) for f in torch.stack(flags).tolist()]
 
 
-def safe_eigh(h: torch.Tensor, extra=None):
+def safe_eigh(h: torch.Tensor, extra=None, finish=None):
     """``torch.linalg.eigh`` with a shift and a NaN retry; ``h`` one
     matrix or a batch ``(..., m, m)``.
 
@@ -101,25 +107,33 @@ def safe_eigh(h: torch.Tensor, extra=None):
     tensors that are read in the same copy as the NaN flag; then
     ``(w, u, flags)`` is returned, the flags as Python bools.  A caller
     whose branch needs a device value reads it here, in a wait that happens
-    anyway."""
+    anyway.
+
+    ``finish``: a function of each attempt's ``(w, u, bad)`` (``bad`` the
+    NaN flag of each matrix) giving the ``(w, u, bad)`` that the NaN test,
+    the retry's select and ``extra`` then see: :func:`eigh_newton`'s
+    cluster stage polishes its blocks there and, under a mesh, gathers
+    every rank's slice of the batch, so that every rank reads the same
+    flags and retries together."""
     scale = h.diagonal(dim1=-2, dim2=-1).abs().amax(-1, keepdim=True) + 1e-300
     eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
 
     def attempt(rel_reg: float):
         reg = rel_reg * scale
         w, u = torch.linalg.eigh(h + reg[..., None] * eye)
-        return w - reg, u
+        w = w - reg
+        bad = torch.isnan(w).any(-1) | torch.isnan(u).any(-1).any(-1)
+        return (w, u, bad) if finish is None else finish(w, u, bad)
 
     CALLS["safe_eigh"] += 1
     with host_read_allowed(h.device):
-        w, u = attempt(1e-10)
-        bad = torch.isnan(w).any(-1) | torch.isnan(u).any(-1).any(-1)
+        w, u, bad = attempt(1e-10)
         flags = [bad.any()]
         if extra is not None:
             flags += extra(w, u)
         got = _read(flags)
         if got[0]:
-            w2, u2 = attempt(1e-7)
+            w2, u2, _ = attempt(1e-7)
             w = torch.where(bad[..., None], w2, w)
             u = torch.where(bad[..., None, None], u2, u)
             if extra is not None:       # the flags of the result returned
@@ -340,6 +354,87 @@ def _keep(go, new, old):
     return tuple(torch.where(go, a, b) for a, b in zip(new, old))
 
 
+def column_ranges(m: int, world: int) -> list[tuple[int, int]]:
+    """The contiguous ranges ``[j0, j1)`` of :func:`eigh_newton`'s partition
+    of ``m`` columns (or blocks) over ``world`` ranks, one a rank in rank
+    order: ``ceil(m / world)`` each, the last ones shorter or empty where
+    ``world`` does not divide ``m``, so that the ranges, each padded to the
+    same width and gathered in rank order, hold the ``m`` first."""
+    k = -(-m // world)
+    return [(min(r * k, m), min((r + 1) * k, m)) for r in range(world)]
+
+
+class _Split:
+    """:func:`eigh_newton`'s partition over the ranks of ``mesh`` (a row
+    mesh, or every rank of a grid): this rank's columns ``J_r`` of the
+    ``m x m`` factors, its slice of a batch of cluster blocks, and the
+    collectives that give every rank the whole, the same bits on each.
+    Without a mesh (``mesh=None``) one rank holds every column and every
+    block, the collectives return their input, and nothing is counted."""
+
+    def __init__(self, mesh, m: int):
+        self.mesh = mesh.everyone() if hasattr(mesh, "everyone") else mesh
+        self.world, self.rank = ((1, 0) if mesh is None
+                                 else (self.mesh.world, self.mesh.rank))
+        self.m = m
+        self.k = -(-m // self.world)
+        self.j = slice(*column_ranges(m, self.world)[self.rank])
+
+    def count(self, kind: str, width: int) -> None:
+        if self.mesh is not None:
+            widths = SPLIT[kind]
+            widths[width] = widths.get(width, 0) + 1
+
+    def start(self, w0, u, warm_h1):
+        """Rank 0's warm start ``(w0, u, warm_h1)`` on every rank, by one
+        broadcast (``warm_h1`` may be None)."""
+        if self.mesh is None:
+            return w0, u, warm_h1
+        NEWTON["broadcasts"] += 1
+        start = [w0[None, :], u] + ([] if warm_h1 is None else [warm_h1])
+        start = self.mesh.broadcast(torch.cat(start))
+        return (start[0], start[1:self.m + 1],
+                None if warm_h1 is None else start[self.m + 1:])
+
+    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``a @ b``, ``b`` this rank's columns of an ``m x m`` factor."""
+        self.count("cols", b.shape[1])
+        return a @ b
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``(m, m)`` whose columns ``J_r`` each rank holds as ``x``."""
+        if self.mesh is None:
+            return x
+        NEWTON["gathers"] += 1
+        world, rows = self.world, x.shape[0]
+        x = torch.nn.functional.pad(x, (0, self.k - x.shape[1]))
+        full = self.mesh.gather(x).view(world, rows, self.k)
+        return full.permute(1, 0, 2).reshape(rows, world * self.k)[
+            :, :self.m].contiguous()
+
+    def block_slice(self, nblk: int) -> slice:
+        """This rank's slice of ``nblk`` blocks padded to a multiple of the
+        rank count (see :meth:`blocks_padded`)."""
+        kb = -(-nblk // self.world)
+        return slice(self.rank * kb, (self.rank + 1) * kb)
+
+    def blocks_padded(self, nblk: int) -> int:
+        return -(-nblk // self.world) * self.world
+
+    def gather_blocks(self, wb, vb, bad):
+        """Every rank's ``(wb, vb, bad)`` of its slice of the blocks, in
+        block order, by one all_gather."""
+        if self.mesh is None:
+            return wb, vb, bad
+        NEWTON["gathers"] += 1
+        c = wb.shape[-1]
+        part = torch.cat([vb, wb[:, None, :],
+                          bad.to(vb.dtype)[:, None, None].expand(-1, 1, c)],
+                         dim=1)
+        full = self.mesh.gather(part)
+        return full[:, c], full[:, :c], full[:, c + 1, 0] > 0
+
+
 def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
                 nblk: int | None = None, polish_sweeps: int = 4, warm=None,
                 warm_dtype: str = "auto", passes: int | None = None,
@@ -373,10 +468,32 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
     them, holds: no wait is added to the eighs'.  ``NEWTON`` counts the
     calls and the closing rounds that ran.
 
-    ``mesh``: under a row mesh or a grid every rank solves its (identical)
-    ``h`` and takes rank 0's ``(w, u)`` (one broadcast), as :func:`eigh`
-    does; ``gcge_tpu``'s column-partitioned refinement is not ported.
-    ``out``: ``'replicated'`` or ``'cols'``, both the whole ``u`` here."""
+    ``mesh`` (a row mesh or a grid): the O(m^3) work is split over every
+    rank of the mesh, ``gcge_tpu``'s analogue of the reference's
+    spectrum-sliced ``dsyevx`` (``ops_eig_sol_gcg.c:1084-1189``).  Every
+    rank starts from rank 0's ``(w0, u0)`` (and ``warm_h1``), one
+    broadcast.  Rank ``r`` then forms the columns ``J_r`` of each ``m x m``
+    product (:func:`column_ranges`: contiguous, in rank order, ``m`` need
+    not divide) and one all_gather gives every rank the whole: in
+    ``h1 = u^T h u``, in the refinement's ``u (I + E)``, its Newton-Schulz
+    step and in the cluster stage's ``u S``; the cluster stage's batched
+    eigh and Jacobi polish run on this rank's slice of the blocks (padded
+    to a multiple of the rank count), whose ``(wb, vb)`` one all_gather
+    stitches.  Every O(m^2) step and every flag is computed from gathered
+    values, so every rank takes the same branches and ends with the same
+    bits, with no broadcast at the end.  ``gcge_tpu`` shards over its
+    mesh's first axis; the port splits over every rank of a grid
+    (``GridMesh.everyone``), whose rows would otherwise repeat the work.
+    The batched eigh of a slice may take another routine than the whole
+    batch's, so the result equals ``mesh=None``'s to rounding; on one rank
+    it is ``mesh=None``'s bits.  ``NEWTON`` counts the gathers and
+    broadcasts, ``SPLIT`` the products' columns and the blocks' slices.
+
+    ``out``: ``'replicated'``, the whole ``u``; ``'cols'``, under a mesh
+    this rank's columns ``J_r`` of ``u`` (the explicit form of
+    ``gcge_tpu``'s column-sharded result; every rank holds the whole ``u``
+    after the last gather anyway), without one the whole ``u``.  ``w`` is
+    always whole."""
     if out not in ("replicated", "cols"):
         raise ValueError(f"out must be 'replicated' or 'cols', got {out!r}")
     if passes is not None and passes < 1:
@@ -388,6 +505,7 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
     if nblk is None:
         nblk = max(1, min(m // 2, 64))
     NEWTON["calls"] += 1
+    split = _Split(mesh, m)
     use_f32_warm = warm is None and warm_dtype == "f32"
     if passes is None:
         passes = 3 if use_f32_warm else 1
@@ -398,6 +516,7 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
         w0, u = w32.to(dt), u32.to(dt)
     else:
         w0, u = safe_eigh(h)
+    w0, u, warm_h1 = split.start(w0, u, warm_h1)
     scale = torch.clamp(w0.abs().max(), min=1e-300)
     eye = torch.eye(m, dtype=dt, device=dev)
     offmask = 1.0 - eye
@@ -408,7 +527,7 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
     idx = torch.arange(m, device=dev)
 
     def h1_of(u):
-        h1 = u.T @ (h @ u)
+        h1 = split.gather(split.mm(u.T, split.mm(h, u[:, split.j])))
         return 0.5 * (h1 + h1.T)
 
     def gap_tol_of(h1):
@@ -447,9 +566,10 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
             ea = e.abs()
             e_2 = torch.sqrt(ea.sum(0).max() * ea.sum(1).max())
             e = e * torch.clamp(0.25 / torch.clamp(e_2, min=1e-300), max=1.0)
-            un = u_ @ (eye + e)
-            g = un.T @ un
-            un = un @ (1.5 * eye - 0.5 * g)
+            j = split.j
+            un = split.gather(split.mm(u_, (eye + e)[:, j]))
+            g_j = split.mm(un.T, un[:, j])
+            un = split.gather(split.mm(un, 1.5 * eye[:, j] - 0.5 * g_j))
             st = _keep(go, (un, h1_of(un), off, bu, bh1, boff), st)
         u, h1, _, bu, bh1, boff = st
         worse = masked_off(h1) > boff
@@ -485,9 +605,11 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
             # jnp.nonzero(multi_start, size=nblk_, fill_value=m) by a sort
             starts = torch.sort(torch.where(multi_start, idx, m)).values
             starts = starts[:nblk_]
-        if starts.shape[0] < nblk_:
+        # under a mesh padded to a multiple of the rank count
+        nb = split.blocks_padded(nblk_)
+        if starts.shape[0] < nb:
             starts = torch.cat([starts, starts.new_full(
-                (nblk_ - starts.shape[0],), m)])
+                (nb - starts.shape[0],), m)])
         valid_blk = starts < m
         lens = torch.where(valid_blk, seg_len.index_select(
             0, seg.index_select(0, torch.clamp(starts, max=m - 1))), 0)
@@ -505,8 +627,17 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
         diag_new = torch.where(in_blk, -mu[:, None], pad_diag)
         sub = sub + diag_new[:, :, None] * eye_c
 
-        def rotate(wb0, vb0):
-            wb, vb = jacobi_polish(sub, wb0, vb0, sweeps=polish_sweeps)
+        # this rank's slice of the blocks, eigensolved and polished here (in
+        # safe_eigh's finish); safe_eigh's flags and selects see every
+        # rank's
+        blocks = sub[split.block_slice(nb)]
+        split.count("blocks", blocks.shape[0])
+
+        def finish(wb0, vb0, bad):
+            wb, vb = jacobi_polish(blocks, wb0, vb0, sweeps=polish_sweeps)
+            return split.gather_blocks(wb, vb, bad)
+
+        def rotate(wb, vb):
             # the block rotations scattered into a block-diagonal m x m one
             # (each entry gets one block's value, the rest adds zeros)
             flat = (rows[:, :, None] * m + rows[:, None, :]).reshape(-1)
@@ -519,10 +650,10 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
             w = torch.where(covered, 0.0, d).index_add_(
                 0, rows.reshape(-1),
                 torch.where(in_blk, wb + mu[:, None], 0.0).reshape(-1))
-            return u @ s_rot, w
+            return split.gather(split.mm(u, s_rot[:, split.j])), w
 
         if then is None:
-            return rotate(*safe_eigh(sub))
+            return rotate(*safe_eigh(blocks, finish=finish))
         done = {}
 
         def extra(wb0, vb0):
@@ -530,7 +661,7 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
             flags, done["more"] = then(*done["uw"])
             return flags
 
-        _, _, flags = safe_eigh(sub, extra)
+        _, _, flags = safe_eigh(blocks, extra, finish=finish)
         return (*done["uw"], flags, done["more"])
 
     def tot_off(h1c):
@@ -590,10 +721,9 @@ def eigh_newton(h, iters: int = 4, theta: float | None = None, cap: int = 64,
 
     order = torch.argsort(w, stable=True)
     w, u = w.index_select(0, order), u.index_select(1, order)
-    if mesh is None:
-        return w, u
-    wu = mesh.broadcast(torch.cat([w[None, :], u]))
-    return wu[0], wu[1:]
+    if out == "cols":
+        u = u[:, split.j]
+    return w, u
 
 
 def _host_eigh(h):
@@ -621,10 +751,11 @@ def eigh(h: torch.Tensor, backend: str = "auto", mesh=None, warm=None,
     picks Jacobi or Newton only on a TPU in f64), ``'jacobi'``
     :func:`eigh_jacobi`, ``'newton'`` :func:`eigh_newton` (which alone takes
     ``warm``, ``warm_h1``, ``cluster_first`` and ``passes``), ``'host'``
-    LAPACK on the host.  Under a row mesh every rank solves its (identical)
-    ``h`` and then takes rank 0's ``(w, u)``, one ``m x m`` broadcast, so
-    that the ranks can never take different branches on eigenvalues that
-    differ in the last bit."""
+    LAPACK on the host.  Under a row mesh or a grid ``'newton'`` splits its
+    work over the ranks (see :func:`eigh_newton`); every other backend
+    solves its (identical) ``h`` on every rank and then takes rank 0's
+    ``(w, u)``, one ``m x m`` broadcast, so that the ranks can never take
+    different branches on eigenvalues that differ in the last bit."""
     check_backend(backend)
     if backend == "newton":
         return eigh_newton(h, mesh=mesh, warm=warm, warm_h1=warm_h1,

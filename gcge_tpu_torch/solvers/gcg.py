@@ -545,7 +545,7 @@ def _compute_w(a_op, b_op, v, ritz, ss_eval, act_idx, act_cnt, sigma,
     return v, w_cnt, niters, final_res
 
 
-def _rr_struct_warm(h_eig, size_x: int, bs: int):
+def _rr_struct_warm(h_eig, size_x: int, bs: int, mesh=None):
     """Structural warm start for the Rayleigh-Ritz eigensolve
     (``gcge_tpu/solvers/gcg.py:316-358``).
 
@@ -564,13 +564,26 @@ def _rr_struct_warm(h_eig, size_x: int, bs: int):
     wait of the (2bs)^2 eigh (:func:`safe_eigh`'s ``extra``: the polish and
     the premise are queued before that wait), so that it adds no wait.  The
     two packages sum the norm in different orders, so a coupling within
-    rounding of the threshold may take different branches in them."""
+    rounding of the threshold may take different branches in them.
+
+    Under a mesh every rank takes rank 0's eigh of the trailing block (and
+    its NaN flag, so that the ranks retry together) and rank 0's premise,
+    each by a broadcast queued before that wait: the two branches run
+    different collectives, so the ranks must take the same one."""
     dev, dt = h_eig.device, h_eig.dtype
     m = size_x + 2 * bs
     t = h_eig[size_x:, size_x:]
     h_xt = h_eig[:size_x, size_x:]
     lam_x = h_eig.diagonal()[:size_x]
     warm = {}
+
+    def rank0_eigh(wt0, qt0, bad):
+        if mesh is None:
+            return wt0, qt0, bad
+        k = wt0.shape[0]
+        got = mesh.broadcast(torch.cat([wt0[None, :], qt0,
+                                        bad.to(dt).expand(1, k)]))
+        return got[0], got[1:k + 1], got[k + 1, 0] > 0
 
     def premise(wt0, qt0):
         wt, qt = jacobi_polish(t, wt0, qt0, sweeps=2)
@@ -583,9 +596,12 @@ def _rr_struct_warm(h_eig, size_x: int, bs: int):
         coupling = torch.linalg.norm(h1 * (1.0 - torch.eye(m, dtype=dt,
                                                            device=dev)))
         spread = torch.clamp(d0.max() - d0.min(), min=1e-300)
-        return [coupling < 0.02 * spread]
+        ok = coupling < 0.02 * spread
+        if mesh is not None:
+            ok = mesh.broadcast(ok.reshape(1).to(dt))[0] > 0
+        return [ok]
 
-    _, _, (warm_ok,) = safe_eigh(t, extra=premise)
+    _, _, (warm_ok,) = safe_eigh(t, extra=premise, finish=rank0_eigh)
     d0, h1 = warm["d0"], warm["h1"]
     perm = torch.argsort(d0, stable=True)
     u0 = torch.block_diag(torch.eye(size_x, dtype=dt, device=dev),
@@ -631,7 +647,7 @@ def _rayleigh_ritz(a_op, v, h_pp, ss_eval, p_cnt, w_cnt, size_x: int,
     h_eig = h + torch.diag((1.0 - fvalid) * gersh)
     warm_ok = False
     if rr_warm and rr_backend == "newton":
-        d0, u0, h1w, warm_ok = _rr_struct_warm(h_eig, size_x, bs)
+        d0, u0, h1w, warm_ok = _rr_struct_warm(h_eig, size_x, bs, mesh)
     if warm_ok:
         w, c = eigh(h_eig, "newton", mesh, warm=(d0, u0), warm_h1=h1w,
                     cluster_first=False)

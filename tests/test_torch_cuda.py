@@ -1606,6 +1606,24 @@ def test_jacobi_kernel_has_the_plain_bits(cuda, me, batch, noise):
         assert int(kk.min()) > 0
 
 
+@pytest.mark.parametrize("me,batch", [(64, 64), (480, 8)])
+def test_jacobi_kernel_on_a_ranks_slice_has_the_batch_bits(cuda, me, batch):
+    """``eigh_newton`` under a mesh polishes each rank's slice of the
+    cluster blocks: the Jacobi kernel on each 4-way slice of a batch (64
+    blocks of 64, the cluster stage's; 8 of 480, the closing stage's at
+    nev=200) from a 1e-6 warm start gives the bits and sweep counts of the
+    matching blocks of the whole batch's launch (each block stops on its
+    own)."""
+    h1 = _warm_h1(me, batch, 1e-6, cuda, me + batch)
+    whole = eighs.jacobi_sweeps(h1, 4)
+    kb = batch // 4
+    for r in range(4):
+        part = eighs.jacobi_sweeps(h1[r * kb:(r + 1) * kb], 4)
+        for got, ref in zip(part, whole):
+            assert torch.equal(got, ref[r * kb:(r + 1) * kb])
+    assert int(whole[2].min()) > 0
+
+
 def test_eighs_on_the_card_match_the_cpu(cuda):
     """``eigh_jacobi`` and ``eigh_newton`` on the card against the same
     functions on the CPU and against LAPACK: eigenvalues 1e-12, residual

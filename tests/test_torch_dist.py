@@ -24,7 +24,10 @@ replicated coarse levels of a sharded AMG hierarchy give every rank the
 same bits.  On the (2, 2) grid every rank holds the same eigenvalues,
 counts and gathered eigenvectors, bit for bit; a (4, 1) grid gives the row
 mesh's bits, and ``pcg(mesh=)`` is within 1e-13 of the undistributed
-``pcg``.
+``pcg``.  The partitioned ``eigh_newton`` (4-rank row mesh, (2, 2) grid, 2
+ranks) has eigenvalues within 1e-12 of gcge_tpu's sharded one and of the
+port's without a mesh, spans within 1e-10, the same bits on every rank;
+on one rank the bits of ``mesh=None``.
 """
 
 import os
@@ -356,9 +359,9 @@ def _jax_grid_refs(path):
     """gcge_tpu on ``grid_mesh(2, 2)`` (``tests/test_dist.py``'s grid
     cases): the sharded DIA and ELL products of ``block(512, 6, 7)`` and
     GCG on the sharded ELL operator (its phased loop, the reference of both
-    loops of the port); and ``gcge_tpu.solve(distribute="grid")`` of the
-    cube FEM pair's plain case on its 8 devices, a (4, 2) grid.  Pickled to
-    ``path`` as numpy values."""
+    loops of the port); ``gcge_tpu.solve(distribute="grid")`` of the cube
+    FEM pair's plain case on its 8 devices, a (4, 2) grid; and
+    :func:`_jax_newton_refs`.  Pickled to ``path`` as numpy values."""
     from gcge_tpu.parallel import grid_mesh as j_grid_mesh
     from gcge_tpu.parallel import shard_mv as j_shard_mv
 
@@ -382,6 +385,7 @@ def _jax_grid_refs(path):
                                  x0=jnp.asarray(w.x0_for(a.shape[0], k)),
                                  **kw)
     out["fem_plain"] = (np.asarray(ev), None, int(conv))
+    out["newton"] = _jax_newton_refs()
     with open(path, "wb") as f:
         pickle.dump(out, f)
 
@@ -417,8 +421,50 @@ def jax_grid(jax_grid_child):
         return pickle.load(f)
 
 
+def _jax_newton_refs():
+    """gcge_tpu's sharded ``eigh_newton`` of each case of ``NEWTON_CASES``
+    on row_mesh(4) (``tests/test_dist.py``'s call, the same warm start):
+    its eigenvalues; and its distributed GCG with the 'newton'
+    Rayleigh-Ritz of each case of ``NEWTON_SOLVES`` on row_mesh(4) (its
+    phased loop, the reference of both loops)."""
+    from gcge_tpu.ops.eighs import eigh_newton as j_eigh_newton
+
+    mesh = j_row_mesh(4)
+    out = {}
+    for name, (m, nblk) in w.NEWTON_CASES.items():
+        h, w0, u0 = w.newton_case(m)
+        wj, _ = j_eigh_newton(jnp.asarray(h), nblk=nblk, mesh=mesh,
+                              warm=(jnp.asarray(w0), jnp.asarray(u0)))
+        out[name] = np.asarray(wj)
+    rows, cols, vals, _ = w.laplacian_1d(w.GRID_N)
+    op = j_shard_operator(JDia.from_coo(rows, cols, vals,
+                                        (w.GRID_N, w.GRID_N)), mesh)
+    for name, (warm, _) in w.NEWTON_SOLVES.items():
+        res = j_gcg_solve(op, None, JParams(verbose=0, rr_warm=warm, fuse=0,
+                                            **w.NEWTON_GCG),
+                          x0=jnp.asarray(w.x0_for(w.GRID_N,
+                                                  w.NEWTON_GCG_X0)),
+                          mesh=mesh)
+        out[name] = SimpleNamespace(eval=np.asarray(res.eval),
+                                    nev_conv=int(res.nev_conv),
+                                    num_iter=int(res.num_iter))
+    return out
+
+
 @pytest.fixture(scope="module")
-def four(ranks, jax_matvecs, jax_solves, jax_mg, jax_grid, jax_api):
+def jax_newton(jax_grid):
+    """The child's gcge_tpu references of the partitioned eigh and the
+    'newton' GCG (:func:`_jax_newton_refs`), and the port's
+    ``eigh_newton`` of each case of ``NEWTON_CASES`` without a mesh."""
+    out = dict(jax_grid["newton"])
+    for name, (m, nblk) in w.NEWTON_CASES.items():
+        out[name] = {"jax": out[name], "port": w.newton_eigh(None, m, nblk)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def four(ranks, jax_matvecs, jax_solves, jax_mg, jax_grid, jax_api,
+         jax_newton):
     """The four-rank group's results (joined after gcge_tpu's products and
     solves, all of which this process computes while the ranks run)."""
     return joined(ranks, "four")
@@ -486,10 +532,14 @@ def test_distributed_gcg_matches_jax(jax_solves, four, name):
 
 
 @pytest.mark.parametrize("name", ["dia_std_mixed_fused",
-                                  "csr_std_mixed_phased"])
+                                  "csr_std_mixed_phased", "eigh_newton",
+                                  "gcg_newton"])
 def test_one_rank_mesh_equals_no_mesh_bit_for_bit(four, name):
     """A mesh of one rank (a subgroup of rank 0) gives the solve without a
-    mesh bit for bit: eigenvalues, eigenvectors, iterations, count."""
+    mesh bit for bit: eigenvalues, eigenvectors, iterations, count; so
+    does ``eigh_newton`` (m=190, both outputs; its products ran on all m
+    columns, its gathers copies) and GCG with the 'newton' Rayleigh-Ritz
+    (the structural warm start, the fused loop)."""
     out, _ = four
     got = w.result(out, "four", "one_rank")[0]
     assert got["world"] == 1
@@ -953,3 +1003,128 @@ def test_pcg_one_rank_mesh_equals_no_mesh_bit_for_bit(two):
     """``pcg`` on a one-rank subgroup: the undistributed ``pcg``'s bits."""
     out, _ = two
     assert w.result(out, "two", "grid_two")[0]["pcg_one_rank"] is True
+
+
+# ---------------------------------------------------------------------------
+# the partitioned eigh_newton over four and two ranks against gcge_tpu's
+# sharded eigh_newton, and the distributed 'newton' GCG
+# ---------------------------------------------------------------------------
+
+
+def _sin_angle(a, b):
+    """Sine of the largest principal angle between the spans of the
+    orthonormal columns ``a`` and ``b``."""
+    return np.linalg.norm(b - a @ (a.T @ b), 2)
+
+
+@pytest.mark.parametrize("case", list(w.NEWTON_CASES))
+@pytest.mark.parametrize("name", ["four_rows", "four_grid", "two_rows"])
+def test_partitioned_eigh_newton_matches_jax(jax_newton, request, name,
+                                             case):
+    """``eigh_newton(mesh=)`` on the 4-rank row mesh, the (2, 2) grid and
+    the 2-rank row mesh, on tests/test_dist.py's sharded case (m=192, a
+    degenerate cluster at 40-43, a warm start 3e-7 off) and at m=190 with
+    63 blocks (neither divides by the ranks): eigenvalues within 1e-12 of
+    gcge_tpu's sharded eigh_newton and of the port's without a mesh, the
+    residual below 1e-9 of max|lambda|, the cluster's span and that of the
+    44 lowest pairs within 1e-10 of the port's without a mesh; every rank
+    the same bits; the ``out='cols'`` blocks, stitched, the replicated u
+    bit for bit; each product on the rank's ``|J_r|`` columns and each
+    block eigh on its slice of the blocks (the counters), one broadcast."""
+    from gcge_tpu_torch.ops.eighs import column_ranges
+
+    group, kind = name.split("_")
+    out, _ = request.getfixturevalue(group)
+    parts = [p[kind, case] for p in w.result(out, group, "newton")]
+    m, nblk = w.NEWTON_CASES[case]
+    world = len(parts)
+    ref = jax_newton[case]
+    h, _, _ = w.newton_case(m)
+    res = parts[0]
+    for p in parts[1:]:
+        np.testing.assert_array_equal(p["w"], res["w"])
+        np.testing.assert_array_equal(p["u"], res["u"])
+    stitched = np.concatenate([p["u_cols"] for p in parts], axis=1)
+    np.testing.assert_array_equal(stitched, res["u"])
+    wr, ur = res["w"], res["u"]
+    for other in (ref["jax"], ref["port"]["w"]):
+        assert np.max(np.abs(wr - other) / np.abs(other)) <= 1e-12
+    lam_max = np.abs(wr).max()
+    assert np.linalg.norm(h @ ur - ur * wr, axis=0).max() <= 1e-9 * lam_max
+    u_plain = ref["port"]["u"]
+    for cols in (slice(40, 44), slice(0, 44)):
+        assert _sin_angle(ur[:, cols], u_plain[:, cols]) <= 1e-10
+    nblk = nblk or min(m // 2, 64)
+    for rank, p in enumerate(parts):
+        j0, j1 = column_ranges(m, world)[rank]
+        assert p["u_cols"].shape == (m, j1 - j0)
+        assert set(p["cols"]) == {j1 - j0}
+        assert -(-nblk // world) in p["blocks"]
+        assert set(p["blocks"]) <= {-(-nblk // world), -(-min(8, m // 2)
+                                                        // world)}
+        assert p["broadcasts"] == 1 and p["gathers"] == res["gathers"] > 0
+
+
+def test_newton_column_ranges_cover_every_column():
+    """The partition's ranges: contiguous, in rank order, ceil(m / world)
+    wide but the last ones, covering [0, m) once, also where the rank count
+    does not divide m or exceeds it."""
+    from gcge_tpu_torch.ops.eighs import column_ranges
+
+    for m, world in ((192, 4), (190, 4), (11, 4), (5, 4), (3, 4), (7, 1)):
+        ranges = column_ranges(m, world)
+        assert len(ranges) == world and ranges[0][0] == 0
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert ranges[-1][1] == m
+        assert max(j1 - j0 for j0, j1 in ranges) == -(-m // world)
+    assert column_ranges(190, 4) == [(0, 48), (48, 96), (96, 144),
+                                     (144, 190)]
+
+
+@pytest.mark.parametrize("name", list(w.NEWTON_SOLVES))
+def test_distributed_newton_gcg_matches_jax(jax_newton, four, name):
+    """GCG with ``rr_backend='newton'`` on the 4-rank row mesh
+    (tests/test_dist.py's case: the 1-D Laplacian at n=512, nev=5, block 3,
+    rel-tol 1e-8), cold by the phased loop and with the structural warm
+    start by the fused loop, against gcge_tpu's distributed 'newton' GCG on
+    row_mesh(4): the same converged count, eigenvalues within 1e-10; every
+    rank the same eigenvalues and iterations; the Newton eighs' products
+    on the rank's columns of m = size_x + 2 block = 16; with the warm
+    start, every rank took it in the same steps, at least one (the mesh
+    path that carries ``warm_h1`` ran)."""
+    out, _ = four
+    parts = [p[name] for p in w.result(out, "four", "newton_gcg")]
+    res, ref = parts[0], jax_newton[name]
+    for p in parts[1:]:
+        np.testing.assert_array_equal(p["eval"], res["eval"])
+        assert (p["num_iter"], p["nev_conv"]) == (res["num_iter"],
+                                                  res["nev_conv"])
+    nev = w.NEWTON_GCG["nev"]
+    assert res["nev_conv"] == ref.nev_conv >= nev
+    ev_ref = ref.eval[:nev]
+    assert np.max(np.abs(res["eval"][:nev] - ev_ref) / ev_ref) <= 1e-10
+    for p in parts:
+        assert p["cols"].get(4, 0) > 0 and p["evec"].shape[0] == w.GRID_N // 4
+        assert p["warm_taken"] == res["warm_taken"]
+    taken = res["warm_taken"]
+    if name == "struct_fused":
+        assert 0 < sum(taken) < len(taken)
+    else:
+        assert taken == []
+
+
+def test_struct_warm_premise_is_rank_zeros(four):
+    """``_rr_struct_warm`` under a mesh takes rank 0's premise: on a matrix
+    whose premise holds on rank 0 and fails on the others (their X-W
+    coupling is large), every rank of the row mesh and of the (2, 2) grid
+    takes the warm branch, and the Newton eigh after it ends with the same
+    bits on every rank (the warm and the cold branch run different
+    collectives: ranks that split would hang or mix)."""
+    out, _ = four
+    parts = w.result(out, "four", "struct_warm_flag")
+    assert [p["alone"] for p in parts] == [True, False, False, False]
+    for kind in ("rows", "grid"):
+        assert all(p[kind]["ok"] is True for p in parts)
+        for p in parts[1:]:
+            np.testing.assert_array_equal(p[kind]["w"], parts[0][kind]["w"])
+            np.testing.assert_array_equal(p[kind]["u"], parts[0][kind]["u"])

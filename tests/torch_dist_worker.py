@@ -13,6 +13,7 @@ hands the same inputs to ``gcge_tpu``.
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import socket
@@ -312,6 +313,19 @@ def task_one_rank(mesh):
                      and torch.equal(plain.evec, dist_.evec)
                      and plain.num_iter == dist_.num_iter
                      and plain.nev_conv == dist_.nev_conv)
+    # eigh_newton (both outputs) and GCG with its Rayleigh-Ritz
+    m, nblk = NEWTON_CASES["m190_nblk63"]
+    plain = newton_eigh(None, m, nblk)
+    runs = [newton_eigh(one, m, nblk, out) for out in ("replicated", "cols")]
+    out["eigh_newton"] = (all(np.array_equal(plain[k], r[k]) for k in "wu"
+                              for r in runs)
+                          and runs[0]["gathers"] > 0
+                          and runs[0]["cols"].keys() == {m})
+    plain, dist_ = (newton_gcg(msh, "struct_fused")[0] for msh in (None, one))
+    out["gcg_newton"] = (np.array_equal(plain.eval, dist_.eval)
+                         and torch.equal(plain.evec, dist_.evec)
+                         and plain.num_iter == dist_.num_iter
+                         and plain.nev_conv == dist_.nev_conv)
     return out
 
 
@@ -720,6 +734,163 @@ def task_grid_two(mesh):
     return out
 
 
+# the partitioned eigh_newton: tests/test_dist.py's sharded case (m=192, a
+# degenerate cluster at 40-43, a warm start 3e-7 off) and the same at an m
+# and a block count (nblk) that four ranks do not divide: name -> (m, nblk)
+NEWTON_CASES = {"m192": (192, None), "m190_nblk63": (190, 63)}
+# GCG with the 'newton' Rayleigh-Ritz (tests/test_dist.py's case): the 1-D
+# Laplacian at n=512 from x0_for(512, NEWTON_GCG_X0); name -> (rr_warm,
+# fuse)
+NEWTON_GCG = dict(nev=5, block_size=3, tol_rel=1e-8, rr_backend="newton")
+NEWTON_GCG_X0 = 10
+NEWTON_SOLVES = {"cold_phased": ("off", 0), "struct_fused": ("struct", 5)}
+
+
+@functools.lru_cache(maxsize=None)
+def newton_case(m: int):
+    """``(h, w0, u0)``: ``tests/test_dist.py``'s sharded eigh case at order
+    ``m`` (its ``rng`` is ``default_rng(42)``): eigenvalues uniform in [0.5,
+    50] with 40-43 equal, and the warm start's eigenvectors 3e-7 off."""
+    rng = np.random.default_rng(42)
+    lam = np.sort(rng.uniform(0.5, 50.0, m))
+    lam[40:44] = lam[40]
+    q, _ = np.linalg.qr(rng.standard_normal((m, m)))
+    h = q * lam[None, :] @ q.T
+    h = 0.5 * (h + h.T)
+    w0, u0 = np.linalg.eigh(h)
+    u0 = u0 + 3e-7 * rng.standard_normal((m, m)) * np.abs(lam).max() ** 0.5
+    return h, w0, u0
+
+
+def newton_eigh(mesh, m: int, nblk, out: str = "replicated"):
+    """``eigh_newton`` of :func:`newton_case` on ``mesh`` (None: without
+    one): ``(w, u)`` as numpy, the collectives and the widths it ran on."""
+    import torch
+
+    from gcge_tpu_torch.ops import eighs
+
+    h, w0, u0 = (torch.as_tensor(a) for a in newton_case(m))
+    eighs.NEWTON.update(gathers=0, broadcasts=0)
+    for widths in eighs.SPLIT.values():
+        widths.clear()
+    w, u = eighs.eigh_newton(h, warm=(w0, u0), nblk=nblk, mesh=mesh,
+                             out=out)
+    return {"w": w.numpy(), "u": u.numpy(),
+            "gathers": eighs.NEWTON["gathers"],
+            "broadcasts": eighs.NEWTON["broadcasts"],
+            "cols": dict(eighs.SPLIT["cols"]),
+            "blocks": dict(eighs.SPLIT["blocks"])}
+
+
+def newton_gcg(mesh, name: str):
+    """GCG with the 'newton' Rayleigh-Ritz (:data:`NEWTON_SOLVES`) of the
+    1-D Laplacian on ``mesh`` (None: without one): the result, the widths
+    its Newton eighs ran on and, for each Rayleigh-Ritz step that offered
+    the structural warm start, whether it was taken (its premise)."""
+    from gcge_tpu_torch import GCGParams, gcg_solve
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.parallel import shard_operator
+    from gcge_tpu_torch.solvers import gcg
+
+    warm, fuse = NEWTON_SOLVES[name]
+    op = grid_operator("dia")
+    for widths in eighs.SPLIT.values():
+        widths.clear()
+    taken, struct_warm = [], gcg._rr_struct_warm
+
+    def counted(*args):
+        got = struct_warm(*args)
+        taken.append(bool(got[3]))
+        return got
+
+    gcg._rr_struct_warm = counted
+    try:
+        res = gcg_solve(op if mesh is None else shard_operator(op, mesh),
+                        None, GCGParams(verbose=0, rr_warm=warm, fuse=fuse,
+                                        **NEWTON_GCG),
+                        x0=x0_for(GRID_N, NEWTON_GCG_X0), mesh=mesh)
+    finally:
+        gcg._rr_struct_warm = struct_warm
+    return res, dict(eighs.SPLIT["cols"]), taken
+
+
+def task_newton(mesh):
+    """The partitioned ``eigh_newton`` of each :data:`NEWTON_CASES` case on
+    the row mesh of the group and, on four ranks, the (2, 2) grid:
+    ``out='replicated'`` with its counters, and ``out='cols'``."""
+    from gcge_tpu_torch.parallel import grid_mesh
+
+    meshes = {"rows": mesh}
+    if mesh.world == 4:
+        meshes["grid"] = grid_mesh(2, 2, device="cpu")
+    out = {}
+    for kind, msh in meshes.items():
+        for name, (m, nblk) in NEWTON_CASES.items():
+            got = newton_eigh(msh, m, nblk)
+            got["u_cols"] = newton_eigh(msh, m, nblk, out="cols")["u"]
+            out[kind, name] = got
+    return out
+
+
+def task_newton_gcg(mesh):
+    """GCG with the 'newton' Rayleigh-Ritz on the row mesh, cold (phased)
+    and with the structural warm start (fused): eigenvalues, counts, the
+    rank's rows of the eigenvectors and the widths of the Newton eighs'
+    products."""
+    out = {}
+    for name in NEWTON_SOLVES:
+        res, cols, taken = newton_gcg(mesh, name)
+        out[name] = {"eval": res.eval, "nev_conv": res.nev_conv,
+                     "num_iter": res.num_iter, "evec": res.evec.numpy(),
+                     "cols": cols, "warm_taken": taken}
+    return out
+
+
+def struct_warm_case(size_x: int, bs: int, coupling: float):
+    """A projected matrix of the Rayleigh-Ritz step's shape, ``size_x + 2
+    bs`` square: the X block diag(1..6), a symmetric trailing block with
+    eigenvalues in [7, 12] and an X-trailing coupling of entries
+    ``coupling`` times normal; the structural warm start's premise holds at
+    1e-6 and fails at 1."""
+    rng = np.random.default_rng(11)
+    k = 2 * bs
+    q, _ = np.linalg.qr(rng.standard_normal((k, k)))
+    h = np.zeros((size_x + k, size_x + k))
+    h[:size_x, :size_x] = np.diag(np.linspace(1.0, 6.0, size_x))
+    h[size_x:, size_x:] = q * np.linspace(7.0, 12.0, k) @ q.T
+    c = coupling * rng.standard_normal((size_x, k))
+    h[:size_x, size_x:], h[size_x:, :size_x] = c, c.T
+    return 0.5 * (h + h.T)
+
+
+def task_struct_warm_flag(mesh):
+    """``_rr_struct_warm`` on a projected matrix whose premise holds on
+    rank 0 only (the other ranks' X-W coupling is large), on the row mesh
+    and the (2, 2) grid: each rank's premise without a mesh and under it,
+    then the Newton eigh of the branch each rank takes (the warm one under
+    a mesh, whose collectives the cold one does not run)."""
+    import torch
+
+    from gcge_tpu_torch.ops.eighs import eigh
+    from gcge_tpu_torch.parallel import grid_mesh
+    from gcge_tpu_torch.solvers import gcg
+
+    size_x, bs = 6, 3
+    h = torch.as_tensor(struct_warm_case(size_x, bs,
+                                         1e-6 if mesh.rank == 0 else 1.0))
+    out = {"alone": bool(gcg._rr_struct_warm(h, size_x, bs)[3])}
+    for kind, msh in (("rows", mesh), ("grid", grid_mesh(2, 2,
+                                                         device="cpu"))):
+        d0, u0, h1, ok = gcg._rr_struct_warm(h, size_x, bs, msh)
+        if ok:
+            w, u = eigh(h, "newton", msh, warm=(d0, u0), warm_h1=h1,
+                        cluster_first=False)
+        else:
+            w, u = eigh(h, "newton", msh)
+        out[kind] = {"ok": bool(ok), "w": w.numpy(), "u": u.numpy()}
+    return out
+
+
 CLI_NX, CLI_NEV = 8, 6      # n = 512: four blocks of 128 rows
 
 
@@ -771,10 +942,12 @@ TASKS = {
              "mg_one_rank": task_mg_one_rank,
              "hybrid_mesh": task_hybrid_mesh, "grid": task_grid,
              "grid_pas": task_grid_pas, "grid_api": task_grid_api,
-             "cli": task_cli},
+             "cli": task_cli, "newton": task_newton,
+             "newton_gcg": task_newton_gcg,
+             "struct_warm_flag": task_struct_warm_flag},
     "two": {"api_solve": task_api_solve, "host_blocks": task_host_blocks,
             "divisibility": task_divisibility, "mg_api": task_mg_api,
-            "grid_two": task_grid_two},
+            "grid_two": task_grid_two, "newton": task_newton},
 }
 
 
@@ -827,8 +1000,18 @@ def launch(group: str, outdir: str):
     port = free_port()
     procs = [ctx.Process(target=run, args=(r, group, port, outdir))
              for r in range(WORLD[group])]
-    for p in procs:
-        p.start()
+    # one OpenBLAS thread a rank (read when a rank imports numpy): the ranks
+    # share the cores, and numpy's threads would spin against each other
+    blas = os.environ.get("OPENBLAS_NUM_THREADS")
+    os.environ["OPENBLAS_NUM_THREADS"] = "1"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if blas is None:
+            del os.environ["OPENBLAS_NUM_THREADS"]
+        else:
+            os.environ["OPENBLAS_NUM_THREADS"] = blas
     return procs
 
 
