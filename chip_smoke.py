@@ -6,6 +6,7 @@
     python3 chip_smoke.py --dia [--root DIR]
     python3 chip_smoke.py --pas [--root DIR]
     python3 chip_smoke.py --csr [--root DIR]
+    python3 chip_smoke.py --jacobi
     python3 chip_smoke.py --eigh [--root DIR]
     python3 chip_smoke.py --newton-mesh [--root DIR]
 
@@ -203,9 +204,12 @@ Phases, each of which raises on failure:
     and sweep counts), ``eigvalsh`` (eigenvalues within 1e-12 ||H||) and
     ``U^T U = I`` to 1e-12, timed beside ``torch.linalg.eigh`` of the same
     matrices: one matrix of 120 from the card's eigh (the 'jacobi' path's
-    operand), of 120, 80, 160 and 240 from a warm start 1e-6 off, 64
-    blocks of 64 (the cluster stage's batch) and 8 blocks of 480 (the
-    closing stage's batch at nev=200);
+    operand), of 120, 80, 160, 240, 480 and 960 from a warm start 1e-6 off
+    (480 and 960: the 'jacobi' backend's at nev=200 and 400), 64 blocks of
+    64 (the cluster stage's batch), 8 blocks of 480 and of 512 (the
+    closing stage's batch at nev=200 and 400); each with its launch plan
+    (cluster size, rows a block, threads, where H and V live) and its time
+    a round;
 22. projected eigensolvers on the main path — the headline with
     ``rr_backend='jacobi'``, phased and ``fuse=20``, and (after phase
     19's nev=200 row) the nev=200 sweep row with ``rr_backend='newton'``
@@ -224,11 +228,18 @@ Phases, each of which raises on failure:
     bits, iterations and count of phase 22's fused row, the headline
     gates, waits an iteration, and one fused chunk under the sync check.
 
+``--jacobi`` runs phase 1 and then phase 21 alone, each operand also at
+every cluster size that fits the card (1, 2, 4, 8, 16 blocks a matrix),
+with the plan's bits, beside the plan's choice (about 2 minutes).
+
 ``--eigh`` runs phase 1, the nev=400 'auto' row (its InitializeX time:
-the 800-column ``orth_block`` through ``eigh_newton``) and, in a tree
-that has the ported eighs, phase 21 and phase 22's 'newton' row at
-nev=400 (m=960); ``--root DIR`` as for ``--tall`` (a parent: its 'auto'
-row).
+the 800-column ``orth_block`` through ``eigh_newton``), phase 21 and phase
+22's 'newton' row at nev=400 (m=960).  With ``--root DIR`` (a parent
+commit unpacked there) it then runs four turns (parent, tree, tree,
+parent), each ``python3 chip_smoke.py --eigh-turn`` in a process of its
+own with the package of that tree: the Jacobi kernel at every operand of
+phase 21 and the timed nev=200 'newton' solve, whose kernel bits, sweep
+counts, solve bits, iterations and count must be the parent's.
 
 ``--newton-mesh`` runs phase 1 and then phase 23's nev=200 'newton' row
 alone, without a mesh and on a one-rank NCCL row mesh: the captured
@@ -434,10 +445,11 @@ class KernelLog:
         self.by_class = {}      # (key, n, p, q) of kernels 3/4: time, bound
 
     def run(self, key, label, kernel, plain, scale, tol, nbytes, flops,
-            library=None, primary=False, cls=None):
+            library=None, primary=False, cls=None, plain_reps=REPS):
         """scale: the error's reference size, a scalar or per entry;
         tol 0 demands equal bits; cls: the key under which ``by_class``
-        keeps this run's time and bound."""
+        keeps this run's time and bound; plain_reps: the runs of the plain
+        version's median (fewer where one takes seconds)."""
         torch = self.torch
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
@@ -451,12 +463,13 @@ class KernelLog:
         # that it does not count towards a solve's peak memory
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
         ms = median_ms(torch, kernel, flush=flush)
-        plain_ms = median_ms(torch, plain, flush=flush)
+        plain_ms = median_ms(torch, plain, reps=plain_reps, flush=flush)
         lib_ms = None if library is None else \
             median_ms(torch, library, flush=flush)
         back_to_back_ms = median_ms(torch, kernel)
         bound_ms, bound_by = bound(nbytes, flops)
-        self.last = {"ms": ms, "bound_ms": bound_ms}
+        self.last = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms}
         if cls is not None:
             self.by_class[cls] = dict(self.last, library_ms=lib_ms)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
@@ -3582,31 +3595,58 @@ def jacobi_operand(torch, me: int, batch: int, noise: float, seed: int):
     return h, u0, 0.5 * (h1 + h1.transpose(-2, -1))
 
 
-def phase_kernels_jacobi(torch, log):
+JACOBI_CASES = (  # label, me, batch, warm-start error, primary
+    ("120, the card's eigh warm start", 120, 1, 0.0, True),
+    ("120, warm start 1e-6 off", 120, 1, 1e-6, False),
+    ("80, warm start 1e-6 off", 80, 1, 1e-6, False),
+    ("160, warm start 1e-6 off", 160, 1, 1e-6, False),
+    ("240, warm start 1e-6 off", 240, 1, 1e-6, False),
+    ("64 blocks of 64, warm start 1e-6 off", 64, 64, 1e-6, False),
+    ("8 blocks of 480, warm start 1e-6 off", 480, 8, 1e-6, False),
+    ("480, warm start 1e-6 off", 480, 1, 1e-6, False),
+    ("8 blocks of 512, warm start 1e-6 off", 512, 8, 1e-6, False),
+    ("960, warm start 1e-6 off", 960, 1, 1e-6, False))
+# the cluster sizes --jacobi times at each operand beside the plan's
+JACOBI_SIZES = (1, 2, 4, 8, 16)
+
+
+def jacobi_digest(*tensors) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_kernels_jacobi(torch, log, sizes=False):
     """The Jacobi kernel against its plain version (bit for bit, the same
     sweep counts) and beside ``torch.linalg.eigh`` of the same matrices (the
     one library call for the same function), at the shapes the solves give
     it: one matrix of 120 (the 'jacobi' headline's projected problem), 80
-    and 160 (the structural warm start's 2 bs at nev=200 and 400) and 240,
-    a batch of 64 blocks of 64 (eigh_newton's cluster stage) and one of 8
-    blocks of 480 (its closing stage at nev=200, blocks of min(512, m));
-    h1 and v bit for bit the plain version's, its
+    and 160 (the structural warm start's 2 bs at nev=200 and 400), 240,
+    480 and 960 (the 'jacobi' backend's matrix at nev=200 and 400), a
+    batch of 64 blocks of 64 (eigh_newton's cluster stage) and of 8 blocks
+    of 480 and of 512 (its closing stage at nev=200 and 400, blocks of
+    min(512, m)); h1 and v bit for bit the plain version's, its
     eigenvalues within 1e-12 ||H|| of the plain version's and of
-    ``eigvalsh``, ``||U^T U - I|| <= 1e-12``.  The bound counts the sweeps
-    this run's data took, 9 me^3 operations each, at the f64 rate, or the
-    bytes of h1 in and h1 and v out."""
-    from gcge_tpu_torch.ops import eighs
+    ``eigvalsh``, ``||U^T U - I|| <= 1e-12``.  Each row prints the launch
+    plan (cluster size C, rows a block, threads, where H's buffers and V
+    live) and the time a round (the kernel's time over the most sweeps
+    of the batch times me - 1 rounds).  The bound counts the sweeps this
+    run's data took, 9 me^3 operations each, at the f64 rate, or the bytes
+    of h1 in and h1 and v out.  ``sizes``: also each cluster size of
+    :data:`JACOBI_SIZES` that fits the card beside the plan's, with the
+    plan's bits (median of 5 after the flush)."""
+    from gcge_tpu_torch.ops import _build, eighs
 
-    cases = (  # label, me, batch, warm-start error, primary
-        ("120, the card's eigh warm start", 120, 1, 0.0, True),
-        ("120, warm start 1e-6 off", 120, 1, 1e-6, False),
-        ("80, warm start 1e-6 off", 80, 1, 1e-6, False),
-        ("160, warm start 1e-6 off", 160, 1, 1e-6, False),
-        ("240, warm start 1e-6 off", 240, 1, 1e-6, False),
-        ("64 blocks of 64, warm start 1e-6 off", 64, 64, 1e-6, False),
-        ("8 blocks of 480, warm start 1e-6 off", 480, 8, 1e-6, False))
-    for label, me, batch, noise, primary in cases:
+    sms = _build.sm_count(torch.device(DEVICE))
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE) \
+        if sizes else None
+    for label, me, batch, noise, primary in JACOBI_CASES:
         h, u0, h1 = jacobi_operand(torch, me, batch, noise, me + batch)
+        plan = eighs.jacobi_card_plan(me, batch, DEVICE)
         hk, vk, kk = eighs.jacobi_sweeps(h1, JACOBI_SWEEPS)
         hp, vp, kp = eighs.jacobi_sweeps_plain(h1, JACOBI_SWEEPS)
         w = hk.diagonal(dim1=-2, dim2=-1).sort(-1).values
@@ -3640,7 +3680,131 @@ def phase_kernels_jacobi(torch, log):
                 lambda: eighs.jacobi_sweeps_plain(h1, JACOBI_SWEEPS)[0],
                 1.0, 0, 3 * 8 * batch * me * me,
                 9 * sum(sweeps) * (me - 1) * me * me,
-                library=lambda: torch.linalg.eigh(h), primary=primary)
+                library=lambda: torch.linalg.eigh(h), primary=primary,
+                plain_reps=3 if me >= 480 else REPS)
+        rounds = max(sweeps) * (me - 1)
+        last = log.last
+        place = ", ".join(f"{name} in {'shared' if on else 'device'} memory"
+                          for name, on in (("H's buffers", plan.h_shared),
+                                           ("V", plan.v_shared)))
+        per_round = f"{1e3 * last['ms'] / rounds:.3f}" if rounds else "-"
+        held = eighs.jacobi_resident(torch.cuda.current_device(), plan)
+        print(f"kernel jacobi {label}: plan C={plan.cluster} (a cluster of "
+              f"{plan.cluster} blocks a matrix, {batch * plan.cluster} of "
+              f"{sms} SMs; the card holds {held} such clusters at once), "
+              f"{plan.rows} rows a block, {plan.threads} "
+              f"threads, {plan.smem} bytes of shared memory, {place}; "
+              f"{last['ms']:.4f} ms, {per_round} us a round over {rounds} "
+              f"rounds; torch.linalg.eigh {last['library_ms']:.4f} ms "
+              f"(kernel / library {last['ms'] / last['library_ms']:.3f}), "
+              f"bound {last['bound_ms']:.4g} ms")
+        if not sizes:
+            continue
+        times = {}
+        for c in JACOBI_SIZES:
+            if batch * c > sms:
+                continue
+            got = eighs.jacobi_sweeps(h1, JACOBI_SWEEPS, cluster=c)
+            if not all(torch.equal(a, b) for a, b in zip(got, (hk, vk, kk))):
+                raise AssertionError(f"jacobi {label}: the bits at C={c} "
+                                     f"differ from the plan's")
+            times[c] = median_ms(torch, lambda c=c: eighs.jacobi_sweeps(
+                h1, JACOBI_SWEEPS, cluster=c), reps=5, flush=flush)
+        print(f"kernel jacobi {label}: cluster sizes (the plan's bits at "
+              f"each; ms, us a round): " + "; ".join(
+                  f"C={c} {t:.4f} ms, {1e3 * t / max(rounds, 1):.3f} us"
+                  for c, t in times.items()))
+
+
+def eigh_turn(torch):
+    """``--eigh-turn``: one turn of ``--eigh --root``, in a process of its
+    own (the package from ``--root`` or beside this script): the Jacobi
+    kernel at every operand of :data:`JACOBI_CASES` (median of
+    :data:`REPS` after the flush, a digest of h1, v and the sweep counts),
+    then the nev=200 'newton' row with the structural warm start (a
+    warm-up solve, then the timed one: wall, iterations, count, a digest
+    of the eigenvalues and eigenvectors); one ``EIGH_TURN`` JSON line."""
+    from gcge_tpu_torch import gcg_solve, make_operator
+    from gcge_tpu_torch.ops import eighs
+    from gcge_tpu_torch.utils import sweep
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    out = {"kernels": {}}
+    for label, me, batch, noise, _ in JACOBI_CASES:
+        _, _, h1 = jacobi_operand(torch, me, batch, noise, me + batch)
+        hk, vk, kk = eighs.jacobi_sweeps(h1, JACOBI_SWEEPS)
+        ms = median_ms(torch, lambda: eighs.jacobi_sweeps(h1, JACOBI_SWEEPS),
+                       flush=flush)
+        out["kernels"][label] = {"ms": ms, "sweeps": max(kk.tolist()),
+                                 "digest": jacobi_digest(hk, vk, kk)}
+    del flush
+    nev = EIGH_NEV
+    nx = C_REFERENCE[nev][0]
+    (rows, cols, vals, n), _ = stencil(nx)
+    op = make_operator(rows, cols, vals, (n, n), device=DEVICE)
+    params = dataclasses.replace(sweep.production_params(nev, op),
+                                 rr_backend="newton", rr_warm="struct")
+    gcg_solve(op, None, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gcg_solve(op, None, params)
+    torch.cuda.synchronize()
+    out["solve"] = {"wall": time.perf_counter() - t0,
+                    "iterations": res.num_iter, "converged": res.nev_conv,
+                    "digest": jacobi_digest(torch.as_tensor(res.eval),
+                                            res.evec)}
+    print("EIGH_TURN " + json.dumps(out))
+
+
+def phase_eigh_turns(card, parent):
+    """``--eigh --root DIR``: :func:`eigh_turn` for the parent's package
+    (DIR) and this tree's, in turns (parent, tree, tree, parent), each a
+    process of its own on the same card: the kernel's times beside each
+    other and the 'newton' nev=200 solve's walls; raises unless every turn
+    has the same kernel bits and sweep counts and the same solve bits,
+    iterations and count."""
+    turns = []
+    for name in ("parent", "tree", "tree", "parent"):
+        cmd = [sys.executable, os.path.abspath(__file__), "--eigh-turn"]
+        if name == "parent":
+            cmd += ["--root", os.path.abspath(parent)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900, cwd=HERE)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("EIGH_TURN ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"--eigh-turn ({name}) failed "
+                                 f"({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        turns.append((name, json.loads(lines[-1][len("EIGH_TURN "):])))
+    first = turns[0][1]
+    for label, *_ in JACOBI_CASES:
+        ref = first["kernels"][label]
+        times = collections.defaultdict(list)
+        for name, turn in turns:
+            got = turn["kernels"][label]
+            if (got["digest"], got["sweeps"]) != (ref["digest"],
+                                                   ref["sweeps"]):
+                raise AssertionError(f"jacobi {label}: the {name}'s bits or "
+                                     f"sweeps differ from the parent's")
+            times[name].append(round(got["ms"], 4))
+        print(f"kernel jacobi {label} in turns (parent, tree, tree, parent; "
+              f"{card}): parent {times['parent']} ms, tree {times['tree']} "
+              f"ms; the same bits and sweeps ({ref['sweeps']}) in every turn")
+    ref = first["solve"]
+    walls = collections.defaultdict(list)
+    for name, turn in turns:
+        got = turn["solve"]
+        for key in ("digest", "iterations", "converged"):
+            if got[key] != ref[key]:
+                raise AssertionError(f"nev={EIGH_NEV} 'newton': the {name}'s "
+                                     f"{key} {got[key]} differs from the "
+                                     f"parent's {ref[key]}")
+        walls[name].append(round(got["wall"], 3))
+    print(f"wide nev={EIGH_NEV} rr_backend='newton' timed walls in turns "
+          f"(parent, tree, tree, parent; {card}): parent {walls['parent']} s, "
+          f"tree {walls['tree']} s; {ref['iterations']} iterations, "
+          f"{ref['converged']} converged, the same bits in every turn")
 
 
 @contextlib.contextmanager
@@ -3840,9 +4004,7 @@ def phase_eigh_alone(torch):
     """``--eigh``: the Jacobi kernel rows, the 'newton' row with the
     structural warm start at nev=400 (m=960) beside the 'auto' row; and
     the 'auto' nev=400 row's InitializeX (its 800-column block through
-    orth_block: eigh_newton in this tree, safe_eigh in older ones) with its
-    wall.  A tree without the ported eighs (a parent, ``--root``) runs the
-    'auto' row only."""
+    orth_block's eigh_newton) with its wall."""
     from gcge_tpu_torch import gcg_solve, make_operator
     from gcge_tpu_torch.ops import eighs
     from gcge_tpu_torch.utils import sweep
@@ -3868,8 +4030,6 @@ def phase_eigh_alone(torch):
         print(f"wide nev={nev} rr_backend='auto' again: wall "
               f"{time.perf_counter() - t0:.3f} s, InitializeX "
               f"{again.timers['initX']:.3f} s")
-    if not hasattr(eighs, "jacobi_sweeps"):
-        return
     phase_kernels_jacobi(torch, KernelLog(torch))
     phase_newton_wide(torch, None, nev, res.eval)
 
@@ -4127,7 +4287,10 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    root = argv[argv.index("--root") + 1] if "--root" in argv else HERE
+    # --eigh --root DIR runs this tree and the parent's turns in processes
+    # of their own (phase_eigh_turns)
+    root = argv[argv.index("--root") + 1] \
+        if "--root" in argv and "--eigh" not in argv else HERE
     sys.path.insert(0, os.path.abspath(root))
     import gcge_tpu_torch  # noqa: F401  (fails here, before any output, without the package)
 
@@ -4162,8 +4325,19 @@ def main(argv) -> int:
               f"{time.perf_counter() - T_START:.0f} s")
         print(card)
         return 0
+    if "--eigh-turn" in argv:
+        eigh_turn(torch)
+        return 0
+    if "--jacobi" in argv:
+        phase_kernels_jacobi(torch, KernelLog(torch), sizes=True)
+        print(f"chip_smoke --jacobi ({gcge_tpu_torch.__file__}): "
+              f"{time.perf_counter() - T_START:.0f} s")
+        print(card)
+        return 0
     if "--eigh" in argv:
         phase_eigh_alone(torch)
+        if "--root" in argv:
+            phase_eigh_turns(card, argv[argv.index("--root") + 1])
         print(f"chip_smoke --eigh ({gcge_tpu_torch.__file__}): "
               f"{time.perf_counter() - T_START:.0f} s")
         print(card)

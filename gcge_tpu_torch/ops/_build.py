@@ -61,7 +61,9 @@ SIGNATURES = {
     "gcge_slice_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                         _P),
     "gcge_bf16_mma_tile_check": (_P, _P, _P, _P),
-    "gcge_jacobi_sweeps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "gcge_jacobi_sweeps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    "gcge_jacobi_max_clusters": (_I, _I, _I, _I, _I),
 }
 
 _lib = None

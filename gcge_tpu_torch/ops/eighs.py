@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -260,29 +261,138 @@ def jacobi_sweeps_plain(h1: torch.Tensor, sweeps: int):
 
 # shared memory a block of the Jacobi kernel may take (of the H100's 227 KB)
 JACOBI_SMEM = 227 * 1024
+# the most blocks a cluster of the Jacobi kernel may have (Hopper's
+# non-portable cluster size), and the SMs the plan assumes off the card
+JACOBI_MAX_CLUSTER = 16
+JACOBI_SMS = 132
+# the plan gives a block at least this many rows of its matrix
+JACOBI_MIN_ROWS = 4
 
 
-def jacobi_plan(me: int) -> tuple[int, bool, bool, int]:
-    """Launch plan of the Jacobi kernel for matrices of order ``me``:
-    ``(threads, h_shared, v_shared, smem_bytes)``.  A block holds one
-    matrix; ``h`` moves to shared memory where it fits beside the round's
-    rotations and pair indices, ``v`` too where both fit, and what does not
-    fit is updated in place in device memory (the L2 cache holds it)."""
+@dataclass(frozen=True)
+class JacobiPlan:
+    """Launch plan of the Jacobi kernel: a cluster of ``cluster`` blocks a
+    matrix, each owning ``rows`` consecutive rows (the last blocks may own
+    fewer or none) and running ``threads`` threads; H's two buffers in
+    shared memory where ``h_shared`` (else in device memory), V where
+    ``v_shared``; ``smem`` bytes of dynamic shared memory a block."""
+    cluster: int
+    rows: int
+    threads: int
+    h_shared: bool
+    v_shared: bool
+    smem: int
+
+
+def _jacobi_layout(me: int, cluster: int, rows: int) -> JacobiPlan | None:
+    """Threads and placement of ``cluster`` blocks of ``rows`` rows: a
+    thread per column pair and a group of rows (up to 512 threads of
+    pairs, at most 1,024), and the shared memory of ``csrc/jacobi.cu``'s
+    layout: H's two buffers where they fit beside the tables, V where it
+    fits beside them; None where the tables alone do not fit."""
     m2 = me // 2
-    threads = 256 if me <= 32 else (512 if me <= 64 else 1024)
-    base = 16 * m2 + 8 * m2 + 8 * (threads // 32) + 16
-    mat = 8 * me * me
-    h_shared = base + mat <= JACOBI_SMEM
-    v_shared = h_shared and base + 2 * mat <= JACOBI_SMEM
-    smem = base + mat * (int(h_shared) + int(v_shared))
-    return threads, h_shared, v_shared, smem
+    groups = max(1, min(rows, 512 // m2)) if m2 <= 512 else 1
+    threads = min(1024, -(-m2 * groups // 32) * 32)
+    base = 32 * m2 + 16 * me + 20 * rows + 288
+    if base > JACOBI_SMEM:
+        return None
+    mat = 8 * rows * me
+    h_shared = base + 2 * mat <= JACOBI_SMEM
+    v_shared = base + mat * (2 * int(h_shared) + 1) <= JACOBI_SMEM
+    smem = base + mat * (2 * int(h_shared) + int(v_shared))
+    return JacobiPlan(cluster, rows, threads, h_shared, v_shared, smem)
 
 
-def jacobi_sweeps(h1: torch.Tensor, sweeps: int):
+def jacobi_plan(me: int, batch: int, sms: int = JACOBI_SMS,
+                cluster: int | None = None, resident=None) -> JacobiPlan:
+    """Launch plan of the Jacobi kernel for ``batch`` matrices of order
+    ``me`` on a card of ``sms`` SMs.  Of the cluster sizes C from
+    ``min(16, sms // batch)`` (at least :data:`JACOBI_MIN_ROWS` rows a
+    block) down to 1, each with ``ceil(me / C)`` rows a block and C cut to
+    the blocks that own rows, it takes the one of least cost ``waves x
+    (rows x me x (2 where V lies in device memory, else 1) + 4,096)``: the
+    waves are ``ceil(batch / resident(plan))``, where ``resident(plan)``
+    is the number of such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; ``sms // C`` where it is not
+    given), 4,096 prices a round's fixed chain in row entries, and V in
+    device memory doubles a row's cost (measured on an H100: 8 blocks of
+    480 run faster on 9 blocks each with V in shared memory than on 16 in
+    two waves, 8 of 512 the other way round).  Ties go to the larger C.
+    ``cluster`` forces C (measurements and tests; blocks may then own no
+    rows).  A plan the card cannot hold once raises ``RuntimeError``."""
+    if me < 2 or me % 2:
+        raise ValueError(f"jacobi_plan: even order expected, got {me}")
+    if cluster is not None:
+        if not 1 <= cluster <= JACOBI_MAX_CLUSTER:
+            raise ValueError(f"jacobi_plan: cluster of 1 to "
+                             f"{JACOBI_MAX_CLUSTER} blocks, got {cluster}")
+        plans = [_jacobi_layout(me, cluster, -(-me // cluster))]
+    else:
+        top = min(JACOBI_MAX_CLUSTER, max(1, sms // max(batch, 1)),
+                  -(-me // JACOBI_MIN_ROWS))
+        plans = []
+        for c in range(top, 0, -1):
+            rows = -(-me // c)
+            plans.append(_jacobi_layout(me, -(-me // rows), rows))
+    plans = [plan for plan in plans if plan is not None]
+    if not plans:
+        raise ValueError(f"jacobi_plan: order {me} needs more than "
+                         f"{JACOBI_SMEM} bytes of tables a block")
+    best, best_cost = None, None
+    for plan in plans:
+        held = resident(plan) if resident is not None \
+            else sms // plan.cluster
+        if held < 1:
+            continue
+        waves = -(-batch // held)
+        cost = waves * (plan.rows * me * (1 + (not plan.v_shared)) + 4096)
+        if best is None or cost < best_cost:
+            best, best_cost = plan, cost
+    if best is None:
+        plan = plans[-1]
+        raise RuntimeError(f"jacobi_plan: the card holds no cluster of "
+                           f"{plan.cluster} blocks of {plan.threads} threads "
+                           f"and {plan.smem} bytes of shared memory")
+    return best
+
+
+@lru_cache(maxsize=None)
+def jacobi_resident(index: int, plan: JacobiPlan) -> int:
+    """Clusters of ``plan``'s shape card ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once for each shape."""
+    with torch.cuda.device(index):
+        held = _build.lib().gcge_jacobi_max_clusters(
+            plan.cluster, plan.threads, int(plan.h_shared),
+            int(plan.v_shared), plan.smem)
+    if held < 0:
+        _build.check("gcge_jacobi_max_clusters", -held)
+    return held
+
+
+def jacobi_card_plan(me: int, batch: int, device,
+                     cluster: int | None = None) -> JacobiPlan:
+    """:func:`jacobi_plan` on a card: its SMs, and its occupancy asked
+    once for each shape; each plan made once."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _card_plan(me, batch, index, cluster)
+
+
+@lru_cache(maxsize=None)
+def _card_plan(me: int, batch: int, index: int,
+               cluster: int | None) -> JacobiPlan:
+    return jacobi_plan(me, batch, _build.sm_count(torch.device("cuda", index)),
+                       cluster, lambda plan: jacobi_resident(index, plan))
+
+
+def jacobi_sweeps(h1: torch.Tensor, sweeps: int, cluster: int | None = None):
     """The Jacobi sweeps of :func:`jacobi_sweeps_plain` on ``h1 (me, me)``
     or ``(B, me, me)``, f64, ``me`` even: on a CUDA tensor one launch of the
-    kernel of ``csrc/jacobi.cu`` (every sweep, round and stop test inside
-    it, no host read); on a CPU tensor the plain version."""
+    kernel of ``csrc/jacobi.cu`` (a cluster of blocks a matrix; every
+    sweep, round and stop test inside it, no host read); on a CPU tensor
+    the plain version.  ``cluster`` forces the cluster size (measurements
+    and tests; the same bits at every size)."""
     if h1.dim() not in (2, 3) or h1.shape[-1] != h1.shape[-2] \
             or h1.shape[-1] % 2:
         raise ValueError(f"jacobi_sweeps: (B, me, me) or (me, me) with me "
@@ -300,12 +410,16 @@ def jacobi_sweeps(h1: torch.Tensor, sweeps: int):
     v = torch.empty_like(batch)
     k = torch.empty((nb,), dtype=torch.int32, device=h1.device)
     if nb:
-        threads, h_shared, v_shared, smem = jacobi_plan(me)
+        plan = jacobi_card_plan(me, nb, h1.device, cluster)
+        # H's second buffer, where it does not live in shared memory
+        scratch = batch if plan.h_shared else torch.empty_like(batch)
         with torch.cuda.device(h1.device):
             stream = torch.cuda.current_stream(h1.device).cuda_stream
             err = _build.lib().gcge_jacobi_sweeps(
-                batch.data_ptr(), v.data_ptr(), k.data_ptr(), nb, me, sweeps,
-                threads, int(h_shared), int(v_shared), smem, stream)
+                batch.data_ptr(), scratch.data_ptr(), v.data_ptr(),
+                k.data_ptr(), nb, me, sweeps, plan.cluster, plan.rows,
+                plan.threads, int(plan.h_shared), int(plan.v_shared),
+                plan.smem, stream)
         _build.check("gcge_jacobi_sweeps", err)
         LAUNCHES["jacobi"] += 1
     return (batch.reshape(h1.shape), v.reshape(h1.shape),

@@ -1588,13 +1588,16 @@ def _warm_h1(me, batch, noise, device, seed):
 
 @pytest.mark.parametrize("me,batch,noise", [
     (2, 3, 1.0), (64, 64, 1e-6), (120, 1, 1e-6), (80, 1, 1e-3),
-    (160, 1, 1e-6), (240, 1, 1e-6), (120, 1, 0.0), (480, 2, 1e-6)])
+    (160, 1, 1e-6), (240, 1, 1e-6), (120, 1, 0.0), (480, 2, 1e-6),
+    (480, 1, 1e-6), (512, 8, 1e-6), (960, 1, 1e-6), (100, 1, 1e-6)])
 def test_jacobi_kernel_has_the_plain_bits(cuda, me, batch, noise):
     """The Jacobi kernel (``csrc/jacobi.cu``) at the launch shapes of the
-    solves (a batch of cluster blocks, one matrix with h1 and v in shared
-    memory, h1 alone there, neither) against its plain version on the card:
-    the same sweep counts and the same bits (both round every operation
-    once, in the same order), twice."""
+    solves (a batch of cluster blocks over two SMs each; one matrix on a
+    cluster of 16 with H's buffers and V in shared memory, V alone there
+    (480, 512), neither (960); 100 over 15 blocks of 7 rows and the last
+    of 2) against its plain version on the card: the same sweep counts and
+    the same bits (both round every operation once, in the same order),
+    twice."""
     h1 = _warm_h1(me, batch, noise, cuda, me)
     for _ in range(2):
         hk, vk, kk = eighs.jacobi_sweeps(h1, 6)
@@ -1604,6 +1607,24 @@ def test_jacobi_kernel_has_the_plain_bits(cuda, me, batch, noise):
         assert torch.equal(hk, hp) and torch.equal(vk, vp)
     if noise:
         assert int(kk.min()) > 0
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 16])
+@pytest.mark.parametrize("me,batch", [(2, 2), (30, 3), (240, 2)])
+def test_jacobi_kernel_at_every_cluster_size_has_the_plain_bits(
+        cuda, me, batch, cluster):
+    """The kernel with its cluster size forced (blocks that own no rows at
+    me = 2 over 3 or 16, and at 30 over 16; 240 over 16 as the plan's,
+    over 1 with both matrices in device memory): the plain version's bits
+    and sweep counts, launched as a cluster."""
+    h1 = _warm_h1(me, batch, 1e-3, cuda, me + cluster)
+    before = eighs.LAUNCHES["jacobi"]
+    hk, vk, kk = eighs.jacobi_sweeps(h1, 6, cluster=cluster)
+    hp, vp, kp = eighs.jacobi_sweeps_plain(h1, 6)
+    torch.cuda.synchronize()
+    assert eighs.LAUNCHES["jacobi"] == before + 1
+    assert torch.equal(kk, kp) and int(kk.min()) > 0
+    assert torch.equal(hk, hp) and torch.equal(vk, vp)
 
 
 @pytest.mark.parametrize("me,batch", [(64, 64), (480, 8)])

@@ -178,36 +178,73 @@ def test_eigh_backend_matches_jax(backend):
         T.eigh(torch.as_tensor(h), "lapack")
 
 
-def _kernel_schedule(h1, sweeps):
-    """The Jacobi kernel's schedule (``csrc/jacobi.cu``) in numpy: positions
-    stay put, round r pairs the indices ``pi_r(i)`` and ``pi_r(me-1-i)``,
-    every 2 x 2 block rotated in place, rows then columns; the rotations
-    from ``_schur_cs`` on the same vector the plain round builds."""
+def _kernel_schedule(h1, sweeps, cluster=1):
+    """The Jacobi kernel's schedule (``csrc/jacobi.cu``) in numpy: a
+    cluster of ``cluster`` blocks, block j owning the rows ``[j R, (j+1)
+    R)``, ``R = ceil(me / cluster)`` (the last blocks may own fewer or
+    none); positions stay put, round r pairs the indices ``pi_r(i)`` and
+    ``pi_r(me-1-i)``; H double-buffered: every block forms all the round's
+    rotations (``_schur_cs``) from the current buffer, then computes the
+    new values of its own rows only, each from its old row and its
+    partner's old row fetched from the owner (row rotation, then the
+    column rotations within the row), into the other buffer; V's rows never
+    leave their block.  The stop test is the max over the blocks of each
+    block's max over its rows."""
     h, me = h1.copy(), h1.shape[0]
     m2 = me // 2
+    rows = -(-me // cluster)
+    owned = [np.arange(j * rows, min(me, (j + 1) * rows))
+             for j in range(cluster)]
     v = np.eye(me)
-    scale = max(np.abs(h).max(), 1e-300)
+
+    def cluster_max(a):
+        return max([np.abs(a[o]).max() for o in owned if o.size] + [0.0])
+
+    scale = max(cluster_max(h), 1e-300)
+    p, q = np.arange(m2), me - 1 - np.arange(m2)     # pi_0: the identity
+    pos = np.arange(me)
     k = 0
-    while k < sweeps and np.abs(h - np.diag(np.diag(h))).max() > 1e-13 * scale:
-        for r in range(me - 1):
-            pi = np.r_[0, 1 + (np.arange(me - 1) - r) % (me - 1)]
-            p, q = pi[:m2], pi[::-1][:m2]
-            c, s = (x.numpy() for x in T._schur_cs(
-                torch.as_tensor(h[p, p]), torch.as_tensor(h[q, q]),
-                torch.as_tensor(h[p, q])))
-            ca, sa, cb, sb = c[:, None], s[:, None], c[None, :], s[None, :]
-            hpp, hpq = h[np.ix_(p, p)], h[np.ix_(p, q)]
-            hqp, hqq = h[np.ix_(q, p)], h[np.ix_(q, q)]
-            rpp, rqp = ca * hpp - sa * hqp, sa * hpp + ca * hqp
-            rpq, rqq = ca * hpq - sa * hqq, sa * hpq + ca * hqq
-            h[np.ix_(p, p)] = cb * rpp - sb * rpq
-            h[np.ix_(p, q)] = sb * rpp + cb * rpq
-            h[np.ix_(q, p)] = cb * rqp - sb * rqq
-            h[np.ix_(q, q)] = sb * rqp + cb * rqq
-            vp, vq = v[:, p].copy(), v[:, q].copy()
-            v[:, p], v[:, q] = cb * vp - sb * vq, sb * vp + cb * vq
+    while k < sweeps and cluster_max(h - np.diag(np.diag(h))) > \
+            1e-13 * scale:
+        for _ in range(me - 1):
+            new = np.empty_like(h)
+            for o in owned:
+                if not o.size:
+                    continue
+                c, s = (x.numpy() for x in T._schur_cs(
+                    torch.as_tensor(h[p, p]), torch.as_tensor(h[q, q]),
+                    torch.as_tensor(h[p, q])))
+                pside = pos[o] < m2
+                a = np.where(pside, pos[o], me - 1 - pos[o])
+                partner = np.where(pside, q[a], p[a])
+                ca, sa = c[a][:, None], s[a][:, None]
+                cb, sb = c[None, :], s[None, :]
+                x0, x1 = h[o][:, p], h[o][:, q]
+                y0, y1 = h[partner][:, p], h[partner][:, q]
+                ps = pside[:, None]
+                r0 = np.where(ps, ca * x0 - sa * y0, sa * y0 + ca * x0)
+                r1 = np.where(ps, ca * x1 - sa * y1, sa * y1 + ca * x1)
+                new[o[:, None], p] = cb * r0 - sb * r1
+                new[o[:, None], q] = sb * r0 + cb * r1
+                vp, vq = v[o][:, p], v[o][:, q]
+                v[o[:, None], p] = cb * vp - sb * vq
+                v[o[:, None], q] = sb * vp + cb * vq
+            h = new
+            # the next round's maps, advanced without division
+            p = np.where(p == 0, 0, np.where(p == 1, me - 1, p - 1))
+            q = np.where(q == 0, 0, np.where(q == 1, me - 1, q - 1))
+            pos = np.where(pos == 0, 0, np.where(pos == me - 1, 1, pos + 1))
         k += 1
     return h, v, k
+
+
+def _warm_operand(me, noise):
+    rng = np.random.default_rng(me)
+    a = rng.standard_normal((me, me))
+    _, q = np.linalg.eigh(a + a.T)
+    qn = q + noise * rng.standard_normal(q.shape)
+    h1 = qn.T @ (a + a.T) @ qn
+    return 0.5 * (h1 + h1.T)
 
 
 @pytest.mark.parametrize("me,noise", [(2, 1.0), (8, 1e-3), (20, 1e-2),
@@ -216,14 +253,9 @@ def test_jacobi_kernel_schedule_has_the_plain_bits(me, noise):
     """The kernel's in-place schedule gives the systolic round's bits and
     sweep count (the permutations sigma compose to the index map pi_r, and
     a sweep restores the identity), and pairs in each round the indices
-    that ``_round_robin_rounds`` pairs; the launch plan keeps a block within
-    the H100's 227 KB and puts h1 and v in shared memory where they fit."""
-    rng = np.random.default_rng(me)
-    a = rng.standard_normal((me, me))
-    _, q = np.linalg.eigh(a + a.T)
-    qn = q + noise * rng.standard_normal(q.shape)
-    h1 = qn.T @ (a + a.T) @ qn
-    h1 = 0.5 * (h1 + h1.T)
+    that ``_round_robin_rounds`` pairs; one block a matrix here, clusters
+    in ``test_jacobi_cluster_schedule_has_the_plain_bits``."""
+    h1 = _warm_operand(me, noise)
     hk, vk, kk = _kernel_schedule(h1, 6)
     hp, vp, kp = T.jacobi_sweeps(torch.as_tensor(h1), 6)
     # the index map pairs what the circle method pairs, round by round
@@ -234,12 +266,79 @@ def test_jacobi_kernel_schedule_has_the_plain_bits(me, noise):
             sorted(zip(lo, hi))
     assert kk == int(kp) > 0
     assert np.array_equal(hk, hp.numpy()) and np.array_equal(vk, vp.numpy())
-    for m_e, placed in ((64, (True, True)), (120, (True, True)),
-                        (160, (True, False)), (168, (True, False)),
-                        (240, (False, False)), (512, (False, False))):
-        threads, h_sh, v_sh, smem = T.jacobi_plan(m_e)
-        assert (h_sh, v_sh) == placed and smem <= T.JACOBI_SMEM
-        assert threads % 32 == 0 and threads <= 1024
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("me,noise", [(2, 1.0), (10, 1e-2), (30, 1e-6)])
+def test_jacobi_cluster_schedule_has_the_plain_bits(me, noise, cluster):
+    """The cluster partition of the kernel (rows by physical index over C
+    blocks, each block computing its own rows from its partners' old rows,
+    every block its own rotations) gives the plain version's bits and
+    sweep counts, also where C does not divide me and where blocks own no
+    rows (me = 2 over 3, 4 or 16 blocks; me = 30 over 16: 15 blocks of 2
+    and one of none)."""
+    h1 = _warm_operand(me, noise)
+    hk, vk, kk = _kernel_schedule(h1, 6, cluster)
+    hp, vp, kp = T.jacobi_sweeps_plain(torch.as_tensor(h1), 6)
+    assert kk == int(kp) > 0
+    assert np.array_equal(hk, hp.numpy()) and np.array_equal(vk, vp.numpy())
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("me", [64, 80, 120, 160, 240, 480, 512, 960])
+def test_jacobi_plan_fits_the_card(me, batch):
+    """The launch plan at the solves' operands: a cluster of at most 16
+    blocks, batch x C within the H100's 132 SMs, every block owning rows
+    and together all of them, at most 227 KB of shared memory a block,
+    threads a multiple of 32 (at most 1,024), one thread for each column
+    pair and row group; H's two buffers in shared memory where they fit,
+    else V where it fits; a single matrix on the largest cluster; a forced
+    cluster size keeps its empty blocks; the batches of the closing stage
+    on the cluster size of least cost where the card holds fewer clusters
+    than the batch."""
+    plan = T.jacobi_plan(me, batch)
+    c, rows = plan.cluster, plan.rows
+    assert 1 <= c <= T.JACOBI_MAX_CLUSTER and batch * c <= T.JACOBI_SMS \
+        or c == 1
+    assert rows * (c - 1) < me <= rows * c
+    assert plan.smem <= T.JACOBI_SMEM
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.threads >= min(me // 2, 512)
+    mat = 8 * rows * me
+    base = plan.smem - mat * (2 * plan.h_shared + plan.v_shared)
+    assert plan.h_shared == (base + 2 * mat <= T.JACOBI_SMEM)
+    assert plan.v_shared == (base + mat * (2 * plan.h_shared + 1)
+                             <= T.JACOBI_SMEM)
+    if batch == 1:
+        assert c == -(-me // -(-me // 16))
+    forced = T.jacobi_plan(me, batch, cluster=16)
+    assert forced.cluster == 16 and forced.rows == -(-me // 16)
+    # a card that holds 7 clusters of 10 to 16 blocks: 8 blocks of 480 on
+    # clusters of 9 in one wave (V in shared memory), 8 of 512 on 16 in two
+    # (V would not fit on 9)
+    held = T.jacobi_plan(me, batch, resident=lambda p: 7 if p.cluster >= 10
+                         else T.JACOBI_SMS // p.cluster)
+    if (me, batch) == (480, 8):
+        assert (held.cluster, held.v_shared) == (9, True)
+    if (me, batch) == (512, 8):
+        assert (held.cluster, held.v_shared) == (16, True)
+
+
+def test_jacobi_plan_raises_where_the_card_holds_no_cluster():
+    """A plan the card cannot launch raises: no silent second path."""
+    with pytest.raises(RuntimeError, match="holds no cluster"):
+        T.jacobi_plan(240, 1, resident=lambda p: 0)
+    with pytest.raises(RuntimeError, match="holds no cluster"):
+        T.jacobi_plan(240, 1, cluster=16, resident=lambda p: 0)
+    with pytest.raises(ValueError, match="cluster of 1 to 16"):
+        T.jacobi_plan(240, 1, cluster=17)
+    with pytest.raises(ValueError, match="even order"):
+        T.jacobi_plan(15, 1)
+    # the largest orders: a cluster of 16 holds the tables one block
+    # cannot, and past that the plan refuses
+    assert T.jacobi_plan(4466, 1).cluster == 16
+    with pytest.raises(ValueError, match="bytes of tables"):
+        T.jacobi_plan(7200, 1)
 
 
 def _struct_matrix(rng, size_x, bs, coupling):
